@@ -1,35 +1,61 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA card and check them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports
 ``repro_torch`` from ``src/`` (never jax, never ``repro``) and:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds every CUDA kernel of the path from ``src/repro_torch/kernels/csrc``;
-3. holds each kernel bitwise equal to its plain PyTorch version on the card,
-   in float32 and float64, at the shapes of ``tests/test_torch_cover.py``
-   and at every shape the main path gives it: the frontier at each budget
+2. builds every CUDA kernel of the paths from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, all started together) and prints each kernel's
+   registers and spills;
+3. holds the cover kernel bitwise equal to its plain PyTorch version on the
+   card, in float32 and float64, at the shapes of ``tests/test_torch_cover.py``
+   and at every shape the planning path gives it: the frontier at each budget
    (N = 100: 9 x 32768 x 100; N = 720: 30 x 32768 x 720) and
    ``simulate_fifo``'s (64 * 32768, 10, 10) grid, unmasked and masked to
    5 x 5; times the largest frontier beside the kernel's memory bound;
-4. runs the main path, ``plan_sweep`` over Exp, SExp, Pareto(1.5) and the
+4. holds the RMSNorm and flash-attention kernels to their plain versions
+   within ``tests/test_kernels.py``'s ``TOL`` (float32 2e-5, bfloat16 3e-2)
+   at the serving path's shapes -- RMSNorm (1024, 1536) and (1, 1536), plain
+   and ``plus_one``; attention prefill (1, 1024, 12, 128) over 2 KV heads,
+   causal; decode Sq = 1 against a 1056-slot cache holding -1 slots; a
+   gemma-shaped head_dim 256 case and a sliding-window case -- and times
+   each beside its bound, its plain version and one PyTorch library call
+   (``torch.nn.functional.rms_norm``, ``scaled_dot_product_attention``, which
+   the port never calls);
+5. runs the planning path, ``plan_sweep`` over Exp, SExp, Pareto(1.5) and the
    §VII heavy-tail trace job ``job6`` across budgets N in {100, 720} with
-   32768 reps, with the launch counter set to 0 just before and read just
-   after (one kernel launch per grid point); checks the Exp and SExp
+   32768 reps, with the launch counters set to 0 just before and read just
+   after (one cover launch per grid point); checks the Exp and SExp
    frontier means against the closed form ``analysis.mean_T``; prints each
    grid point's B* and wall time, the sampler's share of a frontier pass,
    and the card's idle share over one ``plan_cluster`` (``torch.profiler``);
-5. runs ``simulate_fifo`` on the card the same way and checks its accounting
+6. runs ``simulate_fifo`` on the card the same way and checks its accounting
    invariant;
-6. prints the kernels line, then, last, the one-line JSON result.
+7. runs the serving path, ``repro_torch.launch.serve.main`` at the full
+   width and depth of qwen2-1.5b (4 requests, prompt 1024, gen 32, batch 1,
+   seeded weights), with the counters set to 0 just before and read just
+   after: 57 RMSNorm and 28 attention launches per forward, (1 + gen)
+   forwards per request, 2 cover launches for the planner; prints each
+   request's ms with its prefill / decode split, the peak device memory and
+   the planner's line;
+8. profiles one decode step of the served model for the card's idle share
+   and its device time by kernel;
+9. checks the KV cache at full width: in float32 compute with TF32 off,
+   prefill 8 tokens and decode 4, each step's logits against the
+   teacher-forced ``forward`` within 2e-3;
+10. prints the kernels line, then, last, the one-line JSON result.
 
 Any failed phase exits non-zero and prints no result; so does a run without
 a CUDA device or without the repo's sources beside the script.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -38,15 +64,22 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data sheet: HBM3 rate and float32 rate outside the tensor cores
+# H100 SXM data sheet: HBM3 rate, float32 rate outside the tensor cores, and
+# the dense bf16 tensor-core rate
 CARD_BYTES_PER_S = 3.35e12
 CARD_F32_FLOP_PER_S = 67e12
+CARD_BF16_FLOP_PER_S = 989e12
 
 N_REPS = 32768
 BUDGETS = (100, 720)
 SEED = 1
 # simulate_fifo's workload: N workers in B batches (r = N / B), FIFO_JOBS jobs
 FIFO_N, FIFO_B, FIFO_JOBS = 100, 10, 64
+# the serving cell: qwen2-1.5b at full width and depth, batch 1
+SERVE_ARCH = "qwen2-1.5b"
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN, SERVE_WORKERS = 4, 1024, 32, 8
+# tests/test_kernels.py's TOL (atol = rtol) by dtype name
+TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 
 
 class PhaseFailed(Exception):
@@ -88,10 +121,23 @@ def cover_bound_ms(n_cand: int, n_reps: int, n_slots: int, itemsize: int) -> tup
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def device_busy_ms(fn) -> tuple[float, float]:
-    """Host-clock ms of ``fn()`` up to a synchronise, and the ms the card spent
-    in kernels and copies meanwhile, summed from a ``torch.profiler`` trace
-    (0 when the trace shows no device activity)."""
+def close_to(got, want, dtype_name: str) -> tuple[bool, float]:
+    """``|got - want| <= TOL * (1 + |want|)`` everywhere, and the max |difference|."""
+    import torch
+
+    tol = TOL[dtype_name]
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    ok = bool(torch.isfinite(g).all()) and bool((err <= tol + tol * w.abs()).all())
+    return ok, float(err.max()) if err.numel() else 0.0
+
+
+def profile_device(fn, host: dict | None = None) -> tuple[float, dict]:
+    """Host-clock ms of ``fn()`` up to a synchronise, and the microseconds the
+    card spent in each kernel or copy meanwhile, by name, from a
+    ``torch.profiler`` trace (empty when the trace shows no device activity).
+    With ``host`` given, also sums each host-side operator's own (self) CPU
+    microseconds into it, by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -100,12 +146,37 @@ def device_busy_ms(fn) -> tuple[float, float]:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_us = sum(
-        e.time_range.elapsed_us()
-        for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    return wall_ms, busy_us / 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        elif host is not None:
+            host[e.name] = host.get(e.name, 0.0) + e.self_cpu_time_total
+    return wall_ms, by_name
+
+
+def device_ms_per_call(fn, iters: int = 20) -> float:
+    """The card's busy time per call of ``fn`` (kernels and copies, from a
+    ``torch.profiler`` trace of ``iters`` calls after a warm-up): the
+    kernel's own time, free of the host's launch overhead that CUDA events
+    around back-to-back calls also see when each call is short."""
+    fn()
+    _, by_name = profile_device(lambda: [fn() for _ in range(iters)])
+    return sum(by_name.values()) / 1e3 / iters
+
+
+def device_busy_ms(fn) -> tuple[float, float]:
+    """Host-clock ms of ``fn()`` up to a synchronise, and the ms the card spent
+    in kernels and copies meanwhile (0 when the trace shows no device activity)."""
+    wall_ms, by_name = profile_device(fn)
+    return wall_ms, sum(by_name.values()) / 1e3
+
+
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float) -> tuple[float, str]:
+    """The larger of bytes over the memory rate and operations over the peak rate."""
+    by_bytes = n_bytes / CARD_BYTES_PER_S * 1e3
+    by_ops = n_ops / ops_per_s * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 # --------------------------------------------------------------------------
@@ -128,12 +199,13 @@ def phase_build() -> None:
 
     phase("build")
     t0 = time.perf_counter()
-    log = _build.build("cover")
-    print(f"[cover] {_build.library_path('cover')}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            print("   ", line.strip())
-    print(f"built in {time.perf_counter() - t0:.3f} s", flush=True)
+    logs = _build.build_all()
+    for name in _build.SOURCES:
+        print(f"[{name}] {_build.library_path(name)}")
+        for line in logs[name].splitlines():
+            if any(w in line for w in ("entry function", "registers", "spill", "rror")):
+                print("   ", line.strip())
+    print(f"built {len(logs)} sources in {time.perf_counter() - t0:.3f} s", flush=True)
 
 
 def _masked_case(torch, dtype, dev):
@@ -398,6 +470,302 @@ def phase_fifo() -> None:
           f"off {off.response_times.mean():.4f}")
 
 
+def _randn(torch, shape, dtype, seed, scale=1.0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+def phase_rmsnorm_vs_plain() -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch._device import time_on_card
+    from repro_torch.kernels import rmsnorm
+
+    phase("RMSNorm kernel vs plain version (TOL, on the card)")
+    rows, d = SERVE_PROMPT, 1536  # a qwen2-1.5b prefill: 1024 tokens of d_model 1536
+    max_err, record = 0.0, None
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        for shape in [(rows, d), (1, d)]:  # prefill and decode
+            x = _randn(torch, shape, dtype, SEED)
+            for w_dtype in (dtype, torch.float32):  # the final norm keeps a float32 weight
+                w = _randn(torch, (d,), w_dtype, SEED + 1, 0.1)
+                for plus_one in (False, True):
+                    ok, err = close_to(rmsnorm.rms_norm_fused(x, w, plus_one=plus_one),
+                                       rmsnorm.rms_norm_ref(x, w, plus_one=plus_one), name)
+                    max_err = max(max_err, err)
+                    check(ok, f"rmsnorm {name} {shape} w {w_dtype} plus_one={plus_one}: "
+                              f"max |err| {err} beyond TOL {TOL[name]}")
+        x = _randn(torch, (rows, d), dtype, SEED)
+        w = _randn(torch, (d,), dtype, SEED + 1, 0.1)
+        ms = device_ms_per_call(lambda: rmsnorm.rms_norm_fused(x, w), iters=50)
+        call_ms = time_on_card(lambda: rmsnorm.rms_norm_fused(x, w), iters=50)
+        plain_ms = device_ms_per_call(lambda: rmsnorm.rms_norm_ref(x, w), iters=50)
+        lib_ms = device_ms_per_call(lambda: F.rms_norm(x, (d,), w, eps=1e-6), iters=50) \
+            if hasattr(F, "rms_norm") else None
+        n_bytes = 2 * x.numel() * x.element_size() + d * w.element_size()
+        bnd, by = bound_ms(n_bytes, 4 * x.numel(), CARD_F32_FLOP_PER_S)
+        lib = f"{lib_ms:.5f} ms" if lib_ms is not None else "not available"
+        print(f"{name}: ({rows}, {d}) within TOL; device time per call: kernel {ms:.5f} ms, "
+              f"plain {plain_ms:.5f} ms, F.rms_norm {lib}; bound {bnd:.5f} ms ({by}), kernel "
+              f"at {bnd / ms:.1%} of bound; back-to-back wrapper calls (CUDA events, host "
+              f"launch cost included) {call_ms:.5f} ms", flush=True)
+        if dtype == torch.bfloat16:  # the served path's dtype
+            record = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                      "library_ms": lib_ms}
+        dx = _randn(torch, (1, d), dtype, SEED)
+        print(f"{name}: decode (1, {d}) kernel device time per call "
+              f"{device_ms_per_call(lambda: rmsnorm.rms_norm_fused(dx, w), iters=50):.5f} ms")
+    record["max_abs_err"] = max_err
+    return record
+
+
+def _visible_pairs(torch, q_pos, kv_pos, causal, window) -> int:
+    mask = kv_pos[:, None, :] >= 0
+    if causal:
+        mask = mask & (kv_pos[:, None, :] <= q_pos[:, :, None])
+    if window is not None:
+        mask = mask & (q_pos[:, :, None] - kv_pos[:, None, :] < window)
+    return int(mask.sum())
+
+
+def _attention_bound(torch, q, k, q_pos, kv_pos, causal, window) -> tuple[float, str]:
+    """q, k, v read once, o written once, positions read once; 4 * hd flops per
+    visible (query, key) pair and query head, at the rate of the inputs' type."""
+    b, sq, h, hd = q.shape
+    n_bytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size() \
+        + 4 * (q_pos.numel() + kv_pos.numel())
+    n_ops = 4.0 * hd * h * _visible_pairs(torch, q_pos, kv_pos, causal, window)
+    rate = CARD_BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else CARD_F32_FLOP_PER_S
+    return bound_ms(n_bytes, n_ops, rate)
+
+
+def _sdpa_ms(torch, q, k, v, causal, iters):
+    """Device time of one scaled_dot_product_attention call on (B, H, S, hd)
+    copies, GQA by enable_gqa where this torch has it, else on repeated kv heads."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    try:
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        kw = {"enable_gqa": True}
+    except TypeError:
+        g = qt.shape[1] // kt.shape[1]
+        kt, vt = kt.repeat_interleave(g, 1), vt.repeat_interleave(g, 1)
+        kw = {}
+    return device_ms_per_call(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, **kw), iters=iters
+    )
+
+
+def _ring_positions(torch, w, t, n_written):
+    pos = torch.full((w,), -1, dtype=torch.int32)
+    for p in range(t - n_written + 1, t + 1):
+        pos[p % w] = p
+    return pos.cuda()[None]
+
+
+def phase_attention_vs_plain() -> dict:
+    import torch
+
+    from repro_torch._device import time_on_card
+    from repro_torch.kernels import flash_attention as flash
+
+    phase("flash-attention kernel vs plain version (TOL, on the card)")
+    max_err, record = 0.0, None
+    w_cache = SERVE_PROMPT + SERVE_GEN
+    # (label, H, KH, hd, Sq, Sk, causal, window, kv positions)
+    cases = [
+        ("qwen2 prefill", 12, 2, 128, SERVE_PROMPT, SERVE_PROMPT, True, None, None),
+        ("qwen2 decode", 12, 2, 128, 1, w_cache, True, None, (w_cache, SERVE_PROMPT + 6)),
+        ("gemma hd 256 prefill", 16, 16, 256, 256, 256, True, None, None),
+        ("gemma hd 256 decode", 16, 16, 256, 1, 300, True, None, (300, 280)),
+        ("window 128", 8, 2, 128, 512, 512, True, 128, None),
+        ("window 128 decode, wrapped ring", 8, 2, 128, 1, 128, True, 128, (128, 700)),
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        for label, h, kh, hd, sq, sk, causal, window, ring in cases:
+            q = _randn(torch, (1, sq, h, hd), dtype, SEED + 2)
+            k = _randn(torch, (1, sk, kh, hd), dtype, SEED + 3)
+            v = _randn(torch, (1, sk, kh, hd), dtype, SEED + 4)
+            if ring is None:  # a prompt: positions arange
+                q_pos = torch.arange(sq, dtype=torch.int32, device="cuda")[None]
+                kv_pos = torch.arange(sk, dtype=torch.int32, device="cuda")[None]
+            else:  # one new token at t against a ring of sk slots, n written
+                t = ring[1] - 1
+                kv_pos = _ring_positions(torch, sk, t, min(ring[1], sk))
+                q_pos = torch.full((1, 1), t, dtype=torch.int32, device="cuda")
+            want = flash.attention_ref(q, k, v, q_pos, kv_pos, causal, window)
+            ok, err = close_to(flash.attention(q, k, v, q_pos, kv_pos, causal, window), want, name)
+            max_err = max(max_err, err)
+            check(ok, f"attention {name} {label}: max |err| {err} beyond TOL {TOL[name]}")
+            if ring is None:  # the Pallas-signature entry, (B, H, S, hd) through its strides
+                got = flash.flash_attention_fwd(*(t_.transpose(1, 2) for t_ in (q, k, v)),
+                                                causal=causal, window=window)
+                ok, err = close_to(got.transpose(1, 2), want, name)
+                max_err = max(max_err, err)
+                check(ok, f"flash_attention_fwd {name} {label}: max |err| {err} beyond TOL")
+            if label.startswith("qwen2"):
+                ms = device_ms_per_call(
+                    lambda: flash.attention(q, k, v, q_pos, kv_pos, causal, window), iters=20)
+                call_ms = time_on_card(
+                    lambda: flash.attention(q, k, v, q_pos, kv_pos, causal, window), iters=20)
+                plain_ms = device_ms_per_call(
+                    lambda: flash.attention_ref(q, k, v, q_pos, kv_pos, causal, window), iters=5)
+                lib_ms = _sdpa_ms(torch, q, k, v, causal=sq > 1, iters=20)
+                bnd, by = _attention_bound(torch, q, k, q_pos, kv_pos, causal, window)
+                print(f"{name}: {label} q {tuple(q.shape)} kv {tuple(k.shape)} within TOL; "
+                      f"device time per call: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+                      f"SDPA {lib_ms:.5f} ms; bound {bnd:.5f} ms ({by}), kernel at "
+                      f"{bnd / ms:.2%} of bound; back-to-back wrapper calls {call_ms:.5f} ms",
+                      flush=True)
+                if dtype == torch.bfloat16 and label == "qwen2 prefill":
+                    record = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+                              "bound_by": by, "library_ms": lib_ms}
+            else:
+                print(f"{name}: {label} q {tuple(q.shape)} kv {tuple(k.shape)} within TOL")
+        torch.cuda.empty_cache()
+    record["max_abs_err"] = max_err
+    return record
+
+
+class _Tee(io.TextIOBase):
+    """Writes through to a stream and keeps a copy."""
+
+    def __init__(self, stream):
+        self.stream, self.copy = stream, io.StringIO()
+
+    def write(self, text):
+        self.copy.write(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def phase_serve() -> dict:
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cover, flash_attention, rmsnorm
+    from repro_torch.launch import serve
+
+    cfg = get_config(SERVE_ARCH)
+    phase(f"serving path: launch.serve.main, {SERVE_ARCH} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}), {SERVE_REQUESTS} requests, prompt {SERVE_PROMPT}, gen {SERVE_GEN}")
+    argv = ["--arch", SERVE_ARCH, "--requests", str(SERVE_REQUESTS),
+            "--prompt-len", str(SERVE_PROMPT), "--gen", str(SERVE_GEN),
+            "--workers", str(SERVE_WORKERS), "--seed", str(SEED)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tee = _Tee(sys.stdout)
+    cover.launches = rmsnorm.launches = flash_attention.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        rc = serve.main(argv)
+    wall = time.perf_counter() - t0
+    launches = {"rmsnorm": rmsnorm.launches, "flash_attention": flash_attention.launches,
+                "masked_cover": cover.launches}
+    check(rc == 0, f"serve.main returned {rc}")
+    forwards = SERVE_REQUESTS * (1 + SERVE_GEN)
+    want = {"rmsnorm": (2 * cfg.n_layers + 1) * forwards,
+            "flash_attention": cfg.n_layers * forwards, "masked_cover": 2}
+    print(f"serve.main in {wall:.3f} s (weights made and cast included); launches {launches}, "
+          f"expected {want} ({forwards} forwards)")
+    check(launches == want, f"serving launches {launches}, expected {want}")
+    out = tee.copy.getvalue()
+    reqs = [tuple(map(float, m)) for m in re.findall(
+        r"request \d+: ([\d.]+)ms \(prefill ([\d.]+)ms, decode ([\d.]+)ms/token\)", out)]
+    check(len(reqs) == SERVE_REQUESTS, f"expected {SERVE_REQUESTS} request lines, saw {len(reqs)}")
+    check("[plan]" in out, "no [plan] line")
+    total, pre, dec = zip(*reqs)
+    print(f"per request: {statistics.mean(total):.3f} ms mean ({min(total):.3f} to "
+          f"{max(total):.3f}); prefill {statistics.mean(pre):.3f} ms mean; decode "
+          f"{statistics.mean(dec):.3f} ms/token mean; the first request includes the warm-up")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
+    return launches
+
+
+def phase_decode_profile() -> None:
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    phase(f"one decode step of the served {SERVE_ARCH}: the card's idle share")
+    cfg = get_config(SERVE_ARCH)
+    model = build_model(cfg)
+    params = model.for_serving(model.init(torch.Generator(device="cuda").manual_seed(SEED)))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    tokens = torch.randint(0, cfg.vocab_size, (1, SERVE_PROMPT), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    with torch.inference_mode():
+        logits, cache, t = model.prefill(params, {"tokens": tokens}, SERVE_PROMPT + SERVE_GEN)
+        check(logits.shape == (1, cfg.padded_vocab) and bool(torch.isfinite(logits).all()),
+              f"prefill logits {tuple(logits.shape)} not finite of (1, {cfg.padded_vocab})")
+        tok = logits.argmax(-1)[:, None].int()
+        for _ in range(2):  # warm
+            logits, cache, t = model.decode_step(params, cache, tok, t)
+        t0 = time.perf_counter()
+        model.decode_step(params, cache, tok, t)
+        torch.cuda.synchronize()
+        plain_wall = (time.perf_counter() - t0) * 1e3
+        host: dict = {}
+        wall_ms, by_name = profile_device(lambda: model.decode_step(params, cache, tok, t), host)
+    busy_ms = sum(by_name.values()) / 1e3
+    idle = f"{1.0 - busy_ms / wall_ms:.1%}" if busy_ms > 0 else "not measured"
+    print(f"decode step {plain_wall:.4f} ms unprofiled; profiled {wall_ms:.4f} ms, card busy "
+          f"{busy_ms:.4f} ms, idle share {idle}")
+    print("  device time by kernel:")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    {us / 1e3:9.4f} ms  {name[:100]}")
+    print(f"  host operators by own CPU time (sum {sum(host.values()) / 1e3:.4f} ms, the "
+          "profiler's cost included):")
+    for name, us in sorted(host.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"    {us / 1e3:9.4f} ms  {name[:100]}")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def phase_cache_check() -> None:
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, transformer
+
+    n_pre, n_dec = 8, 4
+    phase(f"KV cache at full width: {SERVE_ARCH} float32, prefill {n_pre} + decode {n_dec} "
+          "against teacher forcing (2e-3)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(SERVE_ARCH, compute_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    tokens = torch.randint(0, cfg.vocab_size, (1, n_pre + n_dec), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    worst = 0.0
+    with torch.inference_mode():
+        full, _, _ = transformer.forward(params, cfg, tokens=tokens)
+        logits, cache, t = model.prefill(params, {"tokens": tokens[:, :n_pre]}, n_pre + n_dec)
+        steps = [(logits, full[:, n_pre - 1])]
+        for i in range(n_dec):
+            logits, cache, t = model.decode_step(
+                params, cache, tokens[:, n_pre + i: n_pre + i + 1], t)
+            steps.append((logits, full[:, n_pre + i]))
+        for i, (got, want) in enumerate(steps):
+            err = (got - want).abs()
+            ok = bool(torch.isfinite(got).all()) and bool((err <= 2e-3 + 2e-3 * want.abs()).all())
+            worst = max(worst, float(err.max()))
+            check(ok, f"step {i}: logits differ from teacher forcing by {float(err.max())}")
+    print(f"prefill and {n_dec} decode steps match the teacher-forced forward: max |err| "
+          f"{worst:.3e} over {cfg.padded_vocab} logits per step")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -417,25 +785,40 @@ def main() -> int:
     try:
         phase_card()
         phase_build()
-        record = phase_kernel_vs_plain()
-        launches = phase_main_path()
+        cover_rec = phase_kernel_vs_plain()
+        rms_rec = phase_rmsnorm_vs_plain()
+        att_rec = phase_attention_vs_plain()
+        plan_launches = phase_main_path()
         phase_fifo()
+        serve_launches = phase_serve()
+        phase_decode_profile()
+        phase_cache_check()
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    rows = [
+        # name, record, launches on the main paths, replaces
+        ("masked_cover", cover_rec, plan_launches + serve_launches["masked_cover"],
+         "cover.cu", "src/repro/kernels/cover.py:47"),
+        ("rmsnorm", rms_rec, serve_launches["rmsnorm"],
+         "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:31"),
+        ("flash_attention", att_rec, serve_launches["flash_attention"],
+         "flash_attention.cu", "src/repro/kernels/flash_attention.py:104"),
+    ]
     kernels = [{
-        "name": "masked_cover",
+        "name": name,
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/cover.cu",
-        "replaces": "src/repro/kernels/cover.py:47",
+        "source": f"src/repro_torch/kernels/csrc/{src}",
+        "replaces": replaces,
         "launches": launches,
-        "max_abs_err": record["max_abs_err"],
-        "ms": record["ms"],
-        "plain_ms": record["plain_ms"],
-        "bound_ms": record["bound_ms"],
-        "bound_by": record["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes this masked max-min
-    }]
+        "max_abs_err": rec["max_abs_err"],
+        "ms": rec["ms"],
+        "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"],
+        # no single PyTorch call computes the masked max-min
+        "library_ms": rec.get("library_ms"),
+    } for name, rec, launches, src, replaces in rows]
     print()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -7,7 +7,8 @@ with :mod:`ctypes`.  Run from a checkout (or an editable install of one),
 an installed copy of the package builds beside its own sources instead
 (``kernels/build/``), which needs a writable install.  The hash covers the
 source and the flags, so an edited source is never served a stale library,
-and a build lands under its final name by an atomic rename.  Nothing here
+and a build lands under its final name by an atomic rename.
+:func:`build_all` starts one ``nvcc`` per source at once.  Nothing here
 runs at import: this module is imported on machines without ``nvcc``, where
 only the plain PyTorch versions of the kernels run.
 """
@@ -21,12 +22,14 @@ import pathlib
 import shutil
 import subprocess
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "library_path", "load"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "build", "build_all", "library_path", "load"]
 
 _HERE = pathlib.Path(__file__).resolve().parent  # .../repro_torch/kernels
 CSRC = _HERE / "csrc"
 _IN_CHECKOUT = _HERE.parents[1].name == "src"  # <checkout>/src/repro_torch/kernels
 BUILD_DIR = (_HERE.parents[2] if _IN_CHECKOUT else _HERE) / "build" / "repro_torch_kernels"
+# every kernel source of the port, built together by build_all
+SOURCES = ("cover", "rmsnorm", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "--fmad=false", "-std=c++17",
@@ -49,23 +52,41 @@ def library_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def build_all(names=SOURCES) -> dict[str, str]:
+    """Compile each ``csrc/<name>.cu`` not built yet, one ``nvcc`` per source,
+    all started together; return each source's compiler log.
+
+    Raises with the logs of every source whose ``nvcc`` failed.
+    """
+    running = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in running.items():
+        log, _ = proc.communicate()
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: library_path(name).with_suffix(".log").read_text() for name in names}
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless it is built already; return the compiler log.
 
     Raises with the log if ``nvcc`` fails.
     """
-    out = library_path(name)
-    log_path = out.with_suffix(".log")
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log_path.write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log_path.read_text()}")
-        os.replace(tmp, out)
-    return log_path.read_text()
+    return build_all([name])[name]
 
 
 @functools.cache
