@@ -18,11 +18,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports
    within ``tests/test_kernels.py``'s ``TOL`` (float32 2e-5, bfloat16 3e-2)
    at the serving path's shapes -- RMSNorm (1024, 1536) and (1, 1536), plain
    and ``plus_one``; attention prefill (1, 1024, 12, 128) over 2 KV heads,
-   causal; decode Sq = 1 against a 1056-slot cache holding -1 slots; a
-   gemma-shaped head_dim 256 case and a sliding-window case -- and times
-   each beside its bound, its plain version and one PyTorch library call
+   causal, against the served 1056-slot cache whose last 32 slots are -1,
+   and against 1024 keys at arange positions (also through the
+   Pallas-signature entry); decode Sq = 1 against a 1056-slot cache holding
+   -1 slots; a gemma-shaped head_dim 256 case and a sliding-window case --
+   checks which of the three attention kernels each case launched (split-KV
+   for decode, wgmma for a bf16 prefill, the CUDA-core kernel for a float32
+   prefill), and times the served prefill and decode of each kernel beside
+   its bound, its plain version and one PyTorch library call
    (``torch.nn.functional.rms_norm``, ``scaled_dot_product_attention``, which
-   the port never calls);
+   the port never calls), warm and with the L2 cache flushed before each
+   call, and the decode kernel at three split counts;
 5. runs the planning path, ``plan_sweep`` over Exp, SExp, Pareto(1.5) and the
    §VII heavy-tail trace job ``job6`` across budgets N in {100, 720} with
    32768 reps, with the launch counters set to 0 just before and read just
@@ -36,11 +42,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports
    width and depth of qwen2-1.5b (4 requests, prompt 1024, gen 32, batch 1,
    seeded weights), with the counters set to 0 just before and read just
    after: 57 RMSNorm and 28 attention launches per forward, (1 + gen)
-   forwards per request, 2 cover launches for the planner; prints each
+   forwards per request, 2 cover launches for the planner, every decode
+   attention on the split-KV kernel and every prefill attention on the wgmma
+   kernel; prints each
    request's ms with its prefill / decode split, the peak device memory and
    the planner's line;
 8. profiles one decode step of the served model for the card's idle share
-   and its device time by kernel;
+   and its device time and launches by kernel;
 9. checks the KV cache at full width: in float32 compute with TF32 off,
    prefill 8 tokens and decode 4, each step's logits against the
    teacher-forced ``forward`` within 2e-3;
@@ -132,12 +140,14 @@ def close_to(got, want, dtype_name: str) -> tuple[bool, float]:
     return ok, float(err.max()) if err.numel() else 0.0
 
 
-def profile_device(fn, host: dict | None = None) -> tuple[float, dict]:
+def profile_device(fn, host: dict | None = None,
+                   counts: dict | None = None) -> tuple[float, dict]:
     """Host-clock ms of ``fn()`` up to a synchronise, and the microseconds the
     card spent in each kernel or copy meanwhile, by name, from a
     ``torch.profiler`` trace (empty when the trace shows no device activity).
     With ``host`` given, also sums each host-side operator's own (self) CPU
-    microseconds into it, by name."""
+    microseconds into it, by name; with ``counts``, counts each kernel's
+    launches into it, by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -150,6 +160,8 @@ def profile_device(fn, host: dict | None = None) -> tuple[float, dict]:
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            if counts is not None:
+                counts[e.name] = counts.get(e.name, 0) + 1
         elif host is not None:
             host[e.name] = host.get(e.name, 0.0) + e.self_cpu_time_total
     return wall_ms, by_name
@@ -163,6 +175,27 @@ def device_ms_per_call(fn, iters: int = 20) -> float:
     fn()
     _, by_name = profile_device(lambda: [fn() for _ in range(iters)])
     return sum(by_name.values()) / 1e3 / iters
+
+
+def kernel_ms_cold(fn, name_part: str, iters: int = 20) -> float:
+    """Device ms per launch of the kernels whose name holds ``name_part``,
+    with the 50 MB L2 cache flushed (a 256 MB buffer zeroed) before each
+    call of ``fn``, as a layer of a served step finds it after the weights
+    of the layers before it have streamed through."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and name_part in e.name]
+    return sum(us) / 1e3 / iters if us else float("nan")
 
 
 def device_busy_ms(fn) -> tuple[float, float]:
@@ -511,12 +544,21 @@ def phase_rmsnorm_vs_plain() -> dict:
               f"plain {plain_ms:.5f} ms, F.rms_norm {lib}; bound {bnd:.5f} ms ({by}), kernel "
               f"at {bnd / ms:.1%} of bound; back-to-back wrapper calls (CUDA events, host "
               f"launch cost included) {call_ms:.5f} ms", flush=True)
+        dx = _randn(torch, (1, d), dtype, SEED)
+        d_ms = device_ms_per_call(lambda: rmsnorm.rms_norm_fused(dx, w), iters=50)
+        d_plain = device_ms_per_call(lambda: rmsnorm.rms_norm_ref(dx, w), iters=50)
+        d_lib = device_ms_per_call(lambda: F.rms_norm(dx, (d,), w, eps=1e-6), iters=50) \
+            if hasattr(F, "rms_norm") else None
+        d_bnd, d_by = bound_ms(2 * dx.numel() * dx.element_size() + d * w.element_size(),
+                               4 * dx.numel(), CARD_F32_FLOP_PER_S)
+        d_lib_s = f"{d_lib:.5f} ms" if d_lib is not None else "not available"
+        print(f"{name}: decode (1, {d}) device time per call: kernel {d_ms:.5f} ms, plain "
+              f"{d_plain:.5f} ms, F.rms_norm {d_lib_s}; bound {d_bnd:.5f} ms ({d_by})")
         if dtype == torch.bfloat16:  # the served path's dtype
             record = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-                      "library_ms": lib_ms}
-        dx = _randn(torch, (1, d), dtype, SEED)
-        print(f"{name}: decode (1, {d}) kernel device time per call "
-              f"{device_ms_per_call(lambda: rmsnorm.rms_norm_fused(dx, w), iters=50):.5f} ms")
+                      "library_ms": lib_ms,
+                      "decode": {"ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bnd,
+                                 "bound_by": d_by, "library_ms": d_lib}}
     record["max_abs_err"] = max_err
     return record
 
@@ -541,22 +583,22 @@ def _attention_bound(torch, q, k, q_pos, kv_pos, causal, window) -> tuple[float,
     return bound_ms(n_bytes, n_ops, rate)
 
 
-def _sdpa_ms(torch, q, k, v, causal, iters):
+def _sdpa_ms(torch, q, k, v, causal, iters, mask=None):
     """Device time of one scaled_dot_product_attention call on (B, H, S, hd)
-    copies, GQA by enable_gqa where this torch has it, else on repeated kv heads."""
+    copies, GQA by enable_gqa where this torch has it, else on repeated kv
+    heads; with ``mask`` (B, Sq, Sk: visible pairs) in place of ``causal``."""
     import torch.nn.functional as F
 
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kw = {"is_causal": causal} if mask is None else {"attn_mask": mask[:, None]}
     try:
-        F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
-        kw = {"enable_gqa": True}
+        F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **kw)
+        kw["enable_gqa"] = True
     except TypeError:
         g = qt.shape[1] // kt.shape[1]
         kt, vt = kt.repeat_interleave(g, 1), vt.repeat_interleave(g, 1)
-        kw = {}
-    return device_ms_per_call(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, **kw), iters=iters
-    )
+    return device_ms_per_call(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw),
+                              iters=iters)
 
 
 def _ring_positions(torch, w, t, n_written):
@@ -566,18 +608,28 @@ def _ring_positions(torch, w, t, n_written):
     return pos.cuda()[None]
 
 
+def _attention_path(flash, before) -> str:
+    """Which attention kernel ran since the per-kernel counts were ``before``."""
+    after = (flash.splitkv_launches, flash.wgmma_launches, flash.simt_launches)
+    ran = [name for name, a, b in zip(("splitkv", "wgmma", "simt"), after, before) if a != b]
+    return ran[0] if len(ran) == 1 else f"{ran}"
+
+
 def phase_attention_vs_plain() -> dict:
     import torch
 
     from repro_torch._device import time_on_card
     from repro_torch.kernels import flash_attention as flash
 
-    phase("flash-attention kernel vs plain version (TOL, on the card)")
-    max_err, record = 0.0, None
+    phase("flash-attention kernels vs plain version (TOL, on the card)")
+    max_err, record = 0.0, {}
     w_cache = SERVE_PROMPT + SERVE_GEN
-    # (label, H, KH, hd, Sq, Sk, causal, window, kv positions)
+    # (label, H, KH, hd, Sq, Sk, causal, window, kv positions): None = arange
+    # prompt; ("prompt", n) = a prompt of n tokens in the first n of Sk slots,
+    # the rest -1; (slots, n) = one new token at n - 1 against a ring
     cases = [
-        ("qwen2 prefill", 12, 2, 128, SERVE_PROMPT, SERVE_PROMPT, True, None, None),
+        ("qwen2 prefill", 12, 2, 128, SERVE_PROMPT, w_cache, True, None, ("prompt", SERVE_PROMPT)),
+        ("qwen2 prefill, arange", 12, 2, 128, SERVE_PROMPT, SERVE_PROMPT, True, None, None),
         ("qwen2 decode", 12, 2, 128, 1, w_cache, True, None, (w_cache, SERVE_PROMPT + 6)),
         ("gemma hd 256 prefill", 16, 16, 256, 256, 256, True, None, None),
         ("gemma hd 256 decode", 16, 16, 256, 1, 300, True, None, (300, 280)),
@@ -593,42 +645,70 @@ def phase_attention_vs_plain() -> dict:
             if ring is None:  # a prompt: positions arange
                 q_pos = torch.arange(sq, dtype=torch.int32, device="cuda")[None]
                 kv_pos = torch.arange(sk, dtype=torch.int32, device="cuda")[None]
+            elif ring[0] == "prompt":  # the served prefill: the cache's tail unwritten
+                q_pos = torch.arange(sq, dtype=torch.int32, device="cuda")[None]
+                kv_pos = _ring_positions(torch, sk, ring[1] - 1, ring[1])
             else:  # one new token at t against a ring of sk slots, n written
                 t = ring[1] - 1
                 kv_pos = _ring_positions(torch, sk, t, min(ring[1], sk))
                 q_pos = torch.full((1, 1), t, dtype=torch.int32, device="cuda")
             want = flash.attention_ref(q, k, v, q_pos, kv_pos, causal, window)
+            before = (flash.splitkv_launches, flash.wgmma_launches, flash.simt_launches)
             ok, err = close_to(flash.attention(q, k, v, q_pos, kv_pos, causal, window), want, name)
+            path = _attention_path(flash, before)
             max_err = max(max_err, err)
             check(ok, f"attention {name} {label}: max |err| {err} beyond TOL {TOL[name]}")
+            want_path = "splitkv" if sq == 1 else ("wgmma" if dtype == torch.bfloat16 else "simt")
+            check(path == want_path, f"attention {name} {label} ran {path}, not {want_path}")
             if ring is None:  # the Pallas-signature entry, (B, H, S, hd) through its strides
                 got = flash.flash_attention_fwd(*(t_.transpose(1, 2) for t_ in (q, k, v)),
                                                 causal=causal, window=window)
                 ok, err = close_to(got.transpose(1, 2), want, name)
                 max_err = max(max_err, err)
                 check(ok, f"flash_attention_fwd {name} {label}: max |err| {err} beyond TOL")
-            if label.startswith("qwen2"):
+            if label in ("qwen2 prefill", "qwen2 decode"):
                 ms = device_ms_per_call(
                     lambda: flash.attention(q, k, v, q_pos, kv_pos, causal, window), iters=20)
                 call_ms = time_on_card(
                     lambda: flash.attention(q, k, v, q_pos, kv_pos, causal, window), iters=20)
                 plain_ms = device_ms_per_call(
                     lambda: flash.attention_ref(q, k, v, q_pos, kv_pos, causal, window), iters=5)
-                lib_ms = _sdpa_ms(torch, q, k, v, causal=sq > 1, iters=20)
+                # the same function in one library call: top-left causal for the
+                # prompt (the unwritten tail lies past every query), the
+                # positions' mask for decode
+                mask = None if sq > 1 else flash._visible(q_pos, kv_pos, causal, window)
+                lib_ms = _sdpa_ms(torch, q, k, v, causal=sq > 1, iters=20, mask=mask)
                 bnd, by = _attention_bound(torch, q, k, q_pos, kv_pos, causal, window)
-                print(f"{name}: {label} q {tuple(q.shape)} kv {tuple(k.shape)} within TOL; "
-                      f"device time per call: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
-                      f"SDPA {lib_ms:.5f} ms; bound {bnd:.5f} ms ({by}), kernel at "
-                      f"{bnd / ms:.2%} of bound; back-to-back wrapper calls {call_ms:.5f} ms",
-                      flush=True)
-                if dtype == torch.bfloat16 and label == "qwen2 prefill":
-                    record = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
-                              "bound_by": by, "library_ms": lib_ms}
+                cold_ms = kernel_ms_cold(
+                    lambda: flash.attention(q, k, v, q_pos, kv_pos, causal, window), path)
+                print(f"{name}: {label} q {tuple(q.shape)} kv {tuple(k.shape)} within TOL on "
+                      f"{path}; device time per call: kernel {ms:.5f} ms ({cold_ms:.5f} ms "
+                      f"with L2 flushed before each call), plain {plain_ms:.5f} ms, SDPA "
+                      f"{lib_ms:.5f} ms; bound {bnd:.5f} ms ({by}), kernel at {bnd / ms:.2%} of "
+                      f"bound; back-to-back wrapper calls {call_ms:.5f} ms", flush=True)
+                if sq == 1 and dtype == torch.bfloat16:
+                    # the split count: slots a split at least (16 is the wrapper's)
+                    sweep = []
+                    for min_keys in (16, 32, 64):
+                        flash.SPLITKV_MIN_KEYS = min_keys
+                        split_ms = device_ms_per_call(
+                            lambda: flash.attention(q, k, v, q_pos, kv_pos, causal, window),
+                            iters=20)
+                        sweep.append(f"{flash.splitkv_plan(1, kh, sk, 132)[0]} splits "
+                                     f"{split_ms:.5f} ms")
+                    flash.SPLITKV_MIN_KEYS = 16
+                    print(f"{name}: {label} by split count (132 SMs): {'; '.join(sweep)}")
+                if dtype == torch.bfloat16:
+                    record["prefill" if sq > 1 else "decode"] = {
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                        "library_ms": lib_ms}
             else:
-                print(f"{name}: {label} q {tuple(q.shape)} kv {tuple(k.shape)} within TOL")
+                print(f"{name}: {label} q {tuple(q.shape)} kv {tuple(k.shape)} within TOL on "
+                      f"{path}")
         torch.cuda.empty_cache()
-    record["max_abs_err"] = max_err
-    return record
+    out = dict(record["prefill"], decode=record["decode"])
+    out["max_abs_err"] = max_err
+    return out
 
 
 class _Tee(io.TextIOBase):
@@ -662,19 +742,30 @@ def phase_serve() -> dict:
     torch.cuda.reset_peak_memory_stats()
     tee = _Tee(sys.stdout)
     cover.launches = rmsnorm.launches = flash_attention.launches = 0
+    flash_attention.splitkv_launches = flash_attention.wgmma_launches = 0
+    flash_attention.simt_launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
         rc = serve.main(argv)
     wall = time.perf_counter() - t0
     launches = {"rmsnorm": rmsnorm.launches, "flash_attention": flash_attention.launches,
                 "masked_cover": cover.launches}
+    by_kernel = {"splitkv": flash_attention.splitkv_launches,
+                 "wgmma": flash_attention.wgmma_launches,
+                 "simt": flash_attention.simt_launches}
     check(rc == 0, f"serve.main returned {rc}")
     forwards = SERVE_REQUESTS * (1 + SERVE_GEN)
     want = {"rmsnorm": (2 * cfg.n_layers + 1) * forwards,
             "flash_attention": cfg.n_layers * forwards, "masked_cover": 2}
+    want_by_kernel = {"splitkv": cfg.n_layers * SERVE_REQUESTS * SERVE_GEN,
+                      "wgmma": cfg.n_layers * SERVE_REQUESTS, "simt": 0}
     print(f"serve.main in {wall:.3f} s (weights made and cast included); launches {launches}, "
-          f"expected {want} ({forwards} forwards)")
+          f"expected {want} ({forwards} forwards); attention by kernel {by_kernel}, expected "
+          f"{want_by_kernel}")
     check(launches == want, f"serving launches {launches}, expected {want}")
+    check(by_kernel == want_by_kernel,
+          f"serving attention by kernel {by_kernel}, expected {want_by_kernel}")
+    launches["flash_attention_by_kernel"] = by_kernel
     out = tee.copy.getvalue()
     reqs = [tuple(map(float, m)) for m in re.findall(
         r"request \d+: ([\d.]+)ms \(prefill ([\d.]+)ms, decode ([\d.]+)ms/token\)", out)]
@@ -713,14 +804,17 @@ def phase_decode_profile() -> None:
         torch.cuda.synchronize()
         plain_wall = (time.perf_counter() - t0) * 1e3
         host: dict = {}
-        wall_ms, by_name = profile_device(lambda: model.decode_step(params, cache, tok, t), host)
+        counts: dict = {}
+        wall_ms, by_name = profile_device(lambda: model.decode_step(params, cache, tok, t), host,
+                                          counts)
     busy_ms = sum(by_name.values()) / 1e3
     idle = f"{1.0 - busy_ms / wall_ms:.1%}" if busy_ms > 0 else "not measured"
     print(f"decode step {plain_wall:.4f} ms unprofiled; profiled {wall_ms:.4f} ms, card busy "
           f"{busy_ms:.4f} ms, idle share {idle}")
     print("  device time by kernel:")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"    {us / 1e3:9.4f} ms  {name[:100]}")
+        print(f"    {us / 1e3:9.4f} ms  {counts[name]:4d} launches, "
+              f"{us / 1e3 / counts[name]:.5f} ms each  {name[:90]}")
     print(f"  host operators by own CPU time (sum {sum(host.values()) / 1e3:.4f} ms, the "
           "profiler's cost included):")
     for name, us in sorted(host.items(), key=lambda kv: -kv[1])[:10]:
@@ -819,6 +913,11 @@ def main() -> int:
         # no single PyTorch call computes the masked max-min
         "library_ms": rec.get("library_ms"),
     } for name, rec, launches, src, replaces in rows]
+    # the served decode shapes beside the prefill ones, and which attention
+    # kernel the served path launched (split-KV for decode, wgmma for prefill)
+    kernels[1]["decode"] = rms_rec["decode"]
+    kernels[2]["decode"] = att_rec["decode"]
+    kernels[2]["launches_by_kernel"] = serve_launches["flash_attention_by_kernel"]
     print()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

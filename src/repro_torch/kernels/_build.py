@@ -6,8 +6,11 @@ with :mod:`ctypes`.  Run from a checkout (or an editable install of one),
 ``BUILD_DIR`` is ``build/repro_torch_kernels/`` at the root of the checkout;
 an installed copy of the package builds beside its own sources instead
 (``kernels/build/``), which needs a writable install.  The hash covers the
-source and the flags, so an edited source is never served a stale library,
-and a build lands under its final name by an atomic rename.
+source and its flags, so an edited source is never served a stale library,
+and a build lands under its final name by an atomic rename.  Each source has
+its own flags (:func:`nvcc_flags`), and the hash covers them and every
+``csrc/*.cuh`` the source includes, so an edited header is never served a
+stale library either.
 :func:`build_all` starts one ``nvcc`` per source at once.  Nothing here
 runs at import: this module is imported on machines without ``nvcc``, where
 only the plain PyTorch versions of the kernels run.
@@ -19,10 +22,12 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "build", "build_all", "library_path", "load"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "SOURCE_FLAGS", "build", "build_all",
+           "includes", "library_path", "load", "nvcc_flags"]
 
 _HERE = pathlib.Path(__file__).resolve().parent  # .../repro_torch/kernels
 CSRC = _HERE / "csrc"
@@ -30,12 +35,22 @@ _IN_CHECKOUT = _HERE.parents[1].name == "src"  # <checkout>/src/repro_torch/kern
 BUILD_DIR = (_HERE.parents[2] if _IN_CHECKOUT else _HERE) / "build" / "repro_torch_kernels"
 # every kernel source of the port, built together by build_all
 SOURCES = ("cover", "rmsnorm", "flash_attention")
+# flags of every source
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "--fmad=false", "-std=c++17",
+    "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # registers / spills per kernel, kept in the build log
 )
+# and each source's own: the cover kernel is held bitwise to its plain
+# version, so no multiply-add is contracted into an FMA (RMSNorm keeps the
+# same rule); the attention kernels write their FMAs out and contract freely
+SOURCE_FLAGS = {
+    "cover": ("--fmad=false",),
+    "rmsnorm": ("--fmad=false",),
+    "flash_attention": (),
+}
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def _nvcc() -> str:
@@ -45,10 +60,33 @@ def _nvcc() -> str:
     return nvcc
 
 
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    """The flags ``csrc/<name>.cu`` is compiled with."""
+    return NVCC_FLAGS + SOURCE_FLAGS[name]
+
+
+def includes(path: pathlib.Path) -> list[pathlib.Path]:
+    """The files under ``csrc/`` that ``path`` includes with quotes, directly
+    or through one another, in the order first met."""
+    found: list[pathlib.Path] = []
+    todo = [path]
+    while todo:
+        for rel in _INCLUDE.findall(todo.pop().read_text()):
+            dep = CSRC / rel
+            if dep.exists() and dep not in found:
+                found.append(dep)
+                todo.append(dep)
+    return found
+
+
 def library_path(name: str) -> pathlib.Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for dep in includes(src):
+        h.update(dep.name.encode())
+        h.update(dep.read_bytes())
+    h.update(" ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -65,7 +103,7 @@ def build_all(names=SOURCES) -> dict[str, str]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *nvcc_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, out)
     failed = []

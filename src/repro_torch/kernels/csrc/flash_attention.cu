@@ -1,86 +1,53 @@
-// Flash-attention forward on Hopper (sm_90a): online-softmax attention with
-// float32 running max m, sum l and accumulator acc, for
+// Flash-attention forward on Hopper (sm_90a): three kernels behind one
+// contract (attention_common.cuh), chosen by the wrapper
+// (repro_torch/kernels/flash_attention.py::route) for each call:
 //
-//   q (B, Sq, H, hd), k / v (B, Sk, KH, hd), H % KH == 0 (query head h reads
-//   kv head h / (H / KH)), explicit int32 positions qpos (B, Sq), kvpos (B, Sk)
+// * flash_splitkv.cuh -- decode: few query rows per kv head (Sq * g <= 16)
+//   against a long cache; split-KV, one block per kv group, float32 and bf16;
+// * flash_wgmma.cuh -- bf16 prefill on the tensor cores (wgmma);
+// * simt_kernel below -- float32 prefill, and any call whose rows are not
+//   16-byte aligned (the other two read 16-byte vectors).
 //
-// Key j is visible to query i iff kvpos[j] >= 0 (a written slot), and, when
-// causal, kvpos[j] <= qpos[i], and, with a window, qpos[i] - kvpos[j] < window.
-// A masked score is the reference's finite NEG_INF = f32 min / 2, not -inf,
-// so a tile fully masked for a row gives p = 1 until a real score arrives and
-// alpha = exp(NEG_INF - m) = 0 wipes it, as in the reference; the output is
-// acc / max(l, 1e-30).  Keys past Sk are not part of the softmax.
+// All three replace the Pallas TPU kernel
+// repro/kernels/flash_attention.py::_kernel (entry flash_attention_fwd),
+// whose grid runs (batch, head, q tile) in parallel and walks KV tiles along a
+// sequential 4th dimension with m, l and acc in VMEM scratch.  Each wrapper
+// call launches exactly one of them.
 //
-// Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::_kernel
-// (entry flash_attention_fwd), whose grid runs (batch, head, q tile) in
-// parallel and walks KV tiles along a sequential 4th dimension with m, l and
-// acc in VMEM scratch.  Here a block owns (b, h, q tile) and a loop over KV
-// tiles takes the place of that 4th dimension.  One contract serves both
-// callers: the model's layers.flash_attention (explicit positions; in decode
-// Sq = 1 and the ring-buffer cache holds -1 in unwritten slots) and the
-// Pallas-signature flash_attention_fwd (arange positions).  Every tensor is
-// addressed through (batch, seq, head) strides with hd contiguous, so both
-// the (B, S, H, hd) and the (B, H, S, hd) layouts are read in place.
-//
-// Bound on this card: at the serving shapes, memory (bytes of q, k, v read
-// once and o written once) for decode and operations (4 * hd flops per
-// visible (query, key) pair, at the bf16 tensor-core rate) for prefill; both
-// are microseconds.  This first version is far from either: it runs on the
-// CUDA cores, not the tensor cores (no wgmma), and each block reloads the KV
-// tiles that the other query heads of its kv group also load.
-//
-// Design (first version): 4 warps per block, 4 query rows per warp (a q tile
-// of 16 rows), KV tiles of 32 keys staged in shared memory as float32: K
-// transposed with a padded row (33) so that lane j reads key j conflict-free,
-// V row-major.  Lane j scores key j of the tile for its warp's 4 rows; warp
-// shuffles give the tile max and sum; each lane then owns head-dim elements
-// lane, lane + 32, ... of acc and takes p_j from lane j by shuffle.  Before a
-// tile is loaded, the block checks (__syncthreads_or) whether any of its keys
-// can be visible to any of its rows and skips it if none can: that is the
-// causal / window tile skip, decided from the positions themselves.
-// head_dim up to 256 needs 81 KB of shared memory, so it is dynamic, raised
-// past 48 KB with cudaFuncSetAttribute.
+// simt_kernel: float32 prefill stays on the CUDA cores.  wgmma takes no
+// float32 inputs, and TF32 (10-bit mantissa) would break the float32
+// tolerance of 2e-5 and the full-width float32 cache check that the port is
+// held to, so it runs on FMA at 67 TFLOP/s, far under the bf16 tensor-core
+// bound.  A block owns (b, h, 16-row q tile) and loops over KV tiles: 4 warps,
+// 4 query rows a warp, KV tiles of 32 keys staged in shared memory as float32
+// (K transposed with a padded row (33) so that lane j reads key j
+// conflict-free, V row-major).  Lane j scores key j of the tile for its warp's
+// 4 rows; warp shuffles give the tile max and sum; each lane then owns
+// head-dim elements lane, lane + 32, ... of acc and takes p_j from lane j by
+// shuffle.  Before a tile is loaded the block checks (__syncthreads_or)
+// whether any key can be visible to any of its rows and skips it if none can:
+// the causal / window tile skip, decided from the positions themselves.
+// head_dim up to 256 needs 81 KB of shared memory, so it is dynamic.
 #include <math.h>
 
-#include <cfloat>
-#include <climits>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "attention_common.cuh"
+#include "flash_splitkv.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
+
+using attn::from_f32;
+using attn::kNegInf;
+using attn::Strides;
+using attn::to_f32;
+using attn::warp_max;
+using attn::warp_sum;
 
 constexpr int kWarps = 4;
 constexpr int kRows = 4;                 // query rows per warp
 constexpr int kBQ = kWarps * kRows;      // query rows per block
 constexpr int kBK = 32;                  // keys per KV tile (one per lane)
 constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -0.5f * FLT_MAX;  // the reference's NEG_INF
-
-struct Strides {  // in elements; hd is contiguous
-  long long qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;
-};
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 constexpr size_t smem_bytes(int nc) {
   // q tile (kBQ, HDP) + K^T tile (HDP, kBK + 1) + V tile (kBK, HDP), float32,
@@ -92,10 +59,9 @@ constexpr size_t smem_bytes(int nc) {
 // NC = head-dim chunks of 32: HDP = 32 * NC >= hd, the tail zero-filled
 template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const int* __restrict__ qpos, const int* __restrict__ kvpos, T* __restrict__ o,
-                 int Sq, int Sk, int H, int KH, int hd, float scale, int causal, int window,
-                 Strides st) {
+simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+            const int* __restrict__ qpos, const int* __restrict__ kvpos, T* __restrict__ o, int Sq,
+            int Sk, int H, int KH, int hd, float scale, int causal, int window, Strides st) {
   constexpr int HDP = 32 * NC;
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                       // (kBQ, HDP)
@@ -238,14 +204,14 @@ int launch(const void* q, const void* k, const void* v, const void* qpos, const 
   constexpr size_t bytes = smem_bytes(NC);
   static bool attr_set = false;  // once per instantiation, on the calling thread's device
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, NC>,
+    cudaError_t err = cudaFuncSetAttribute(simt_kernel<T, NC>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<T, NC><<<grid, kThreads, bytes, stream>>>(
+  simt_kernel<T, NC><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(qpos), static_cast<const int*>(kvpos), static_cast<T*>(o), Sq, Sk,
       H, KH, hd, scale, causal, window, st);
@@ -266,22 +232,73 @@ int dispatch(const void* q, const void* k, const void* v, const void* qpos, cons
 
 }  // namespace
 
-// dims = (B, Sq, Sk, H, KH, hd); strides = 12 element strides (batch, seq,
-// head) of q, k, v, o in that order; window <= 0 means none; dtype code
-// 0 = float32, 1 = bfloat16 (q, k, v and o share it).
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, const void* qpos,
-                                   const void* kvpos, void* o, const long long* dims,
-                                   const long long* strides, float scale, int causal, int window,
-                                   int dtype, void* stream) {
+namespace {
+
+bool read_dims(const long long* dims, const long long* strides, Strides* st) {
   for (int i = 0; i < 6; ++i)
-    if (dims[i] < 1 || dims[i] > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  if (dims[3] % dims[4] != 0 || dims[3] > 65535 || dims[0] > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Strides st{strides[0], strides[1], strides[2], strides[3], strides[4],  strides[5],
-                   strides[6], strides[7], strides[8], strides[9], strides[10], strides[11]};
+    if (dims[i] < 1 || dims[i] > 2147483647LL) return false;
+  if (dims[3] % dims[4] != 0 || dims[3] > 65535 || dims[4] > 65535 || dims[0] > 65535)
+    return false;
+  *st = Strides{strides[0], strides[1], strides[2], strides[3], strides[4],  strides[5],
+                strides[6], strides[7], strides[8], strides[9], strides[10], strides[11]};
+  return true;
+}
+
+}  // namespace
+
+// Common arguments: dims = (B, Sq, Sk, H, KH, hd); strides = 12 element
+// strides (batch, seq, head) of q, k, v, o in that order; window <= 0 means
+// none; dtype code 0 = float32, 1 = bfloat16 (q, k, v and o share it).
+
+// The CUDA-core kernel: any shape, any strides (hd contiguous).
+extern "C" int flash_attention_simt(const void* q, const void* k, const void* v, const void* qpos,
+                                    const void* kvpos, void* o, const long long* dims,
+                                    const long long* strides, float scale, int causal, int window,
+                                    int dtype, void* stream) {
+  Strides st;
+  if (!read_dims(dims, strides, &st)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(q, k, v, qpos, kvpos, o, dims, st, scale, causal, window, s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(q, k, v, qpos, kvpos, o, dims, st, scale, causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The split-KV decode kernel: Sq * (H / KH) <= 16, rows 16-byte aligned;
+// part = float32 scratch of B * KH * n_split * rows * (2 + hd) values with
+// rows = 8 if Sq * (H / KH) <= 8 else 16; tickets = B * KH int32 zeros,
+// returned to zero by the kernel; chunk = slots a split, n_split =
+// ceil(Sk / chunk) <= 256.
+extern "C" int flash_attention_splitkv(const void* q, const void* k, const void* v,
+                                       const void* qpos, const void* kvpos, void* o, void* part,
+                                       void* tickets, const long long* dims,
+                                       const long long* strides, float scale, int causal,
+                                       int window, int n_split, int chunk, int dtype,
+                                       void* stream) {
+  Strides st;
+  if (!read_dims(dims, strides, &st)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_split < 1 || n_split > splitkv::kMaxSplits || chunk < 1 ||
+      static_cast<long long>(n_split - 1) * chunk >= dims[2] ||
+      static_cast<long long>(n_split) * chunk < dims[2])
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return splitkv::dispatch<float>(q, k, v, qpos, kvpos, o, part, tickets, dims, st, scale,
+                                    causal, window, n_split, chunk, s);
+  if (dtype == 1)
+    return splitkv::dispatch<__nv_bfloat16>(q, k, v, qpos, kvpos, o, part, tickets, dims, st,
+                                            scale, causal, window, n_split, chunk, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The wgmma prefill kernel: bfloat16 only, hd % 8 == 0, rows 16-byte
+// aligned, Sk <= 131072.
+extern "C" int flash_attention_wgmma(const void* q, const void* k, const void* v,
+                                     const void* qpos, const void* kvpos, void* o,
+                                     const long long* dims, const long long* strides,
+                                     float scale, int causal, int window, void* stream) {
+  Strides st;
+  if (!read_dims(dims, strides, &st)) return static_cast<int>(cudaErrorInvalidValue);
+  return wgmma_fa::dispatch(q, k, v, qpos, kvpos, o, dims, st, scale, causal, window,
+                            static_cast<cudaStream_t>(stream));
 }

@@ -11,19 +11,28 @@
 // and d of w and write rows * d elements; it does about 4 flops per element,
 // far below the card's ~20 flops per byte of float32 balance.
 //
-// Design (first version): one block of 256 threads per row.  Each thread
-// sums the squares of a strided slice of the row in float32, a warp-shuffle
-// then shared-memory reduction gives the row's sum, and a second strided
-// pass (the row, at most 12 KB, is still in L1) scales and stores.  Loads of
-// neighbouring threads are neighbouring elements, so they coalesce; they are
-// not yet vectorised (16 bytes per thread), which is the first thing to fix.
+// Design: one warp per row and kWarps rows per block, so a qwen2 prefill
+// (1024 x 1536) is 128 blocks of 8 rows.  On the vector path each lane loads
+// its share of the row as 16-byte vectors (8 bf16 or 4 float32 values: a
+// 1536-wide bf16 row is 6 vectors a lane), all issued before any is used, and
+// keeps them in registers between the sum of squares (a warp shuffle
+// reduction, no shared memory, no block barrier) and the scaling, so the row
+// is read once.  The block loads w' once into shared memory as float32 while
+// the rows' loads are in flight.  Rows whose width is not a multiple of the
+// vector, whose start is not 16-byte aligned (a view), or that are wider than
+// the registers hold (NV vectors a lane) take the scalar path inside the same
+// kernel: lane-strided loads, a second pass over the row from L1 / L2.
 // bfloat16 converts only through the intrinsics.
+#include <stdint.h>
+#include <string.h>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kWarps = 8;  // rows a block
+constexpr int kThreads = kWarps * 32;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -37,62 +46,162 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-template <typename T, typename W>
+// a 16-byte vector as float32 values, and back
+__device__ __forceinline__ void unpack(const uint4& raw, float* f, const float*) {
+  f[0] = __uint_as_float(raw.x);
+  f[1] = __uint_as_float(raw.y);
+  f[2] = __uint_as_float(raw.z);
+  f[3] = __uint_as_float(raw.w);
+}
+__device__ __forceinline__ void unpack(const uint4& raw, float* f, const __nv_bfloat16*) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat162 pair;
+    memcpy(&pair, &w[i], 4);
+    const float2 f2 = __bfloat1622float2(pair);
+    f[2 * i] = f2.x;
+    f[2 * i + 1] = f2.y;
+  }
+}
+__device__ __forceinline__ uint4 pack(const float* f, const float*) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                    __float_as_uint(f[3]));
+}
+__device__ __forceinline__ uint4 pack(const float* f, const __nv_bfloat16*) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 pair = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    memcpy(&w[i], &pair, 4);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// NV = 16-byte vectors a lane holds on the vector path (d <= 32 * NV * VEC);
+// vec = 1 when x and out are 16-byte aligned and d is a multiple of VEC.
+template <typename T, typename W, int NV>
 __global__ void __launch_bounds__(kThreads)
-rmsnorm_kernel(const T* __restrict__ x, const W* __restrict__ w, T* __restrict__ out, int d,
-               float eps, int plus_one) {
-  __shared__ float partial[kThreads / 32];
-  __shared__ float inv_rms;
-  const size_t base = static_cast<size_t>(blockIdx.x) * static_cast<size_t>(d);
-  const T* row = x + base;
-
-  float ss = 0.0f;
-  for (int i = threadIdx.x; i < d; i += kThreads) {
-    const float v = to_f32(row[i]);
-    ss += v * v;
-  }
-  for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+rmsnorm_kernel(const T* __restrict__ x, const W* __restrict__ w, T* __restrict__ out,
+               long long rows, int d, float eps, int plus_one, int vec) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  extern __shared__ float w_s[];  // (d,) float32: w or 1 + w
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) partial[warp] = ss;
-  __syncthreads();
-  if (warp == 0) {
-    float t = lane < kThreads / 32 ? partial[lane] : 0.0f;
-    for (int off = 16; off > 0; off >>= 1) t += __shfl_xor_sync(0xffffffffu, t, off);
-    if (lane == 0) inv_rms = rsqrtf(t / static_cast<float>(d) + eps);
+  const long long row = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  const bool active = row < rows;
+  const T* xr = x + row * d;
+  T* dst = out + row * d;
+  const int nvec = d / VEC;
+
+  uint4 buf[NV];
+  if (vec && active) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int vi = lane + 32 * i;
+      if (vi < nvec) buf[i] = reinterpret_cast<const uint4*>(xr)[vi];
+    }
+  }
+  for (int i = threadIdx.x; i < d; i += kThreads) {
+    const float wi = to_f32(w[i]);
+    w_s[i] = plus_one ? 1.0f + wi : wi;
   }
   __syncthreads();
-  const float inv = inv_rms;
+  if (!active) return;
 
-  T* dst = out + base;
-  for (int i = threadIdx.x; i < d; i += kThreads) {
-    float wi = to_f32(w[i]);
-    if (plus_one) wi = 1.0f + wi;
-    dst[i] = from_f32<T>((to_f32(row[i]) * inv) * wi);
+  if (vec) {
+    float ss = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (lane + 32 * i < nvec) {
+        float f[VEC];
+        unpack(buf[i], f, static_cast<const T*>(nullptr));
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) ss += f[e] * f[e];
+      }
+    }
+    const float inv = rsqrtf(warp_sum(ss) / static_cast<float>(d) + eps);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int vi = lane + 32 * i;
+      if (vi < nvec) {
+        float f[VEC];
+        unpack(buf[i], f, static_cast<const T*>(nullptr));
+        const float4* wv = reinterpret_cast<const float4*>(w_s + vi * VEC);
+#pragma unroll
+        for (int e4 = 0; e4 < VEC / 4; ++e4) {
+          const float4 ww = wv[e4];
+          f[4 * e4] = (f[4 * e4] * inv) * ww.x;
+          f[4 * e4 + 1] = (f[4 * e4 + 1] * inv) * ww.y;
+          f[4 * e4 + 2] = (f[4 * e4 + 2] * inv) * ww.z;
+          f[4 * e4 + 3] = (f[4 * e4 + 3] * inv) * ww.w;
+        }
+        reinterpret_cast<uint4*>(dst)[vi] = pack(f, static_cast<const T*>(nullptr));
+      }
+    }
+  } else {  // scalar path: any width, any alignment
+    float ss = 0.0f;
+    for (int i = lane; i < d; i += 32) {
+      const float f = to_f32(xr[i]);
+      ss += f * f;
+    }
+    const float inv = rsqrtf(warp_sum(ss) / static_cast<float>(d) + eps);
+    for (int i = lane; i < d; i += 32) dst[i] = from_f32<T>((to_f32(xr[i]) * inv) * w_s[i]);
   }
 }
 
-template <typename T, typename W>
+template <typename T, typename W, int NV>
 int launch(const void* x, const void* w, void* out, long long rows, int d, float eps,
-           int plus_one, void* stream) {
-  rmsnorm_kernel<T, W><<<static_cast<unsigned>(rows), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const W*>(w), static_cast<T*>(out), d, eps,
-      plus_one);
+           int plus_one, int vec, void* stream) {
+  const size_t bytes = static_cast<size_t>(d) * sizeof(float);
+  static size_t allowed = 48 * 1024;  // once per instantiation, past the default
+  if (bytes > allowed) {
+    cudaError_t err = cudaFuncSetAttribute(rmsnorm_kernel<T, W, NV>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed = bytes;
+  }
+  const unsigned blocks = static_cast<unsigned>((rows + kWarps - 1) / kWarps);
+  rmsnorm_kernel<T, W, NV><<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const W*>(w), static_cast<T*>(out), rows, d, eps,
+      plus_one, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the register budget: the fewest vectors a lane that hold the row
+template <typename T, typename W>
+int dispatch(const void* x, const void* w, void* out, long long rows, int d, float eps,
+             int plus_one, int aligned, void* stream) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  const int per_lane = (d / VEC + 31) / 32;
+  const int vec = aligned && d % VEC == 0 && per_lane <= 16;
+  if (!vec || per_lane <= 2) return launch<T, W, 2>(x, w, out, rows, d, eps, plus_one, vec, stream);
+  if (per_lane <= 4) return launch<T, W, 4>(x, w, out, rows, d, eps, plus_one, vec, stream);
+  if (per_lane <= 8) return launch<T, W, 8>(x, w, out, rows, d, eps, plus_one, vec, stream);
+  return launch<T, W, 16>(x, w, out, rows, d, eps, plus_one, vec, stream);
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16 (x and out share one type; w has its own)
+// dtype codes: 0 = float32, 1 = bfloat16 (x and out share one type; w has its
+// own); aligned = 1 when x and out start on 16-byte boundaries
 extern "C" int rmsnorm(const void* x, const void* w, void* out, long long rows, int d, float eps,
-                       int plus_one, int x_dtype, int w_dtype, void* stream) {
-  if (rows < 1 || rows > 2147483647LL || d < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (x_dtype == 0 && w_dtype == 0) return launch<float, float>(x, w, out, rows, d, eps, plus_one, stream);
+                       int plus_one, int x_dtype, int w_dtype, int aligned, void* stream) {
+  if (rows < 1 || rows > 2147483647LL * kWarps || d < 1 || d > 56 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (x_dtype == 0 && w_dtype == 0)
+    return dispatch<float, float>(x, w, out, rows, d, eps, plus_one, aligned, stream);
   if (x_dtype == 0 && w_dtype == 1)
-    return launch<float, __nv_bfloat16>(x, w, out, rows, d, eps, plus_one, stream);
+    return dispatch<float, __nv_bfloat16>(x, w, out, rows, d, eps, plus_one, aligned, stream);
   if (x_dtype == 1 && w_dtype == 0)
-    return launch<__nv_bfloat16, float>(x, w, out, rows, d, eps, plus_one, stream);
+    return dispatch<__nv_bfloat16, float>(x, w, out, rows, d, eps, plus_one, aligned, stream);
   if (x_dtype == 1 && w_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, w, out, rows, d, eps, plus_one, stream);
+    return dispatch<__nv_bfloat16, __nv_bfloat16>(x, w, out, rows, d, eps, plus_one, aligned,
+                                                  stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

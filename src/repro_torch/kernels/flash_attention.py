@@ -1,8 +1,9 @@
-"""Flash-attention forward: the CUDA kernel, its wrappers and its plain version.
+"""Flash-attention forward: the CUDA kernels, their wrappers and their plain versions.
 
 Port of ``repro.kernels.flash_attention`` (the Pallas ``flash_attention_fwd``)
-and of the model's ``repro.models.layers.flash_attention`` contract.  One
-hand-written kernel (``csrc/flash_attention.cu``) serves both callers:
+and of the model's ``repro.models.layers.flash_attention`` contract.  Three
+hand-written kernels (``csrc/flash_attention.cu``) compute one function and
+serve both callers:
 
 * :func:`attention` -- the model layout ``q (B, Sq, H, hd)``, ``k, v
   (B, Sk, KH, hd)`` with explicit int32 ``q_positions (B, Sq)`` and
@@ -11,12 +12,19 @@ hand-written kernel (``csrc/flash_attention.cu``) serves both callers:
 * :func:`flash_attention_fwd` -- the Pallas signature ``(B, H, S, hd)`` with
   implicit ``arange`` positions.
 
-Each wrapper takes the plain PyTorch version (:func:`attention_ref`) only for
-a tensor on the CPU.  For a CUDA tensor it launches the kernel or raises.
-The kernel reads every tensor through its (batch, seq, head) strides, so
-neither layout is copied.  :data:`launches` counts kernel launches.  The
-Pallas ``block_q`` / ``block_k`` / ``interpret`` have no counterpart: the
-kernel's tiles are fixed (``csrc/flash_attention.cu``).
+:func:`route` picks the kernel of each call: the split-KV decode kernel when
+the query rows of a kv group are few, the tensor-core (wgmma) kernel for a
+bf16 prefill, and the CUDA-core kernel for a float32 prefill or rows that are
+not 16-byte aligned.  Each wrapper takes the plain PyTorch version
+(:func:`attention_ref`) only for a tensor on the CPU.  For a CUDA tensor it
+launches one kernel or raises.  The kernels read every tensor through its
+(batch, seq, head) strides, so neither layout is copied.  :data:`launches`
+counts kernel launches, and :data:`splitkv_launches`,
+:data:`wgmma_launches` and :data:`simt_launches` count them by kernel.
+:func:`attention_splitkv_ref` is the split-KV kernel's arithmetic in plain
+PyTorch (per-split partials and their merge), which the tests hold to the
+reference.  The Pallas ``block_q`` / ``block_k`` / ``interpret`` have no
+counterpart: the kernels' tiles are fixed.
 """
 from __future__ import annotations
 
@@ -29,16 +37,27 @@ import torch
 
 from . import _build
 
-__all__ = ["NEG_INF", "attention", "attention_ref", "flash_attention_fwd"]
+__all__ = ["NEG_INF", "attention", "attention_ref", "attention_splitkv_ref",
+           "flash_attention_fwd", "route", "splitkv_plan"]
 
-# kernel launches since import (or since a caller last reset it to 0)
+# kernel launches since import (or since a caller last reset it to 0): all of
+# them, and by kernel
 launches = 0
+splitkv_launches = 0
+wgmma_launches = 0
+simt_launches = 0
 
 NEG_INF = float(torch.finfo(torch.float32).min / 2)
 MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2**31 - 1
 _MAX_GRID_YZ = 65535
+# the split-KV kernel takes at most this many query rows per kv head
+# (Sq * H / KH): a lane keeps float32 accumulators for all of them in registers
+SPLITKV_MAX_ROWS = 16
+SPLITKV_MIN_KEYS = 16     # slots a split at least
+SPLITKV_MAX_SPLITS = 256  # the merge keeps one weight per split and row in shared memory
+WGMMA_MAX_KEYS = 64 * 32 * 64  # the wgmma kernel's tile-skip bits cover this many keys
 
 
 def attention_ref(
@@ -62,15 +81,113 @@ def attention_ref(
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     qg = q.reshape(b, sq, kh, g, hd).float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
-    mask = kv_positions[:, None, :] >= 0  # (B,1,Sk): valid slots
-    if causal:
-        mask = mask & (kv_positions[:, None, :] <= q_positions[:, :, None])
-    if window is not None:
-        mask = mask & (q_positions[:, :, None] - kv_positions[:, None, :] < window)
+    mask = _visible(q_positions, kv_positions, causal, window)  # (B, Sq, Sk)
     s = torch.where(mask[:, None, None, :, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return o.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def _visible(q_positions, kv_positions, causal, window) -> torch.Tensor:
+    """(B, Sq, Sk): key j visible to query i."""
+    mask = kv_positions[:, None, :] >= 0
+    if causal:
+        mask = mask & (kv_positions[:, None, :] <= q_positions[:, :, None])
+    if window is not None:
+        mask = mask & (q_positions[:, :, None] - kv_positions[:, None, :] < window)
+    return mask
+
+
+def attention_splitkv_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_positions: torch.Tensor,
+    kv_positions: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    n_split: int = 1,
+) -> torch.Tensor:
+    """The split-KV decode kernel's arithmetic in float32, for the tests.
+
+    The slots are cut into ``ceil(Sk / chunk)`` splits of ``chunk =
+    ceil(Sk / n_split)``.  Each split gives its softmax partials ``m`` (max
+    score), ``l`` (sum of ``exp(s - m)``) and ``acc`` (that sum over V), the
+    masked scores at ``NEG_INF``.  A split none of whose keys any query of the
+    batch row can see (``kv >= 0``, ``kv <= max q`` if causal, ``min q - kv <
+    window``) is skipped: ``m = NEG_INF``, ``l = 0``.  The merge weighs each
+    split by ``exp(m_s - max m)`` where ``l_s > 0`` and returns ``sum w acc /
+    max(sum w l, 1e-30)``.
+    """
+    b, sq, h, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    if not 1 <= n_split <= sk:
+        raise ValueError(f"n_split must be in [1, Sk={sk}], got {n_split}")
+    chunk = -(-sk // n_split)
+    qg = q.reshape(b, sq, kh, g, hd).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale  # (B, KH, g, Sq, Sk)
+    s = torch.where(_visible(q_positions, kv_positions, causal, window)[:, None, None], s,
+                    NEG_INF)
+    q_lo = q_positions.amin(dim=1, keepdim=True)
+    q_hi = q_positions.amax(dim=1, keepdim=True)
+    relevant = kv_positions >= 0  # (B, Sk): visible to the block's range of queries
+    if causal:
+        relevant = relevant & (kv_positions <= q_hi)
+    if window is not None:
+        relevant = relevant & (q_lo - kv_positions < window)
+    ms, ls, accs = [], [], []
+    for lo in range(0, sk, chunk):
+        sl = slice(lo, min(sk, lo + chunk))
+        m = s[..., sl].amax(dim=-1)
+        p = torch.exp(s[..., sl] - m[..., None])
+        l_ = p.sum(dim=-1)
+        acc = torch.einsum("bkgqs,bskd->bkgqd", p, v[:, sl].float())
+        keep = relevant[:, sl].any(dim=1)[:, None, None, None]  # (B, 1, 1, 1)
+        ms.append(torch.where(keep, m, NEG_INF))
+        ls.append(torch.where(keep, l_, 0.0))
+        accs.append(torch.where(keep[..., None], acc, 0.0))
+    m, l_, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    w = torch.where(l_ > 0, torch.exp(m - m.amax(dim=0)), 0.0)
+    out = (w[..., None] * acc).sum(dim=0) / (w * l_).sum(dim=0).clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+
+
+def route(dtype: torch.dtype, sq: int, h: int, kh: int, hd: int, sk: int,
+          aligned: bool) -> str:
+    """The kernel a call on the card launches: ``"splitkv"``, ``"wgmma"`` or ``"simt"``.
+
+    ``aligned``: every row of q, k, v and the output starts on a 16-byte
+    boundary, which the split-KV and wgmma kernels' vector loads need.
+    """
+    if aligned and sq * (h // kh) <= SPLITKV_MAX_ROWS:
+        return "splitkv"
+    if aligned and dtype == torch.bfloat16 and hd % 8 == 0 and sk <= WGMMA_MAX_KEYS:
+        return "wgmma"
+    return "simt"
+
+
+def splitkv_plan(b: int, kh: int, sk: int, n_sms: int) -> tuple[int, int]:
+    """``(n_split, chunk)`` for the split-KV kernel: enough blocks
+    (``b * kh * n_split``) to cover ``n_sms`` SMs, at least
+    :data:`SPLITKV_MIN_KEYS` slots a split, every split non-empty."""
+    n = max(1, min(sk // SPLITKV_MIN_KEYS, -(-n_sms // (b * kh)), SPLITKV_MAX_SPLITS))
+    chunk = -(-sk // n)
+    return -(-sk // chunk), chunk
+
+
+def _rows_aligned(*tensors: torch.Tensor) -> bool:
+    """Each tensor's data and every (batch, seq, head) step of more than one
+    index on 16-byte boundaries, and hd * itemsize a multiple of 16."""
+    for t in tensors:
+        size = t.element_size()
+        if t.data_ptr() % 16 or (t.shape[-1] * size) % 16:
+            return False
+        if any(n > 1 and (st * size) % 16 for n, st in zip(t.shape[:3], t.stride()[:3])):
+            return False
+    return True
 
 
 def _check(q, k, v, q_positions, kv_positions, window) -> None:
@@ -152,17 +269,38 @@ def flash_attention_fwd(
 
 
 @functools.cache
-def _entry():
-    fn = _build.load("flash_attention").flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_simt.argtypes = [ptr] * 8 + [f32, i32, i32, i32, ptr]
+    lib.flash_attention_splitkv.argtypes = [ptr] * 10 + [f32, i32, i32, i32, i32, i32, ptr]
+    lib.flash_attention_wgmma.argtypes = [ptr] * 8 + [f32, i32, i32, ptr]
+    for fn in (lib.flash_attention_simt, lib.flash_attention_splitkv, lib.flash_attention_wgmma):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# the split-KV kernel's tickets, one int32 per (b, kv head), by (device, stream):
+# zero between launches (the kernel returns each to zero), so they are kept
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _tickets_for(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < n:
+        t = _tickets[key] = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+    return t
 
 
 def _launch(q, k, v, q_positions, kv_positions, out, causal, window, scale) -> torch.Tensor:
     """Launch on ``(B, S, H, hd)``-indexed views (any strides, hd contiguous)."""
-    global launches
+    global launches, splitkv_launches, wgmma_launches, simt_launches
     b, sq, h, hd = q.shape
     sk, kh = k.shape[1], k.shape[2]
     if out.numel() == 0:
@@ -174,20 +312,40 @@ def _launch(q, k, v, q_positions, kv_positions, out, causal, window, scale) -> t
     if b > _MAX_GRID_YZ or h > _MAX_GRID_YZ or max(sq, sk) > _INT_MAX:
         raise ValueError("attention kernel takes B, H <= 65535 and sequences < 2**31")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    path = route(q.dtype, sq, h, kh, hd, sk, _rows_aligned(q, k, v, out))
     dims = (ctypes.c_longlong * 6)(b, sq, sk, h, kh, hd)
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, out) for s in (t.stride(0), t.stride(1), t.stride(2))
     ))
-    fn = _entry()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
+            kv_positions.data_ptr(), out.data_ptr())
+    common = (float(scale), int(bool(causal)), 0 if window is None else int(window))
+    lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
-            kv_positions.data_ptr(), out.data_ptr(), ctypes.addressof(dims),
-            ctypes.addressof(strides), float(scale), int(bool(causal)),
-            0 if window is None else int(window), _DTYPE_CODES[q.dtype], stream,
-        )
+        if path == "splitkv":
+            n_split, chunk = splitkv_plan(b, kh, sk, _sm_count(q.device.index))
+            rows = 8 if sq * (h // kh) <= 8 else SPLITKV_MAX_ROWS
+            part = torch.empty(b * kh * n_split * rows * (2 + hd), dtype=torch.float32,
+                               device=q.device)
+            tickets = _tickets_for(q.device, stream, b * kh)
+            err = lib.flash_attention_splitkv(
+                *ptrs, part.data_ptr(), tickets.data_ptr(), ctypes.addressof(dims),
+                ctypes.addressof(strides), *common, n_split, chunk, _DTYPE_CODES[q.dtype], stream)
+        elif path == "wgmma":
+            err = lib.flash_attention_wgmma(*ptrs, ctypes.addressof(dims),
+                                            ctypes.addressof(strides), *common, stream)
+        else:
+            err = lib.flash_attention_simt(*ptrs, ctypes.addressof(dims),
+                                           ctypes.addressof(strides), *common,
+                                           _DTYPE_CODES[q.dtype], stream)
     if err:
-        raise RuntimeError(f"flash-attention kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"flash-attention {path} kernel launch failed with CUDA error {err}")
     launches += 1
+    if path == "splitkv":
+        splitkv_launches += 1
+    elif path == "wgmma":
+        wgmma_launches += 1
+    else:
+        simt_launches += 1
     return out

@@ -6,7 +6,7 @@ plain version only for a tensor on the CPU; for a CUDA tensor it launches
 ``csrc/rmsnorm.cu`` or raises.  :data:`launches` counts kernel launches, so a
 run can show that its path went through the kernel.  The Pallas kernel's
 ``block_rows`` / ``interpret`` have no counterpart: the CUDA kernel runs one
-block per row.
+warp per row, 8 rows a block.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ROWS = 2**31 - 1
+_MAX_D = 56 * 1024  # the weight row, float32, in one block's shared memory
 
 
 def rms_norm_ref(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
@@ -67,7 +68,7 @@ def _entry():
     fn = _build.load("rmsnorm").rmsnorm
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
                                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
+                                           ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -81,11 +82,15 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, eps: float, plus_one: bool) -
         return out
     if rows > _MAX_ROWS:
         raise ValueError(f"rmsnorm kernel takes at most {_MAX_ROWS} rows")
+    if d > _MAX_D:
+        raise ValueError(f"rmsnorm kernel takes rows of at most {_MAX_D} values, got {d}")
+    # the kernel's 16-byte vector path needs both rows' starts on 16-byte boundaries
+    aligned = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     fn = _entry()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows, d, eps, int(plus_one),
-                 _DTYPE_CODES[x.dtype], _DTYPE_CODES[weight.dtype], stream)
+                 _DTYPE_CODES[x.dtype], _DTYPE_CODES[weight.dtype], int(aligned), stream)
     if err:
         raise RuntimeError(f"rmsnorm kernel launch failed with CUDA error {err}")
     launches += 1

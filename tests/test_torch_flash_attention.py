@@ -161,3 +161,124 @@ def test_attention_wrapper_rejects_what_the_kernel_does_not_take():
     before = flash.launches
     flash.attention(q, q, q, pos, pos)
     assert flash.launches == before  # the plain version is no launch
+
+
+# The split-KV decode kernel's arithmetic (per-split partials and their merge)
+# in plain PyTorch, held to the one-pass plain version, the reference's model
+# layer and the Pallas kernel in interpret mode.  Cases: (kh, g, hd, slots,
+# position of the new token t, slots written, window).
+_SPLITKV_CASES = {
+    "unwritten tail": (2, 6, 64, 40, 29, 30, None),
+    "all-unwritten split": (2, 3, 32, 48, 9, 10, None),
+    "wrapped ring": (2, 6, 64, 40, 57, 40, None),
+    "window over a ring": (4, 1, 32, 24, 50, 24, 16),
+    "only slot 0": (1, 4, 32, 33, 0, 1, None),
+    "one slot": (2, 2, 32, 1, 5, 1, None),
+}
+
+
+@pytest.mark.parametrize("case", list(_SPLITKV_CASES))
+def test_splitkv_ref_matches_plain_and_reference_for_every_split_count(case):
+    kh, g, hd, w, t, n_written, window = _SPLITKV_CASES[case]
+    b = 2
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((b, 1, kh * g, hd)).astype(np.float32)
+    k, v, kv_pos = _ring_cache(b, w, kh, hd, t, n_written, seed=12)
+    q_pos = np.full((b, 1), t, np.int32)
+    tq, tk, tv, tqp, tkp = (torch.from_numpy(a) for a in (q, k, v, q_pos, kv_pos))
+    want = flash.attention_ref(tq, tk, tv, tqp, tkp, True, window)
+    jax_want = jax_layer_flash(*(jnp.asarray(a) for a in (q, k, v, q_pos, kv_pos)), causal=True,
+                               window=window, block_k=16)
+    np.testing.assert_allclose(want.numpy(), _f32(jax_want), **TOL["f32"])
+    for n_split in range(1, w + 1):
+        got = flash.attention_splitkv_ref(tq, tk, tv, tqp, tkp, True, window, n_split=n_split)
+        assert got.shape == want.shape and got.dtype == want.dtype
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL["f32"],
+                                   err_msg=f"n_split={n_split}")
+
+
+def test_splitkv_ref_skips_a_split_that_no_query_can_see():
+    # slots 0..15 hold positions past the query (invisible by causality) and
+    # 16..31 are unwritten: a split within them is skipped (m = NEG_INF,
+    # l = 0) and the merge gives it weight 0
+    b, kh, g, hd, w = 1, 1, 2, 16, 40
+    rng = np.random.default_rng(13)
+    q = torch.from_numpy(rng.standard_normal((b, 1, kh * g, hd)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((b, w, kh, hd)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, w, kh, hd)).astype(np.float32))
+    pos = np.full((b, w), -1, np.int32)
+    pos[0, :16] = np.arange(100, 116)   # future positions: masked by causality
+    pos[0, 32:] = np.arange(10, 18)     # the only visible keys
+    kv_pos, q_pos = torch.from_numpy(pos), torch.tensor([[20]], dtype=torch.int32)
+    want = flash.attention_ref(q, k, v, q_pos, kv_pos, True, None)
+    for n_split in (1, 2, 5, 40):
+        got = flash.attention_splitkv_ref(q, k, v, q_pos, kv_pos, True, None, n_split=n_split)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL["f32"])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n_split", [1, 3, 8, 64])
+def test_splitkv_ref_matches_pallas(dtype, n_split):
+    # arange positions, causal, GQA 4:2: the Pallas kernel in interpret mode
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(1, 4, 2, 64, 64, 32, dtype, seed=14)
+    pos = torch.arange(64, dtype=torch.int32)[None]
+    got = flash.attention_splitkv_ref(*(t.transpose(1, 2) for t in (tq, tk, tv)), pos, pos,
+                                      True, None, n_split=n_split).transpose(1, 2)
+    want = pallas_fwd(jq, jk, jv, causal=True, block_q=64, block_k=64, interpret=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL[dtype])
+
+
+def test_splitkv_ref_rejects_a_split_count_out_of_range():
+    q = torch.zeros(1, 1, 2, 8)
+    k = torch.zeros(1, 4, 1, 8)
+    pos = torch.zeros(1, 4, dtype=torch.int32)
+    for n_split in (0, 5):
+        with pytest.raises(ValueError, match="n_split"):
+            flash.attention_splitkv_ref(q, k, k, pos[:, :1], pos, n_split=n_split)
+
+
+@pytest.mark.parametrize("sq,h,kh,dtype,aligned,want", [
+    (1, 12, 2, torch.bfloat16, True, "splitkv"),     # qwen2-1.5b decode: 6 rows
+    (1, 12, 2, torch.float32, True, "splitkv"),
+    (2, 16, 2, torch.bfloat16, True, "splitkv"),     # 16 rows: the threshold itself
+    (3, 12, 2, torch.bfloat16, True, "splitkv"),     # 18 rows: past it
+    (1024, 12, 2, torch.bfloat16, True, "wgmma"),    # qwen2-1.5b prefill
+    (17, 1, 1, torch.bfloat16, True, "wgmma"),       # 17 rows, MHA
+    (1024, 12, 2, torch.float32, True, "simt"),      # float32 prefill: CUDA cores
+    (1, 12, 2, torch.bfloat16, False, "simt"),       # rows off 16-byte boundaries
+    (1024, 12, 2, torch.bfloat16, False, "simt"),
+])
+def test_route_picks_the_kernel_by_rows_dtype_and_alignment(sq, h, kh, dtype, aligned, want):
+    rows = sq * (h // kh)
+    if rows > flash.SPLITKV_MAX_ROWS and want == "splitkv":
+        want = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert flash.route(dtype, sq, h, kh, 128, 1056, aligned) == want
+
+
+def test_route_keeps_long_caches_and_odd_head_dims_off_the_wgmma_kernel():
+    assert flash.route(torch.bfloat16, 64, 8, 8, 128, flash.WGMMA_MAX_KEYS, True) == "wgmma"
+    assert flash.route(torch.bfloat16, 64, 8, 8, 128, flash.WGMMA_MAX_KEYS + 1, True) == "simt"
+    assert flash.route(torch.bfloat16, 64, 8, 8, 36, 64, True) == "simt"
+
+
+@pytest.mark.parametrize("b,kh,sk,n_sms", [(1, 2, 1056, 132), (1, 16, 300, 132), (2, 2, 1, 132),
+                                           (4, 8, 32768, 132), (1, 1, 100000, 132),
+                                           (1, 2, 17, 132), (64, 4, 2048, 132)])
+def test_splitkv_plan_fills_the_card_with_non_empty_splits(b, kh, sk, n_sms):
+    n_split, chunk = flash.splitkv_plan(b, kh, sk, n_sms)
+    assert 1 <= n_split <= flash.SPLITKV_MAX_SPLITS
+    assert (n_split - 1) * chunk < sk <= n_split * chunk  # every split holds a slot
+    assert chunk >= min(sk, flash.SPLITKV_MIN_KEYS)
+    if sk >= flash.SPLITKV_MIN_KEYS * n_sms:  # enough slots: the blocks cover the SMs
+        assert b * kh * n_split >= min(n_sms, b * kh * flash.SPLITKV_MAX_SPLITS)
+    if (b, kh, sk) == (1, 2, 1056):
+        assert (n_split, chunk) == (66, 16)  # qwen2-1.5b decode: 132 blocks of 16 slots
+
+
+def test_rows_aligned_sees_a_misaligned_view_and_odd_strides():
+    x = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    assert flash._rows_aligned(x, x.transpose(1, 2).transpose(1, 2))
+    assert not flash._rows_aligned(torch.zeros(1 * 8 * 2 * 64 + 1, dtype=torch.bfloat16)[1:]
+                                   .view(1, 8, 2, 64))
+    assert not flash._rows_aligned(torch.zeros(1, 8, 2, 68, dtype=torch.bfloat16)[..., :64])
+    assert flash._rows_aligned(torch.zeros(1, 1, 2, 64, dtype=torch.bfloat16)[:, :, :1])

@@ -113,6 +113,128 @@ def test_decode_attention_kernel_matches_plain(dtype, kh, g, hd, w, t, n_written
     _close(got, flash.attention_ref(q, k, v, q_pos, kv_pos, True, window), dtype)
 
 
+def _path_counts():
+    return flash.splitkv_launches, flash.wgmma_launches, flash.simt_launches
+
+
+def _path_of(before):
+    after = _path_counts()
+    assert sum(a - b for a, b in zip(after, before)) == 1  # one kernel, one launch
+    return ("splitkv", "wgmma", "simt")[[a != b for a, b in zip(after, before)].index(True)]
+
+
+def _ring(w, t, n_written, b, dev):
+    pos = torch.full((w,), -1, dtype=torch.int32)
+    for p in range(t - n_written + 1, t + 1):
+        pos[p % w] = p
+    return pos.to(dev).expand(b, w).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("b,kh,g,w,t,n_written,window", [
+    (1, 2, 6, 1056, 1030, 1031, None),  # qwen2-1.5b decode at B = 1, -1 in the tail
+    (1, 2, 6, 1056, 0, 1, None),        # only slot 0 written
+    (2, 2, 6, 10, 9, 10, None),         # fewer slots than one split
+    (2, 2, 6, 1, 0, 1, None),           # one slot
+    (1, 4, 2, 64, 100, 64, 16),         # a wrapped ring with a window
+])
+def test_splitkv_decode_matches_plain(dtype, hd, b, kh, g, w, t, n_written, window, card):
+    q = _randn((b, 1, kh * g, hd), dtype, card, 8)
+    k = _randn((b, w, kh, hd), dtype, card, 9)
+    v = _randn((b, w, kh, hd), dtype, card, 10)
+    kv_pos = _ring(w, t, n_written, b, card)
+    q_pos = torch.full((b, 1), t, dtype=torch.int32, device=card)
+    before = _path_counts()
+    got = flash.attention(q, k, v, q_pos, kv_pos, causal=True, window=window)
+    assert _path_of(before) == "splitkv"
+    _close(got, flash.attention_ref(q, k, v, q_pos, kv_pos, True, window), dtype)
+    # a second launch on the same stream finds its tickets back at zero
+    _close(flash.attention(q, k, v, q_pos, kv_pos, causal=True, window=window),
+           flash.attention_ref(q, k, v, q_pos, kv_pos, True, window), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("sq,h,kh", [(2, 16, 2), (16, 4, 4), (3, 12, 2), (17, 4, 4)])
+def test_routing_threshold_from_both_sides(dtype, sq, h, kh, card):
+    # Sq * g query rows per kv head: 16 take the split-KV kernel, 17 and 18 do not
+    b, sk, hd = 2, 300, 128
+    q = _randn((b, sq, h, hd), dtype, card, 11)
+    k = _randn((b, sk, kh, hd), dtype, card, 12)
+    v = _randn((b, sk, kh, hd), dtype, card, 13)
+    kv_pos = _ring(sk, 250, 251, b, card)
+    q_pos = torch.arange(251 - sq, 251, dtype=torch.int32, device=card).expand(b, sq).contiguous()
+    before = _path_counts()
+    got = flash.attention(q, k, v, q_pos, kv_pos, causal=True)
+    rows = sq * (h // kh)
+    want_path = "splitkv" if rows <= flash.SPLITKV_MAX_ROWS else (
+        "wgmma" if dtype == "bf16" else "simt")
+    assert _path_of(before) == want_path
+    _close(got, flash.attention_ref(q, k, v, q_pos, kv_pos, True, None), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("sq,sk,n_written,window", [
+    (70, 70, 70, None),     # ragged Sq: no whole 64-row tile
+    (192, 192, 192, None),  # three whole tiles
+    (96, 160, 96, None),    # Sk > Sq with an unwritten tail (a prompt in a larger cache)
+    (128, 128, 128, 48),    # sliding window
+])
+def test_prefill_matches_plain_on_every_head_dim(dtype, hd, sq, sk, n_written, window, card):
+    b, h, kh = 1, 4, 2
+    q = _randn((b, sq, h, hd), dtype, card, 14)
+    k = _randn((b, sk, kh, hd), dtype, card, 15)
+    v = _randn((b, sk, kh, hd), dtype, card, 16)
+    kv_pos = _ring(sk, n_written - 1, n_written, b, card)
+    q_pos = torch.arange(n_written - sq, n_written, dtype=torch.int32,
+                         device=card).expand(b, sq).contiguous()
+    before = _path_counts()
+    got = flash.attention(q, k, v, q_pos, kv_pos, causal=True, window=window)
+    assert _path_of(before) == ("wgmma" if dtype == "bf16" else "simt")
+    _close(got, flash.attention_ref(q, k, v, q_pos, kv_pos, True, window), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_misaligned_rows_take_the_cuda_core_kernel(dtype, card):
+    # a view one element off a 16-byte boundary: neither vector kernel can read it
+    b, sq, sk, h, kh, hd = 1, 1, 40, 4, 2, 64
+    flat = _randn((b * sq * h * hd + 1,), dtype, card, 17)
+    q = flat[1:].view(b, sq, h, hd)
+    k = _randn((b, sk, kh, hd), dtype, card, 18)
+    v = _randn((b, sk, kh, hd), dtype, card, 19)
+    kv_pos = _ring(sk, 30, 31, b, card)
+    q_pos = torch.full((b, sq), 30, dtype=torch.int32, device=card)
+    before = _path_counts()
+    got = flash.attention(q, k, v, q_pos, kv_pos, causal=True)
+    assert _path_of(before) == "simt"
+    _close(got, flash.attention_ref(q, k, v, q_pos, kv_pos, True, None), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d", [100, 1536, 4100])
+def test_rmsnorm_kernel_takes_misaligned_views_and_odd_widths(dtype, d, card):
+    # d = 100 is no multiple of 8 (bf16 takes the scalar path, float32 not);
+    # 4100 is wider than the vector path holds; the view starts off a 16-byte
+    # boundary, so every width takes the scalar path there
+    rows = 5
+    x = _randn((rows, d), dtype, card, 20)
+    w = _randn((d,), dtype, card, 21) * 0.1
+    flat = torch.empty(rows * d + 1, dtype=DTYPES[dtype], device=card)
+    flat[1:].copy_(x.reshape(-1))
+    view = flat[1:].view(rows, d)
+    for xx in (x, view):
+        before = rmsnorm.launches
+        got = rmsnorm.rms_norm_fused(xx, w, plus_one=True)
+        assert rmsnorm.launches == before + 1
+        _close(got, rmsnorm.rms_norm_ref(xx, w, plus_one=True), dtype)
+
+
 @pytest.mark.cuda
 def test_smoke_model_on_card_matches_cpu(card):
     # float32 compute with TF32 off: the card's kernels against the CPU's plain versions
