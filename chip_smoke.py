@@ -8,12 +8,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports
 2. builds every CUDA kernel of the paths from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together) and prints each kernel's
    registers and spills;
-3. holds the cover kernel bitwise equal to its plain PyTorch version on the
-   card, in float32 and float64, at the shapes of ``tests/test_torch_cover.py``
-   and at every shape the planning path gives it: the frontier at each budget
-   (N = 100: 9 x 32768 x 100; N = 720: 30 x 32768 x 720) and
-   ``simulate_fifo``'s (64 * 32768, 10, 10) grid, unmasked and masked to
-   5 x 5; times the largest frontier beside the kernel's memory bound;
+3. holds cover kernel A (draws in) bitwise equal to its plain PyTorch version
+   on the card, in float32 and float64, at the shapes of
+   ``tests/test_torch_cover.py``, at edge geometries (r = 1, r = n_slots,
+   rows off 16-byte boundaries, masked ``ld > r``, batches wider than its
+   shared-memory buffer) and at the frontier shapes (N = 100: 9 x 32768 x 100;
+   N = 720: 30 x 32768 x 720) and ``simulate_fifo``'s (64 * 32768, 10, 10)
+   grid, unmasked and masked to 5 x 5; times the largest frontier beside the
+   kernel's memory bound;
+3b. holds cover kernel B (Philox sample-and-cover) to its plain version: the
+   uniforms bitwise, the cover times of Exp, SExp, Pareto(1.5) and job6 at
+   N = 100 and N = 720 in float32 and float64 over reps [0, 2048) and
+   [32768 - 2048, 32768) (through ``rep0``), bitwise for job6 and within a
+   relative 2e-6 / 1e-14 for the others; counts the instructions of its
+   loop in the compiled SASS (``cuobjdump``) for its operations bound, and
+   times it per law at (30, 32768, 720) float32 beside that bound, its plain
+   version and the unfused pass it replaces (``dist.sample`` + kernel A);
 4. holds the RMSNorm and flash-attention kernels to their plain versions
    within ``tests/test_kernels.py``'s ``TOL`` (float32 2e-5, bfloat16 3e-2)
    at the serving path's shapes -- RMSNorm (1024, 1536) and (1, 1536), plain
@@ -32,17 +42,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports
 5. runs the planning path, ``plan_sweep`` over Exp, SExp, Pareto(1.5) and the
    §VII heavy-tail trace job ``job6`` across budgets N in {100, 720} with
    32768 reps, with the launch counters set to 0 just before and read just
-   after (one cover launch per grid point); checks the Exp and SExp
-   frontier means against the closed form ``analysis.mean_T``; prints each
-   grid point's B* and wall time, the sampler's share of a frontier pass,
-   and the card's idle share over one ``plan_cluster`` (``torch.profiler``);
+   after (one kernel-B launch per grid point, none of kernel A); checks the
+   Exp and SExp frontier means against the closed form ``analysis.mean_T``;
+   prints each grid point's B* and wall time, a frontier pass's host time,
+   the selection's host time, its peak device memory and the card's idle
+   share over one ``plan_cluster`` (``torch.profiler``); checks
+   ``frontier_job_times`` with ``rep_chunk=4096`` bitwise equal to one launch;
 6. runs ``simulate_fifo`` on the card the same way and checks its accounting
    invariant;
 7. runs the serving path, ``repro_torch.launch.serve.main`` at the full
    width and depth of qwen2-1.5b (4 requests, prompt 1024, gen 32, batch 1,
    seeded weights), with the counters set to 0 just before and read just
    after: 57 RMSNorm and 28 attention launches per forward, (1 + gen)
-   forwards per request, 2 cover launches for the planner, every decode
+   forwards per request, 2 kernel-A cover launches for the planner
+   (``simulate_balanced``), every decode
    attention on the split-KV kernel and every prefill attention on the wgmma
    kernel; prints each
    request's ms with its prefill / decode split, the peak device memory and
@@ -77,6 +90,10 @@ ROOT = Path(__file__).resolve().parent
 CARD_BYTES_PER_S = 3.35e12
 CARD_F32_FLOP_PER_S = 67e12
 CARD_BF16_FLOP_PER_S = 989e12
+# instructions the card can issue per second: one warp instruction per clock
+# from each of an SM's 4 schedulers, 32 lanes, 132 SMs, 1980 MHz boost clock
+# (half the float32 rate, which counts an FMA as two operations)
+CARD_ISSUE_PER_S = 4 * 32 * 132 * 1.98e9
 
 N_REPS = 32768
 BUDGETS = (100, 720)
@@ -88,6 +105,11 @@ SERVE_ARCH = "qwen2-1.5b"
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN, SERVE_WORKERS = 4, 1024, 32, 8
 # tests/test_kernels.py's TOL (atol = rtol) by dtype name
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# kernel B against its plain version, relative, for the laws with a log1p or a
+# pow (libdevice's and torch's may differ by a few ulp; the min/max carries
+# the chosen draw's error through unchanged); an empirical law is bitwise
+PHILOX_RTOL = {"float32": 2e-6, "float64": 1e-14}
+PHILOX_CHECK_REPS = 2048  # reps per checked range: the plain version holds its draws
 
 
 class PhaseFailed(Exception):
@@ -297,6 +319,31 @@ def phase_kernel_vs_plain() -> dict:
             check(same, f"frontier_cover {dtype} N={n} {cands} differs from plain")
         print(f"{dtype}: test shapes bitwise equal")
 
+        # edge geometries: r = 1 and r = n_slots, rows off 16-byte boundaries,
+        # batches wider than the kernel's shared-memory buffer, r past a warp
+        edges = [([720, 1, 24, 5], [1, 720, 30, 144], 720), ([41, 1, 3], [1, 41, 13], 41),
+                 ([1, 2], [1500, 700], 1500), ([3, 7], [33, 9], 100)]
+        for bs, rs, n_slots in edges:
+            xe = torch.rand((len(bs), 77, n_slots), generator=gen, device=dev, dtype=dtype)
+            xe[0, 3, 0] = float("nan")
+            xe[1, 9, :] = float("inf")
+            sc = torch.as_tensor([2.0 + c for c in range(len(bs))], dtype=dtype, device=dev)
+            same, err = bitwise_equal(cover.frontier_cover(xe, bs, rs, sc),
+                                      cover.frontier_cover_ref(xe, bs, rs, sc))
+            max_err = max(max_err, err)
+            check(same, f"frontier_cover {dtype} edge {bs} x {rs} differs from plain")
+        flat = torch.rand((1 + 200 * 35,), generator=gen, device=dev, dtype=dtype)
+        xo = flat[1:].view(200, 5, 7)  # one element past the allocation's start
+        xo[4, 0, 0] = float("nan")
+        wide = torch.rand((40, 3, 1100), generator=gen, device=dev, dtype=dtype)
+        for grid_, b, r in [(xo, 5, 7), (xo, 4, 3), (xo, 2, 1), (wide, 3, 1100), (wide, 3, 37)]:
+            same, err = bitwise_equal(cover.masked_cover_times(grid_, b, r),
+                                      cover.masked_cover_times_ref(grid_, b, r))
+            max_err = max(max_err, err)
+            check(same, f"masked_cover_times {dtype} {tuple(grid_.shape)} (b={b}, r={r}) "
+                        "differs from plain")
+        print(f"{dtype}: edge geometries bitwise equal")
+
         # every shape the main path gives the kernel: the frontier at each budget
         for n in BUDGETS:
             cands = analysis.feasible_B(n)
@@ -370,10 +417,181 @@ def main_path_dists():
     ]
 
 
-def phase_main_path() -> int:
+_SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_SASS_BRANCH = re.compile(r"\bBRA(?:\.[A-Z.]+)?\s+(?:`\()?(\.L_x_\d+|0x[0-9a-f]+)")
+
+
+def sass_functions(lib_path) -> dict:
+    """Each kernel's SASS lines in a built library, by (unmangled) name."""
+    import shutil
+
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True, text=True,
+                         timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()[:300]}")
+    funcs: dict = {}
+    cur = None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+        elif cur is not None:
+            cur.append(line)
+    return funcs
+
+
+def loop_pass_instructions(lines) -> tuple[int, dict]:
+    """Instructions on one pass through a kernel's main loop, and their count
+    by opcode.  The main loop is the backward branch that spans the most
+    code; the pass starts at its target and follows the code that takes no
+    conditional branch (unconditional forward branches are followed) up to
+    the branch back: the path of an iteration on which no special case of a
+    math function arises.  NOPs are not counted."""
+    instrs, labels, pending = [], {}, []
+    for line in lines:
+        lm = _SASS_LABEL.match(line)
+        if lm:
+            pending.append(lm.group(1))
+            continue
+        im = _SASS_INSTR.search(line)
+        if im:
+            addr = int(im.group(1), 16)
+            for label in pending:
+                labels[label] = addr
+            pending = []
+            instrs.append((addr, im.group(2).strip()))
+
+    def target(text):
+        m = _SASS_BRANCH.search(text)
+        if not m:
+            return None
+        return labels.get(m.group(1)) if m.group(1).startswith(".L") else int(m.group(1), 16)
+
+    index = {a: i for i, (a, _) in enumerate(instrs)}
+    backs = [(i, target(t)) for i, (a, t) in enumerate(instrs)
+             if target(t) is not None and target(t) <= a]
+    check(bool(backs), "no loop in the kernel's SASS")
+    end, start = max(backs, key=lambda it: instrs[it[0]][0] - it[1])
+    pos, count, ops = index[start], 0, {}
+    for _ in range(len(instrs)):
+        addr, text = instrs[pos]
+        op = (text.split()[1] if text.startswith("@") else text.split()[0]).split(".")[0]
+        if op != "NOP":
+            count += 1
+            ops[op] = ops.get(op, 0) + 1
+        if pos == end:
+            break
+        tgt = target(text)
+        if tgt is not None and not text.startswith("@") and tgt > addr:
+            pos = index[tgt]
+            continue
+        pos += 1
+    return count, ops
+
+
+_LAW_NAMES = ("exponential", "shifted_exponential", "pareto", "empirical")
+
+
+def phase_philox_vs_plain() -> dict:
+    import numpy as np
     import torch
 
     from repro_torch._device import time_on_card
+    from repro_torch.core import analysis
+    from repro_torch.kernels import _build, cover, philox
+
+    phase("cover kernel B (Philox sample-and-cover) vs plain version, on the card")
+    dev = torch.device("cuda")
+    dists = main_path_dists()
+    max_err, worst_rel = 0.0, {"float32": 0.0, "float64": 0.0}
+    ranges = [(0, PHILOX_CHECK_REPS), (N_REPS - PHILOX_CHECK_REPS, PHILOX_CHECK_REPS)]
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).removeprefix("torch.")
+        for n in BUDGETS:
+            cands = analysis.feasible_B(n)
+            bs = np.asarray(cands)
+            rs, scales = n // bs, n / bs
+            for rep0, n_reps in ranges:
+                # the uniforms the card draws are the plain version's, bit for bit
+                got = cover.frontier_uniforms(SEED, len(cands), n_reps, n, rep0, dtype, dev)
+                per = philox.draws_per_counter(philox.EXPONENTIAL, dtype)
+                words = philox.stream_words(SEED, len(cands), rep0, n_reps, -(-n // per), dev)
+                same, _ = bitwise_equal(got, philox.uniforms(words, dtype, n))
+                check(same, f"Philox uniforms {name} N={n} reps from {rep0} differ from plain")
+                del got, words
+                for label, dist in dists:
+                    args = (dist, bs, rs, scales, n_reps, SEED, rep0, dtype, dev)
+                    got = cover.frontier_sample_cover(*args)
+                    want = cover.frontier_sample_cover_ref(*args)
+                    if dist.philox_law()[0] == philox.EMPIRICAL:
+                        ok, err = bitwise_equal(got, want)
+                        rel = 0.0
+                    else:
+                        diff = (got - want).abs()
+                        err = float(diff.max())
+                        # a cover time of 0 (a batch whose min draw is u = 0) has no
+                        # relative error; compare it absolutely
+                        tiny = torch.finfo(dtype).tiny
+                        rel = float((diff / want.abs().clamp_min(tiny)).max())
+                        ok = bool(torch.isfinite(got).all()) and rel <= PHILOX_RTOL[name]
+                    max_err = max(max_err, err)
+                    worst_rel[name] = max(worst_rel[name], rel)
+                    check(ok, f"kernel B {name} {label} N={n} reps [{rep0}, {rep0 + n_reps}): "
+                              f"max |err| {err}, max rel {rel} (limit {PHILOX_RTOL[name]})")
+            torch.cuda.empty_cache()
+        print(f"{name}: uniforms bitwise equal; cover times of {len(dists)} laws at N in "
+              f"{BUDGETS}, reps {ranges} within limits (job6 bitwise); max |err| so far "
+              f"{max_err:.3e}, max relative {worst_rel[name]:.3e} (limit {PHILOX_RTOL[name]})",
+              flush=True)
+
+    # instructions per Philox counter, from the compiled SASS, for the
+    # operations bound; then each law at the main path's largest shape
+    funcs = sass_functions(_build.library_path("cover"))
+    n = max(BUDGETS)
+    cands = analysis.feasible_B(n)
+    bs = np.asarray(cands)
+    rs, scales = n // bs, n / bs
+    scales_t = torch.as_tensor(scales, dtype=torch.float32, device=dev)
+    by_law = {}
+    for label, dist in dists:
+        code, _, table = dist.philox_law()
+        kname = f"sample_cover_f32_{_LAW_NAMES[code]}"
+        check(kname in funcs, f"{kname} not found in the SASS of the cover library")
+        per_counter, ops = loop_pass_instructions(funcs[kname])
+        per = philox.draws_per_counter(code, torch.float32)
+        counters = sum(-(-int(b * r) // per) for b, r in zip(bs, rs)) * N_REPS
+        n_instr = per_counter * counters
+        n_bytes = len(cands) * N_REPS * 4 + (0 if table is None else 4 * len(table)) \
+            + len(cands) * 16
+        bnd, by = bound_ms(n_bytes, n_instr, CARD_ISSUE_PER_S)
+        args = (dist, bs, rs, scales, N_REPS, SEED, 0, torch.float32, dev)
+        ms = time_on_card(lambda: cover.frontier_sample_cover(*args), iters=10)
+        plain_ms = time_on_card(lambda: cover.frontier_sample_cover_ref(*args), iters=1,
+                                warmup=1)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        shape = (len(cands), N_REPS, n)
+        unfused_ms = time_on_card(
+            lambda: cover.frontier_cover(dist.sample(gen, shape, dev, torch.float32), bs, rs,
+                                         scales_t), iters=3)
+        torch.cuda.empty_cache()
+        top = ", ".join(f"{k} {v}" for k, v in sorted(ops.items(), key=lambda kv: -kv[1])[:8])
+        print(f"{label:15s} float32 {shape}: kernel B {ms:.4f} ms; bound {bnd:.4f} ms ({by}: "
+              f"{per_counter} instructions per counter of {per} draws from the SASS, "
+              f"{n_instr:.4e} in all at {CARD_ISSUE_PER_S:.4e}/s), kernel at {bnd / ms:.1%} "
+              f"of bound; plain {plain_ms:.4f} ms; unfused pass (dist.sample + kernel A) "
+              f"{unfused_ms:.4f} ms; loop mix: {top}", flush=True)
+        by_law[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                         "unfused_ms": unfused_ms, "instructions_per_counter": per_counter}
+    rec = dict(by_law[dists[0][0]])  # the Exp law stands for the kernel in the kernels line
+    rec.update(library_ms=None, max_abs_err=max_err, by_law=by_law)
+    return rec
+
+
+def phase_main_path() -> dict:
+    import numpy as np
+    import torch
+
     from repro_torch.cluster.vectorized import frontier_job_times
     from repro_torch.core import analysis
     from repro_torch.core.planner import RedundancyPlanner, _frontier_stats, plan_sweep
@@ -381,17 +599,20 @@ def phase_main_path() -> int:
 
     phase(f"main path: plan_sweep, budgets {BUDGETS}, {N_REPS} reps")
     dists = main_path_dists()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cover.launches = 0
+    cover.launches = cover.draws_launches = cover.philox_launches = 0
     t0 = time.perf_counter()
     plans = plan_sweep([d for _, d in dists], BUDGETS, n_reps=N_REPS, seed=SEED)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = cover.launches
+    launches = {"draws": cover.draws_launches, "philox": cover.philox_launches}
     n_points = len(dists) * len(BUDGETS)
-    print(f"plan_sweep: {n_points} grid points in {wall:.3f} s; cover launches {launches}")
-    check(launches == n_points, f"expected {n_points} cover launches, saw {launches}")
-    print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    print(f"plan_sweep: {n_points} grid points in {wall:.3f} s; cover launches by kernel "
+          f"{launches}")
+    check(launches == {"draws": 0, "philox": n_points},
+          f"expected {n_points} kernel-B launches and none of kernel A, saw {launches}")
+    print(f"plan_sweep peak device memory {torch.cuda.max_memory_allocated() / 1e9:.6f} GB")
 
     # the closed form holds for Exp / SExp: every candidate's Monte-Carlo mean
     # within 3 sigma, family-wise (Bonferroni over all candidates checked)
@@ -428,39 +649,44 @@ def phase_main_path() -> int:
                   f"E[T]={plan.predicted_mean:.6g} CoV={plan.predicted_cov:.4f} "
                   f"wall {dt * 1e3:.3f} ms")
 
-    # where a grid point's time goes at the largest budget: the sampler and
-    # the kernel on the card (CUDA events), the whole frontier pass and the
-    # host's selection statistics on the host clock
+    # where a grid point's time goes at the largest budget: the frontier pass
+    # (kernel B and the copy to the host) and the host's selection statistics
+    # on the host clock, the pass's peak device memory, and the card's idle
+    # share over one profiled plan_cluster
     n = max(BUDGETS)
     cands = analysis.feasible_B(n)
-    dev = torch.device("cuda")
     for name, dist in dists:
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        bs = torch.tensor(cands)
-        shape = (len(cands), N_REPS, n)
-        x = dist.sample(gen, shape, dev, torch.float32)
-        scales = (n / bs).to(dev, torch.float32)
-        sample_ms = time_on_card(lambda: dist.sample(gen, shape, dev, torch.float32), iters=5)
-        cover_ms = time_on_card(
-            lambda: cover.frontier_cover(x, cands, [n // b for b in cands], scales), iters=5
-        )
-        del x
         frontier_job_times(dist, n, cands, N_REPS, seed=SEED)  # warm
-        t0 = time.perf_counter()
-        rows = frontier_job_times(dist, n, cands, N_REPS, seed=SEED)  # ends in a copy to host
-        pass_ms = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        _frontier_stats(rows)
-        stats_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        pass_ms, stats_ms = [], []
+        for _ in range(5):  # host times vary between runs on a shared host
+            t0 = time.perf_counter()
+            rows = frontier_job_times(dist, n, cands, N_REPS, seed=SEED)  # ends in a copy
+            pass_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            _frontier_stats(rows)
+            stats_ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() - base
         wall_ms, busy_ms = device_busy_ms(
             lambda: RedundancyPlanner(n).plan_cluster(dist, n_reps=N_REPS, seed=SEED)
         )
         idle = f"{1.0 - busy_ms / wall_ms:.1%}" if busy_ms > 0 else "not measured"
-        print(f"{name:15s} N={n}: sample {sample_ms:.4f} ms + cover {cover_ms:.4f} ms (card); "
-              f"frontier_job_times {pass_ms:.4f} ms, stats {stats_ms:.4f} ms (host) "
-              f"-> sampler share {sample_ms / pass_ms:.1%}, cover {cover_ms / pass_ms:.1%}; "
-              f"profiled plan_cluster {wall_ms:.4f} ms, card busy {busy_ms:.4f} ms, "
-              f"idle share {idle}")
+        print(f"{name:15s} N={n}: frontier_job_times {statistics.median(pass_ms):.4f} ms, stats "
+              f"{statistics.median(stats_ms):.4f} ms (host, median of 5; ranges "
+              f"{min(pass_ms):.4f} to {max(pass_ms):.4f} and {min(stats_ms):.4f} to "
+              f"{max(stats_ms):.4f}); pass peak device memory {peak / 1e6:.6f} MB above its "
+              f"{base / 1e6:.3f} MB start; profiled plan_cluster {wall_ms:.4f} ms, card busy "
+              f"{busy_ms:.4f} ms, idle share {idle}")
+
+    # rep_chunk on the card: bit-identical to one launch
+    one = frontier_job_times(dists[0][1], n, cands, N_REPS, seed=SEED)
+    chunked = frontier_job_times(dists[0][1], n, cands, N_REPS, seed=SEED, rep_chunk=4096)
+    check(one.shape == chunked.shape and np.array_equal(one, chunked),
+          "frontier_job_times with rep_chunk=4096 differs from one launch")
+    print(f"frontier_job_times rep_chunk=4096 ({N_REPS // 4096} launches) bitwise equal to "
+          f"one launch at N={n}", flush=True)
     torch.cuda.empty_cache()
     return launches
 
@@ -742,6 +968,7 @@ def phase_serve() -> dict:
     torch.cuda.reset_peak_memory_stats()
     tee = _Tee(sys.stdout)
     cover.launches = rmsnorm.launches = flash_attention.launches = 0
+    cover.draws_launches = cover.philox_launches = 0
     flash_attention.splitkv_launches = flash_attention.wgmma_launches = 0
     flash_attention.simt_launches = 0
     t0 = time.perf_counter()
@@ -753,6 +980,7 @@ def phase_serve() -> dict:
     by_kernel = {"splitkv": flash_attention.splitkv_launches,
                  "wgmma": flash_attention.wgmma_launches,
                  "simt": flash_attention.simt_launches}
+    cover_by_kernel = {"draws": cover.draws_launches, "philox": cover.philox_launches}
     check(rc == 0, f"serve.main returned {rc}")
     forwards = SERVE_REQUESTS * (1 + SERVE_GEN)
     want = {"rmsnorm": (2 * cfg.n_layers + 1) * forwards,
@@ -765,7 +993,11 @@ def phase_serve() -> dict:
     check(launches == want, f"serving launches {launches}, expected {want}")
     check(by_kernel == want_by_kernel,
           f"serving attention by kernel {by_kernel}, expected {want_by_kernel}")
+    # the planner's simulate_balanced draws with a torch.Generator: kernel A
+    check(cover_by_kernel == {"draws": 2, "philox": 0},
+          f"serving cover launches by kernel {cover_by_kernel}, expected 2 of kernel A")
     launches["flash_attention_by_kernel"] = by_kernel
+    launches["masked_cover_by_kernel"] = cover_by_kernel
     out = tee.copy.getvalue()
     reqs = [tuple(map(float, m)) for m in re.findall(
         r"request \d+: ([\d.]+)ms \(prefill ([\d.]+)ms, decode ([\d.]+)ms/token\)", out)]
@@ -880,6 +1112,7 @@ def main() -> int:
         phase_card()
         phase_build()
         cover_rec = phase_kernel_vs_plain()
+        philox_rec = phase_philox_vs_plain()
         rms_rec = phase_rmsnorm_vs_plain()
         att_rec = phase_attention_vs_plain()
         plan_launches = phase_main_path()
@@ -892,7 +1125,7 @@ def main() -> int:
         return 1
     rows = [
         # name, record, launches on the main paths, replaces
-        ("masked_cover", cover_rec, plan_launches + serve_launches["masked_cover"],
+        ("masked_cover", cover_rec, sum(plan_launches.values()) + serve_launches["masked_cover"],
          "cover.cu", "src/repro/kernels/cover.py:47"),
         ("rmsnorm", rms_rec, serve_launches["rmsnorm"],
          "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:31"),
@@ -918,6 +1151,12 @@ def main() -> int:
     kernels[1]["decode"] = rms_rec["decode"]
     kernels[2]["decode"] = att_rec["decode"]
     kernels[2]["launches_by_kernel"] = serve_launches["flash_attention_by_kernel"]
+    # cover: kernel A (draws in) above, kernel B (Philox sample-and-cover,
+    # every frontier pass of the planning path) beside it
+    kernels[0]["philox"] = philox_rec
+    kernels[0]["launches_by_kernel"] = {
+        k: plan_launches[k] + serve_launches["masked_cover_by_kernel"][k]
+        for k in ("draws", "philox")}
     print()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -12,6 +12,9 @@ Public surface ported so far:
 The epoch scan, the stream slab, the DES engine and the live runtime come
 with later slices (``ROADMAP.md``).
 """
+# core first: its __init__ re-exports cluster.scenario, whose workers import
+# core.service_time, so entering through cluster would meet a half-built core
+from .. import core  # noqa: F401
 from . import scenario, scheduler, vectorized, workers
 from .scenario import SLO, FaultPlan, Retry, Scenario, Speculation
 from .scheduler import JobPlan, Scheduler, make_scheduler

@@ -10,19 +10,22 @@ Two entry points:
 
 * :func:`frontier_job_times` -- i.i.d. single-job compute times for every
   candidate at once (the ``plan_cluster`` / ``plan_sweep`` workhorse).  Each
-  candidate's replicas are drawn as ``n_slots`` flat slots packed
-  ``i * r + j``, and the kernel reads that packing directly: the reference's
-  padded ``(B_pad, r_pad)`` gather (``C * n_reps * B_pad * r_pad`` values)
-  never exists.
+  candidate's replicas are slots packed ``i * r + j``, drawn inside the
+  fused sample-and-cover kernel (:func:`repro_torch.kernels.cover.
+  frontier_sample_cover`) from a counter-based Philox stream: no draw is
+  ever written to device memory, and neither the reference's padded
+  ``(B_pad, r_pad)`` gather nor its flat ``(C, n_reps, n_slots)`` draws exist.
 * :func:`simulate_fifo` -- multi-job FIFO gang queueing, a Python loop over
   job arrivals carrying the cluster's slack, batched over reps.
 
-Draws come from a ``torch.Generator`` seeded with ``seed``.  They differ from
-the reference's ``jax.random`` draws, so the two agree in law (3 sigma) and
-not draw for draw.  The reference's ``rep_chunk`` (bit-identical under any
-chunking) needs draws indexed by rep, which a ``torch.Generator`` cannot
-give; it raises here until a counter-based (Philox) sampler lands.  Space
-sharing, churn and the stream slab come with later slices.
+The frontier's draws are a pure function of (seed, candidate, rep, slot):
+the seed is the Philox key and the absolute rep a word of the counter, the
+port's counterpart of the reference's ``fold_in(key(seed), rep)``.  So
+``rep_chunk`` is bit-identical under any chunking, as in the reference.
+``simulate_fifo`` draws from a ``torch.Generator`` seeded with ``seed``.
+Neither stream is the reference's ``jax.random`` stream, so the two agree in
+law (3 sigma) and not draw for draw.  Space sharing, churn and the stream
+slab come with later slices.
 """
 from __future__ import annotations
 
@@ -34,15 +37,9 @@ import torch
 from .._device import resolve_device, resolve_dtype
 from ..core.service_time import ServiceTime
 from ..core.simulator import gang_cover_times
-from ..kernels.cover import frontier_cover
+from ..kernels.cover import frontier_sample_cover
 
 __all__ = ["frontier_job_times", "simulate_fifo", "FifoReport"]
-
-_REP_CHUNK_TODO = (
-    "rep_chunk needs draws indexed by rep, which a torch.Generator cannot give; "
-    "it comes with a counter-based (Philox) sampler (ROADMAP.md, queue 1, item 1)"
-)
-
 
 def _candidate_grid(n_workers: int, candidates) -> tuple[np.ndarray, np.ndarray]:
     bs = np.asarray(list(candidates), dtype=np.int32)
@@ -71,21 +68,30 @@ def frontier_job_times(
 
     Returns an ``(len(candidates), n_reps)`` array; row i is statistically
     identical to the reference's row for ``candidates[i]`` (and to
-    ``simulate_balanced``).  Device memory holds ``C * n_reps * n_slots``
-    draws, where ``n_slots = max_c B_c * r_c``.
+    ``simulate_balanced``).  The replica times are drawn inside the cover
+    kernel, so device memory holds only the ``C * n_reps`` outputs.  With
+    ``rep_chunk``, the reps go in launches of at most ``rep_chunk`` reps
+    each: rep ``k`` draws the same numbers in every chunking, so the result
+    is bit-identical for every ``rep_chunk`` and for ``None``.
     """
-    if rep_chunk is not None:
-        raise NotImplementedError(_REP_CHUNK_TODO)
-    bs, rs = _candidate_grid(n_workers, candidates)
     dev, dt = resolve_device(device), resolve_dtype(dtype)
+    bs, rs = _candidate_grid(n_workers, candidates)
+    if rep_chunk is not None and int(rep_chunk) < 1:
+        raise ValueError("rep_chunk must be >= 1")
+    n_reps = int(n_reps)
     if n_tasks is None:
         n_tasks = n_workers
-    n_slots = int((bs * rs).max())  # replicas a gang actually dispatches
     scales = (n_tasks / bs) if size_dependent else np.ones(len(bs))
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
-    flat = dist.sample(gen, (len(bs), int(n_reps), n_slots), dev, dt)
-    t = frontier_cover(flat, bs, rs, torch.as_tensor(scales, dtype=dt, device=dev))
-    return t.cpu().numpy()
+    chunk = n_reps if rep_chunk is None else int(rep_chunk)
+    parts = [
+        frontier_sample_cover(
+            dist, bs, rs, scales, min(lo + chunk, n_reps) - lo, seed, rep0=lo, dtype=dt, device=dev
+        ).cpu().numpy()
+        for lo in range(0, n_reps, max(chunk, 1))
+    ]
+    if not parts:
+        return np.empty((len(bs), 0), dtype=np.float32 if dt == torch.float32 else np.float64)
+    return np.concatenate(parts, axis=1)
 
 
 @dataclasses.dataclass(frozen=True)

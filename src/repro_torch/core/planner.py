@@ -185,9 +185,10 @@ class RedundancyPlanner:
         on ``device`` (default: the CUDA card).  The scenario is a
         :class:`~repro_torch.cluster.scenario.Scenario` (which may also carry
         ``dist``); its static knobs (``size_dependent``, ``cancel_redundant``)
-        apply.  Dynamic or space-sharing scenarios, ``rep_chunk`` and
-        ``backend="python"`` raise :class:`NotImplementedError` until their
-        slices of the port land.
+        apply, and ``rep_chunk`` bounds the reps of one launch (the rows are
+        bit-identical for every chunking).  Dynamic or space-sharing scenarios
+        and ``backend="python"`` raise :class:`NotImplementedError` until
+        their slices of the port land.
         """
         from ..cluster.scenario import Scenario
 

@@ -14,6 +14,8 @@ and the host sampler ``sample_np`` are numpy and bit-exact to the reference
 given the same ``numpy.random.Generator``.  ``sample`` draws on a torch device
 from an explicit ``torch.Generator``; torch cannot reproduce ``jax.random``
 streams, so the device samplers agree with the reference in law only.
+``philox_law`` names the law to the frontier's counter-based stream
+(:mod:`repro_torch.kernels.philox`), which the cover kernel draws itself.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ import math
 
 import numpy as np
 import torch
+
+from ..kernels import philox
 
 __all__ = [
     "ServiceTime",
@@ -62,6 +66,15 @@ class ServiceTime:
 
     def scaled_by(self, s: float) -> "ServiceTime":
         """Distribution of ``s * tau`` (size-dependent batch model, §VI)."""
+        raise NotImplementedError
+
+    def philox_law(self) -> tuple[int, tuple[float, float], tuple | None]:
+        """``(code, (a, b), table)``: the law as the Philox sampler draws it.
+
+        ``code`` is one of :mod:`repro_torch.kernels.philox`'s law codes,
+        ``(a, b)`` the constants of its transform of a uniform ``u`` and
+        ``table`` the entries an empirical law resamples (else ``None``).
+        """
         raise NotImplementedError
 
     def cov(self) -> float:
@@ -117,6 +130,10 @@ class Exponential(ServiceTime):
         # s * Exp(mu) ~ Exp(mu / s)
         return Exponential(mu=self.mu / s)
 
+    def philox_law(self):
+        """``log1p(-u) / (-mu)``, as :meth:`sample` computes it."""
+        return philox.EXPONENTIAL, (-self.mu, 0.0), None
+
 
 @dataclasses.dataclass(frozen=True)
 class ShiftedExponential(ServiceTime):
@@ -150,6 +167,10 @@ class ShiftedExponential(ServiceTime):
         """Distribution of ``s * tau`` (size-dependent batch model, §VI)."""
         # s * SExp(delta, mu) ~ SExp(s * delta, mu / s)
         return ShiftedExponential(delta=self.delta * s, mu=self.mu / s)
+
+    def philox_law(self):
+        """``log1p(-u) / (-mu) + delta``, as :meth:`sample` computes it."""
+        return philox.SHIFTED_EXPONENTIAL, (-self.mu, self.delta), None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,6 +214,10 @@ class Pareto(ServiceTime):
         """Distribution of ``s * tau`` (size-dependent batch model, §VI)."""
         # s * Pareto(sigma, alpha) ~ Pareto(s * sigma, alpha)  (alpha unchanged)
         return Pareto(sigma=self.sigma * s, alpha=self.alpha)
+
+    def philox_law(self):
+        """``(1 - u) ** (-1 / alpha) * sigma``, as :meth:`sample` computes it."""
+        return philox.PARETO, (-1.0 / self.alpha, self.sigma), None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,6 +267,10 @@ class Empirical(ServiceTime):
     def scaled_by(self, s):
         """Distribution of ``s * tau`` (size-dependent batch model, §VI)."""
         return Empirical(samples=tuple(float(x) * s for x in self.samples))
+
+    def philox_law(self):
+        """The observations, resampled by index."""
+        return philox.EMPIRICAL, (0.0, 0.0), tuple(float(x) for x in self.samples)
 
 
 def min_of(dist: ServiceTime, n: int) -> ServiceTime:

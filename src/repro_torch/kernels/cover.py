@@ -1,22 +1,27 @@
-"""Masked earliest-cover reduction ``max_b min_r``: the CUDA kernel and its wrappers.
+"""Masked earliest-cover reduction ``max_b min_r``: the CUDA kernels and their wrappers.
 
-Port of ``repro.kernels.cover`` (the Pallas ``masked_cover_times``).  One
-hand-written kernel (``csrc/cover.cu``) serves both callers of the
-reduction:
+Port of ``repro.kernels.cover`` (the Pallas ``masked_cover_times``).  Two
+hand-written kernels in ``csrc/cover.cu`` serve the callers of the reduction:
 
-* :func:`frontier_cover` -- ``(C, S, n_slots)`` draws, candidate ``c``
-  reading its slots row-major as ``i * r_c + j`` and scaling them by
-  ``scale_c``; the frontier scorer of :mod:`repro_torch.cluster.vectorized`;
-* :func:`masked_cover_times` -- ``(reps, B_pad, r_pad)`` draws masked to one
-  ``(b, r)``; behind :func:`repro_torch.core.simulator.gang_cover_times`.
+* kernel A, draws in (:func:`frontier_cover`, :func:`masked_cover_times`):
+  ``(C, S, n_slots)`` draws, candidate ``c`` reading its slots row-major as
+  ``i * ld_c + j`` and scaling them by ``scale_c``; ``masked_cover_times``
+  takes ``(reps, B_pad, r_pad)`` draws masked to one ``(b, r)`` and sits
+  behind :func:`repro_torch.core.simulator.gang_cover_times`
+  (``simulate_balanced``, ``simulate_fifo``);
+* kernel B, fused sample-and-cover (:func:`frontier_sample_cover`): draws
+  each replica time in registers from the counter-based Philox stream of
+  :mod:`repro_torch.kernels.philox` and never writes a draw; the frontier
+  scorer of :mod:`repro_torch.cluster.vectorized`.
 
 Each wrapper takes its plain PyTorch version (``*_ref``) only for a tensor
-on the CPU.  For a CUDA tensor it launches the kernel or raises: there is no
-fallback.  :data:`launches` counts kernel launches, so a run can show that
-its main path went through the kernel.  The reference's
+on the CPU.  For a CUDA tensor it launches its kernel or raises: there is no
+fallback.  :data:`launches` counts launches of both kernels,
+:data:`draws_launches` kernel A's and :data:`philox_launches` kernel B's, so
+a run can show which kernel its main path went through.  The reference's
 ``pallas_cover_wins`` / ``REPRO_PALLAS_COVER`` opt-in has no counterpart:
-on CUDA the kernel is always the path, and its speed is judged against its
-memory bound (``PERF.md``).
+on CUDA the kernels are always the path, and their speed is judged against
+their bounds (``PERF.md``).
 """
 from __future__ import annotations
 
@@ -25,22 +30,29 @@ import functools
 
 import torch
 
-from .._device import DTYPES, time_on_card
-from . import _build
+from .._device import DTYPES, resolve_device, resolve_dtype, time_on_card
+from . import _build, philox
 
 __all__ = [
     "bench_masked_cover",
     "frontier_cover",
     "frontier_cover_ref",
+    "frontier_sample_cover",
+    "frontier_sample_cover_ref",
+    "frontier_uniforms",
     "masked_cover_times",
     "masked_cover_times_ref",
 ]
 
-# kernel launches since import (or since a caller last reset it to 0)
+# kernel launches since import (or since a caller last reset them to 0): of
+# both kernels, of kernel A (draws in) and of kernel B (Philox sample-and-cover)
 launches = 0
+draws_launches = 0
+philox_launches = 0
 
 _MAX_GRID_Y = 65535
 _INT_MAX = 2**31 - 1
+_REP_LIMIT = 2**32  # a rep is one 32-bit word of the Philox counter
 
 
 # --------------------------------------------------------------------------
@@ -65,6 +77,17 @@ def frontier_cover_ref(x: torch.Tensor, bs, rs, scales: torch.Tensor) -> torch.T
         scaled = x[c, :, : b * r] * scales[c]
         out[c] = scaled.reshape(n_reps, b, r).amin(dim=-1).amax(dim=-1)
     return out
+
+
+def frontier_sample_cover_ref(dist, bs, rs, scales, n_reps: int, seed: int, rep0: int = 0,
+                              dtype=torch.float32, device=None) -> torch.Tensor:
+    """Kernel B's plain version: the same Philox draws, made in torch, then
+    :func:`frontier_cover_ref`.  Holds ``(C, n_reps, max_c b_c r_c)`` draws."""
+    bs, rs, n_reps, rep0, dt, law = _sample_args(dist, bs, rs, n_reps, rep0, dtype)
+    dev = resolve_device(device)
+    n_slots = max(b * r for b, r in zip(bs, rs))
+    x = philox.draws(law, seed, len(bs), rep0, n_reps, n_slots, dt, dev)
+    return frontier_cover_ref(x, bs, rs, _scales(scales, len(bs), dt, dev))
 
 
 # --------------------------------------------------------------------------
@@ -126,6 +149,110 @@ def masked_cover_times(draws: torch.Tensor, n_batches: int, replication: int) ->
     return _launch(draws.view(1, n_reps, b_pad * r_pad), geom, scale).view(n_reps)
 
 
+def _sample_args(dist, bs, rs, n_reps, rep0, dtype):
+    bs, rs = [int(b) for b in bs], [int(r) for r in rs]
+    if not bs or len(bs) != len(rs):
+        raise ValueError("need one (b, r) per candidate, and at least one candidate")
+    for b, r in zip(bs, rs):
+        if b < 1 or r < 1 or b * r > _INT_MAX:
+            raise ValueError(f"candidate (b={b}, r={r}) needs 1 <= b, r and b*r < 2**31")
+    n_reps, rep0 = int(n_reps), int(rep0)
+    if n_reps < 0 or rep0 < 0 or rep0 + n_reps > _REP_LIMIT:
+        raise ValueError(f"reps [{rep0}, {rep0 + n_reps}) must lie in [0, 2**32)")
+    dt = dtype if isinstance(dtype, torch.dtype) else resolve_dtype(dtype)
+    if dt not in DTYPES.values():
+        raise ValueError(f"dtype must be float32 or float64, got {dt}")
+    return bs, rs, n_reps, rep0, dt, dist.philox_law()
+
+
+def _scales(scales, n_cand: int, dtype: torch.dtype, device) -> torch.Tensor:
+    out = torch.as_tensor(scales, dtype=dtype).to(device)
+    if out.shape != (n_cand,):
+        raise ValueError(f"scales must hold one value per candidate: {n_cand}")
+    return out
+
+
+def frontier_sample_cover(dist, bs, rs, scales, n_reps: int, seed: int, rep0: int = 0,
+                          dtype=torch.float32, device=None) -> torch.Tensor:
+    """``(C, n_reps)`` cover times of freshly drawn replica times, one candidate per row.
+
+    ``out[c, s] = max_{i < b_c} min_{j < r_c} scale_c * F^-1(u(seed, c,
+    rep0 + s, i * r_c + j))`` for the law of ``dist``
+    (:meth:`~repro_torch.core.service_time.ServiceTime.philox_law`) and the
+    Philox stream of :mod:`repro_torch.kernels.philox`: row ``s`` depends on
+    its absolute rep ``rep0 + s`` only, so a range of reps gives the same rows
+    as the slice of a longer run.  On ``device`` (default: the CUDA card) it
+    launches kernel B, which keeps every draw in registers; on the CPU it
+    runs :func:`frontier_sample_cover_ref`.
+    """
+    global launches, philox_launches
+    bs, rs, n_reps, rep0, dt, law = _sample_args(dist, bs, rs, n_reps, rep0, dtype)
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return frontier_sample_cover_ref(dist, bs, rs, scales, n_reps, seed, rep0, dt, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"device must be the CPU or a CUDA device, got {dev}")
+    code, consts, table = law
+    n_cand = len(bs)
+    scale = _scales(scales, n_cand, dt, dev)
+    out = torch.empty((n_cand, n_reps), dtype=dt, device=dev)
+    if out.numel() == 0:
+        return out
+    if n_cand > _MAX_GRID_Y or n_reps > _INT_MAX:
+        raise ValueError(f"the sample-and-cover kernel takes at most {_MAX_GRID_Y} candidates "
+                         "of < 2**31 reps")
+    geom = torch.tensor([[b, r, r] for b, r in zip(bs, rs)], dtype=torch.int32).to(dev)
+    consts_t = torch.tensor(consts, dtype=dt).to(dev)
+    tab = None if table is None else torch.as_tensor(table, dtype=dt).to(dev)
+    if tab is not None and not 0 < tab.numel() <= _INT_MAX:
+        raise ValueError("an empirical table needs 1 to 2**31 - 1 entries")
+    k0, k1 = philox.key_of(seed)
+    fn = _sample_entry(dt)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            code, geom.data_ptr(), scale.data_ptr(), consts_t.data_ptr(),
+            None if tab is None else tab.data_ptr(), 0 if tab is None else tab.numel(),
+            out.data_ptr(), n_cand, n_reps, rep0, k0, k1, stream,
+        )
+    if err:
+        raise RuntimeError(f"sample-and-cover kernel launch failed with CUDA error {err}")
+    launches += 1
+    philox_launches += 1
+    return out
+
+
+def frontier_uniforms(seed: int, n_cand: int, n_reps: int, n_slots: int, rep0: int = 0,
+                      dtype=torch.float32, device=None) -> torch.Tensor:
+    """``(n_cand, n_reps, n_slots)`` uniforms of the Philox stream, written out.
+
+    The check that the card draws the plain version's bits: kernel B never
+    writes a draw.  On the CPU, :mod:`~repro_torch.kernels.philox`'s plain
+    version; on CUDA a small kernel of ``csrc/cover.cu`` (not counted in
+    :data:`launches`: it is no part of any path).
+    """
+    dt = dtype if isinstance(dtype, torch.dtype) else resolve_dtype(dtype)
+    dev = resolve_device(device)
+    per = philox.draws_per_counter(philox.EXPONENTIAL, dt)
+    if dev.type == "cpu":
+        words = philox.stream_words(seed, n_cand, rep0, n_reps, -(-n_slots // per), dev)
+        return philox.uniforms(words, dt, n_slots)
+    if rep0 < 0 or rep0 + n_reps > _REP_LIMIT or n_cand > _MAX_GRID_Y or n_reps > _INT_MAX:
+        raise ValueError("reps must lie in [0, 2**32), at most 2**31 - 1 of them, and "
+                         "candidates number at most 65535")
+    out = torch.empty((n_cand, n_reps, n_slots), dtype=dt, device=dev)
+    if out.numel() == 0:
+        return out
+    fn = _uniforms_entry(dt)
+    k0, k1 = philox.key_of(seed)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(out.data_ptr(), n_cand, n_reps, n_slots, rep0, k0, k1, stream)
+    if err:
+        raise RuntimeError(f"uniforms kernel launch failed with CUDA error {err}")
+    return out
+
+
 @functools.cache
 def _entry(dtype: torch.dtype):
     lib = _build.load("cover")
@@ -135,8 +262,28 @@ def _entry(dtype: torch.dtype):
     return fn
 
 
+@functools.cache
+def _sample_entry(dtype: torch.dtype):
+    lib = _build.load("cover")
+    fn = lib.sample_cover_f32 if dtype == torch.float32 else lib.sample_cover_f64
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int] * 2 + [ctypes.c_uint32] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _uniforms_entry(dtype: torch.dtype):
+    lib = _build.load("cover")
+    fn = lib.philox_uniforms_f32 if dtype == torch.float32 else lib.philox_uniforms_f64
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_uint32] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _launch(x: torch.Tensor, geom: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    global launches
+    global launches, draws_launches
     n_cand, n_reps, n_slots = x.shape
     out = torch.empty((n_cand, n_reps), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
@@ -153,6 +300,7 @@ def _launch(x: torch.Tensor, geom: torch.Tensor, scale: torch.Tensor) -> torch.T
     if err:
         raise RuntimeError(f"cover kernel launch failed with CUDA error {err}")
     launches += 1
+    draws_launches += 1
     return out
 
 

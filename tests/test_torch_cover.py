@@ -155,3 +155,28 @@ def test_simulate_counts_zero_hosts_and_guard():
     assert t.shape == (7,) and np.isinf(t).all()
     t = simulator.simulate_counts(gen, Exponential(1.0), [2, 3, 1], 50, device="cpu")
     assert np.isfinite(t).all() and (t > 0).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_frontier_sample_cover_is_the_reference_cover_of_the_philox_draws(dtype, x64):
+    """Kernel B's plain version scores the plain Philox draws exactly as the
+    reference's ``_frontier_cover`` scores them."""
+    from repro_torch.core.service_time import Pareto
+    from repro_torch.kernels import philox
+
+    dist = Pareto(sigma=1.0, alpha=1.5)
+    n_workers, cands = 12, [1, 2, 3, 4, 6, 12]
+    bs = np.asarray(cands)
+    rs = n_workers // bs
+    tdt = getattr(torch, dtype)
+    got = cover.frontier_sample_cover(dist, bs, rs, n_workers / bs, 64, seed=21, rep0=100,
+                                      dtype=tdt, device="cpu")
+    x = philox.draws(dist.philox_law(), 21, len(bs), 100, 64, 12, tdt).numpy()
+    idx = np.zeros((len(bs), int(bs.max()), int(rs.max())), dtype=np.int32)
+    for c, (b, r) in enumerate(zip(bs, rs)):
+        idx[c, :b, :r] = np.arange(b * r, dtype=np.int32).reshape(b, r)
+    want = _frontier_cover(
+        jnp.asarray(x), jnp.asarray(idx), jnp.asarray(bs), jnp.asarray(rs),
+        jnp.asarray(n_workers / bs, dtype=x.dtype),
+    )
+    assert_bitwise(got.numpy(), want)

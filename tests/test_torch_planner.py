@@ -71,8 +71,9 @@ def _margin_sigmas(plan, n_reps) -> float:
         ("Exponential", {"mu": 1.0}),
         ("ShiftedExponential", {"delta": 0.3, "mu": 1.0}),
         ("Pareto", {"sigma": 1.0, "alpha": 3.0}),
+        ("Empirical", {"samples": tuple(JOB1)}),
     ],
-    ids=["exp", "sexp", "pareto"],
+    ids=["exp", "sexp", "pareto", "job1"],
 )
 def test_frontier_job_times_agrees_per_candidate_3_sigma(kind, fields):
     r, p = _pair(kind, **fields)
@@ -94,6 +95,41 @@ def test_frontier_job_times_deterministic_and_seed_sensitive():
     for bad in ([0, 2], [8], []):
         with pytest.raises(ValueError):
             frontier_job_times(d, 4, bad, 10, device="cpu")
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 16, 50])
+def test_frontier_rep_chunk_bit_identical(chunk):
+    """Mirrors the reference's static-frontier chunk test
+    (``tests/test_vectorized_backend.py``): rep k draws the same Philox
+    numbers in every chunking, so the rows are bit-identical to one launch."""
+    d = P.Pareto(1.0, 2.0)
+    full = frontier_job_times(d, 8, [1, 2, 4, 8], 50, seed=5, device="cpu")
+    part = frontier_job_times(d, 8, [1, 2, 4, 8], 50, seed=5, rep_chunk=chunk, device="cpu")
+    assert part.shape == full.shape and part.dtype == full.dtype
+    assert np.array_equal(full, part)
+
+
+def test_frontier_rep_chunk_stays_equivalent_to_the_reference_and_validates():
+    r, p = _pair("Pareto", sigma=1.0, alpha=2.0)
+    a = frontier_job_times(p, 8, [2], 4000, seed=5, rep_chunk=1000, device="cpu")[0]
+    b = ref_frontier(r, 8, [2], 4000, seed=6, rep_chunk=1000)[0]
+    assert _z_mean(a, b) < 3.0
+    f64 = frontier_job_times(p, 8, [2, 8], 30, seed=5, device="cpu", dtype="float64")
+    assert np.array_equal(
+        f64, frontier_job_times(p, 8, [2, 8], 30, seed=5, rep_chunk=4, device="cpu",
+                                dtype="float64"))
+    assert frontier_job_times(p, 8, [2], 0, device="cpu", rep_chunk=3).shape == (1, 0)
+    for bad in (0, -2):
+        with pytest.raises(ValueError, match="rep_chunk"):
+            frontier_job_times(p, 8, [2], 10, rep_chunk=bad, device="cpu")
+
+
+def test_plan_cluster_takes_rep_chunk_from_the_scenario():
+    d = P.Exponential(1.0)
+    plain = P.RedundancyPlanner(6).plan_cluster(d, n_reps=300, seed=3, device="cpu")
+    chunked = P.RedundancyPlanner(6).plan_cluster(
+        scenario=pc.Scenario(dist=d, rep_chunk=64), n_reps=300, seed=3, device="cpu")
+    assert chunked == plain
 
 
 @pytest.mark.parametrize("name", sorted(FIXTURES))
@@ -240,14 +276,13 @@ def test_entry_points_need_a_device_when_no_card(monkeypatch):
 @pytest.mark.parametrize(
     "call",
     [
-        lambda: frontier_job_times(P.Exponential(1.0), 4, [2], 10, rep_chunk=5, device="cpu"),
         lambda: simulate_fifo(P.Exponential(1.0), 4, 2, [0.0], 5, scheduler="packed",
                               device="cpu"),
         lambda: P.RedundancyPlanner(4).plan_cluster(P.Exponential(1.0), backend="python"),
         lambda: P.RedundancyPlanner(4).plan_cluster(
             scenario=pc.Scenario(dist=P.Exponential(1.0), speeds=(1.0,) * 4), device="cpu"),
     ],
-    ids=["rep_chunk", "space", "python-backend", "dynamic"],
+    ids=["space", "python-backend", "dynamic"],
 )
 def test_later_slices_raise_not_implemented(call):
     with pytest.raises(NotImplementedError):
@@ -280,3 +315,18 @@ def test_port_never_imports_jax_or_the_reference():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize(
+    "module",
+    ["repro_torch.cluster", "repro_torch.cluster.vectorized", "repro_torch.core.service_time",
+     "repro_torch.kernels.cover"],
+)
+def test_each_module_imports_first_in_a_fresh_process(module):
+    """``cluster`` and ``core`` import each other at package level; whichever
+    a process meets first must import cleanly."""
+    out = subprocess.run(
+        [sys.executable, "-c", f"import {module}"], capture_output=True, text=True, timeout=120,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+    )
+    assert out.returncode == 0, out.stderr
