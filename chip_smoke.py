@@ -50,7 +50,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports
    ``frontier_job_times`` with ``rep_chunk=4096`` bitwise equal to one launch;
 6. runs ``simulate_fifo`` on the card the same way and checks its accounting
    invariant;
-7. runs the serving path, ``repro_torch.launch.serve.main`` at the full
+7. runs the paper's batching schemes at full width: ``simulate_membership``
+   at N = 720, B = 24 (s = r = 30) for ``non_overlapping``, ``hybrid`` and
+   ``cyclic`` with 32768 Exp(1) samples (kernel A, one launch per chunk of
+   samples); checks the non-overlapping mean within 3 sigma of
+   ``analysis.mean_T``, the membership cover on the card bitwise equal to
+   the CPU on the same draws, and the Fig. 6 lead of non-overlapping at
+   (6, 3) and (12, 4) with 150k samples (hybrid deals the cyclic batches, so
+   the two agree in law); prints the ordering at N = 720;
+8. runs the trace-scale stream: the reference's golden cluster-day
+   (10,000 jobs, 13,824 workers in 2,304 packed pools of 6, B = 3, 2 reps,
+   slab 1024, float32; one kernel-A launch per slab) against
+   ``tests/golden/trace_day_summary.json`` (``n_jobs_done`` exactly, the
+   rest within rtol 1e-5), with its wall time, host ms per job step, peak
+   device memory and the card's idle share over one slab; ``collect=True``
+   against ``fold_stream_stats``; a float64 stream of 2,000 jobs and 4 reps
+   in all four scheduler cases, bitwise against the same call on the CPU;
+   kernel A bitwise against its plain version at each slab grid;
+9. runs ``RedundancyPlanner(100).plan_slo`` over the §VII trace jobs job1
+   and job6 as two classes with a p99 target each, all three schedulers,
+   pool widths (10, 20, 50) (41 candidates), 2000 jobs, 16 reps, float64,
+   and checks its ``SLOPlan`` equal to the same call on the CPU;
+10. runs the serving path, ``repro_torch.launch.serve.main`` at the full
    width and depth of qwen2-1.5b (4 requests, prompt 1024, gen 32, batch 1,
    seeded weights), with the counters set to 0 just before and read just
    after: 57 RMSNorm and 28 attention launches per forward, (1 + gen)
@@ -60,12 +81,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports
    kernel; prints each
    request's ms with its prefill / decode split, the peak device memory and
    the planner's line;
-8. profiles one decode step of the served model for the card's idle share
+11. profiles one decode step of the served model for the card's idle share
    and its device time and launches by kernel;
-9. checks the KV cache at full width: in float32 compute with TF32 off,
+12. checks the KV cache at full width: in float32 compute with TF32 off,
    prefill 8 tokens and decode 4, each step's logits against the
    teacher-forced ``forward`` within 2e-3;
-10. prints the kernels line, then, last, the one-line JSON result.
+13. prints the kernels line, then, last, the one-line JSON result.
 
 Any failed phase exits non-zero and prints no result; so does a run without
 a CUDA device or without the repo's sources beside the script.
@@ -100,6 +121,15 @@ BUDGETS = (100, 720)
 SEED = 1
 # simulate_fifo's workload: N workers in B batches (r = N / B), FIFO_JOBS jobs
 FIFO_N, FIFO_B, FIFO_JOBS = 100, 10, 64
+# the paper's batching schemes at full width: N workers = tasks, B batches
+SCHEME_N, SCHEME_B, SCHEME_SAMPLES, ORDER_SAMPLES = 720, 24, 32768, 150_000
+# the reference's §VII golden cluster-day (tests/test_stream.py DAY_CFG / DAY_RUN)
+DAY_JOBS, DAY_SECONDS, DAY_SEED = 10_000, 86_400.0, 7
+DAY_WORKERS, DAY_POOL, DAY_B, DAY_REPS, DAY_SLAB = 13_824, 6, 3, 2, 1024
+GOLDEN_DAY = ROOT / "tests" / "golden" / "trace_day_summary.json"
+# plan_slo: two §VII trace classes, one arrival rate, a p99 target per class
+SLO_N, SLO_JOBS, SLO_REPS, SLO_WIDTHS = 100, 2000, 16, (10, 20, 50)
+SLO_RATE, SLO_TARGETS = 0.02, {"job1": 25.0, "job6": 120.0}
 # the serving cell: qwen2-1.5b at full width and depth, batch 1
 SERVE_ARCH = "qwen2-1.5b"
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN, SERVE_WORKERS = 4, 1024, 32, 8
@@ -691,7 +721,7 @@ def phase_main_path() -> dict:
     return launches
 
 
-def phase_fifo() -> None:
+def phase_fifo() -> dict:
     import numpy as np
     import torch
 
@@ -704,14 +734,15 @@ def phase_fifo() -> None:
     phase(f"simulate_fifo: N={n} B={b}, {n_jobs} jobs, {reps} reps")
     dist = Exponential(mu=1.0)
     arrivals = np.arange(n_jobs) * 2.0
-    cover.launches = 0
+    cover.launches = cover.draws_launches = cover.philox_launches = 0
     t0 = time.perf_counter()
     on = simulate_fifo(dist, n, b, arrivals, reps, seed=SEED + 1, cancel_redundant=True)
     off = simulate_fifo(dist, n, b, arrivals, reps, seed=SEED + 1, cancel_redundant=False)
     wall = time.perf_counter() - t0
-    launches = cover.launches
-    print(f"two runs in {wall:.3f} s; cover launches {launches}")
-    check(launches == 2, f"expected 2 cover launches, saw {launches}")
+    launches = {"draws": cover.draws_launches, "philox": cover.philox_launches}
+    print(f"two runs in {wall:.3f} s; cover launches by kernel {launches}")
+    check(launches == {"draws": 2, "philox": 0},
+          f"expected 2 kernel-A cover launches, saw {launches}")
     for rep in (on, off):
         check(np.isfinite(rep.finishes).all(), "non-finite finish times")
     check(np.array_equal(on.compute_times, off.compute_times), "same seed, other compute times")
@@ -727,6 +758,262 @@ def phase_fifo() -> None:
     print(f"invariant holds; compute-time mean {ct.mean():.6f} vs closed form {want:.6f} "
           f"(z={z:.3f}); mean response on {on.response_times.mean():.4f} "
           f"off {off.response_times.mean():.4f}")
+    return launches
+
+
+def check_cover_grids(shapes, dtype) -> None:
+    """Kernel A bitwise equal to its plain version on exponential draws at each
+    ``(rows, B, r)`` grid, unmasked, as ``gang_cover_times`` hands it over."""
+    import torch
+
+    from repro_torch.kernels import cover
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    for rows, b, r in shapes:
+        x = torch.empty((rows, b, r), dtype=dtype, device="cuda").exponential_(generator=gen)
+        same, _ = bitwise_equal(cover.masked_cover_times(x, b, r),
+                                cover.masked_cover_times_ref(x, b, r))
+        check(same, f"kernel A {dtype} ({rows}, {b}, {r}) differs from its plain version")
+    print(f"kernel A bitwise equal to its plain version at {len(shapes)} grid(s) {dtype}: "
+          f"{shapes[:4]}{' ...' if len(shapes) > 4 else ''}")
+
+
+def _z(a, b) -> float:
+    """|mean(a) - mean(b)| over the standard error of the difference."""
+    return abs(a.mean() - b.mean()) / math.sqrt(a.var() / a.size + b.var() / b.size)
+
+
+def phase_schemes() -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.core import analysis, batching, simulator
+    from repro_torch.core.service_time import Exponential, ShiftedExponential
+    from repro_torch.kernels import cover
+
+    n, b, reps = SCHEME_N, SCHEME_B, SCHEME_SAMPLES
+    phase(f"batching schemes: simulate_membership at N={n} B={b} (s = r = {n // b}), "
+          f"{reps} samples, Exp(1), float32")
+    dist = Exponential(mu=1.0)
+    schemes = {name: getattr(batching, name)(n, b)
+               for name in ("non_overlapping", "hybrid", "cyclic")}
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    cover.launches = cover.draws_launches = cover.philox_launches = 0
+    t0 = time.perf_counter()
+    times = {name: simulator.simulate_membership(gen(SEED + i), dist, m, reps)
+             for i, (name, m) in enumerate(schemes.items())}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"draws": cover.draws_launches, "philox": cover.philox_launches}
+    chunk = max(1, simulator._MEMBERSHIP_CHUNK_ELEMENTS // (n * (n // b)))
+    want = {"draws": len(schemes) * -(-reps // chunk), "philox": 0}
+    print(f"three schemes in {wall:.3f} s; cover launches by kernel {launches} "
+          f"({-(-reps // chunk)} chunks of at most {chunk} samples a scheme)")
+    check(launches == want, f"expected {want}, saw {launches}")
+    for name, t in times.items():
+        check(t.shape == (reps,) and bool(np.isfinite(t).all()) and bool((t > 0).all()),
+              f"{name}: job times not finite and positive")
+    t3 = times["non_overlapping"].astype(np.float64)
+    closed = analysis.mean_T(dist, n, b)
+    z = abs(t3.mean() - closed) / (t3.std() / math.sqrt(t3.size))
+    check(z <= 3.0, f"non_overlapping mean {t3.mean()} vs closed form {closed} (z={z:.2f})")
+    means = {name: float(t.mean()) for name, t in times.items()}
+    order = " < ".join(f"{k} {v:.6f}" for k, v in sorted(means.items(), key=lambda kv: kv[1]))
+    print(f"non_overlapping mean {t3.mean():.6f} vs closed form {closed:.6f} (z={z:.3f}); "
+          f"ordering at N={n}: {order}")
+
+    # the kernel on the main path's grids: the same seeded draws through the
+    # membership cover on the card and on the CPU, bitwise
+    for i, (name, m) in enumerate(schemes.items()):
+        draws = dist.sample(gen(SEED + i), (reps, n), torch.device("cuda"), torch.float32)
+        draws = draws * torch.as_tensor(m.sum(axis=1), dtype=torch.float32, device="cuda")
+        card = simulator.membership_cover_times(draws, m)
+        same, _ = bitwise_equal(card.cpu(), simulator.membership_cover_times(draws.cpu(), m))
+        check(same, f"{name}: membership cover on the card differs from the CPU")
+        check(np.array_equal(card.cpu().numpy(), times[name]),
+              f"{name}: simulate_membership differs from its own draws' cover")
+    print(f"membership cover on the card bitwise equal to the CPU for all three schemes "
+          f"({reps} x {n} times)")
+
+    # Fig. 6 at (6, 3) and (12, 4): non-overlapping beats both overlapping
+    # schemes; hybrid deals the cyclic batches (a row permutation), so their
+    # means agree in law
+    for (nn, bb), law in [((6, 3), dist), ((6, 3), ShiftedExponential(0.2, 2.0)),
+                          ((12, 4), dist)]:
+        t = {name: simulator.simulate_membership(
+                gen(SEED + 10 + k), law, getattr(batching, name)(nn, bb), ORDER_SAMPLES
+             ).astype(np.float64)
+             for k, name in enumerate(("cyclic", "hybrid", "non_overlapping"))}
+        e1, e2, e3 = (t[k].mean() for k in ("cyclic", "hybrid", "non_overlapping"))
+        z31, z32, z12 = (_z(t["non_overlapping"], t["cyclic"]),
+                         _z(t["non_overlapping"], t["hybrid"]), _z(t["cyclic"], t["hybrid"]))
+        check(e3 < e2 and e3 < e1 and z31 > 3.0 and z32 > 3.0,
+              f"({nn}, {bb}) {law}: non-overlapping {e3} not below hybrid {e2} and cyclic {e1}")
+        check(z12 < 4.0, f"({nn}, {bb}) {law}: hybrid {e2} and cyclic {e1} differ (z={z12:.2f})")
+        print(f"({nn}, {bb}) {type(law).__name__}: E[T3] non_overlapping {e3:.6f} < E[T2] hybrid "
+              f"{e2:.6f} (z={z32:.1f}), E[T1] cyclic {e1:.6f} (z={z31:.1f}); hybrid vs cyclic "
+              f"z={z12:.2f}", flush=True)
+    return launches
+
+
+def phase_stream() -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.cluster import Scenario, fold_stream_stats, simulate_stream
+    from repro_torch.cluster.stream import _ACC_FIELDS, _CLASS_FIELDS
+    from repro_torch.core import traces
+    from repro_torch.kernels import cover
+
+    phase(f"simulate_stream: the golden cluster-day, {DAY_JOBS} jobs on {DAY_WORKERS} workers "
+          f"({DAY_WORKERS // DAY_POOL} packed pools of {DAY_POOL}), B={DAY_B}, {DAY_REPS} reps, "
+          f"slab {DAY_SLAB}, float32")
+    day = traces.synthetic_cluster_day(n_jobs=DAY_JOBS, duration=DAY_SECONDS, seed=DAY_SEED)
+
+    def run(stream, **kw):
+        sc = Scenario(scheduler="packed", workers_per_job=DAY_POOL, cancel_redundant=True, **kw)
+        return simulate_stream(stream, DAY_WORKERS, DAY_B, DAY_REPS, scenario=sc, slab=DAY_SLAB)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cover.launches = cover.draws_launches = cover.philox_launches = 0
+    t0 = time.perf_counter()
+    stats = run(day, outputs="stream")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"draws": cover.draws_launches, "philox": cover.philox_launches}
+    n_slabs = -(-DAY_JOBS // DAY_SLAB)
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"cluster-day in {wall:.4f} s, {wall * 1e3 / DAY_JOBS:.5f} ms per job step (host "
+          f"clock, host draws included); cover launches by kernel {launches}; peak device "
+          f"memory {peak / 1e6:.3f} MB above its {base / 1e6:.3f} MB start")
+    check(launches == {"draws": n_slabs, "philox": 0},
+          f"expected {n_slabs} kernel-A launches (one per slab), saw {launches}")
+    golden = json.loads(GOLDEN_DAY.read_text())
+    summary = stats.summary()
+    check(set(summary) == set(golden), f"summary keys {sorted(summary)} vs {sorted(golden)}")
+    check(summary["n_jobs_done"] == golden["n_jobs_done"] == DAY_JOBS * DAY_REPS,
+          f"n_jobs_done {summary['n_jobs_done']} vs {golden['n_jobs_done']}")
+    worst = 0.0
+    for k, want in golden.items():
+        rel = abs(summary[k] - want) / abs(want) if want else abs(summary[k])
+        worst = max(worst, rel)
+        check(rel <= 1e-5, f"golden day {k}: {summary[k]} vs {want} (relative {rel:.3e})")
+    print(f"summary matches {GOLDEN_DAY.relative_to(ROOT)} (max relative difference "
+          f"{worst:.3e}, limit 1e-5): {json.dumps(summary)}")
+
+    # where a slab's time goes: the card's idle share over one slab of the day
+    one = traces.TraceStream(day.arrivals[:DAY_SLAB], day.job_ids[:DAY_SLAB], day.sources,
+                             day.seed)
+    run(one, outputs="stream")  # warm
+    t0 = time.perf_counter()
+    run(one, outputs="stream")
+    torch.cuda.synchronize()
+    slab_ms = (time.perf_counter() - t0) * 1e3
+    host: dict = {}
+    wall_ms, by_name = profile_device(lambda: run(one, outputs="stream"), host)
+    busy_ms = sum(by_name.values()) / 1e3
+    idle = f"{1.0 - busy_ms / wall_ms:.1%}" if busy_ms > 0 else "not measured"
+    print(f"one slab ({DAY_SLAB} jobs): {slab_ms:.4f} ms unprofiled, "
+          f"{slab_ms / DAY_SLAB:.5f} ms per job step; profiled {wall_ms:.4f} ms, card busy "
+          f"{busy_ms:.4f} ms, idle share {idle}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+        print(f"    {us / 1e3:9.4f} ms  {name[:90]}")
+    print("  host operators by own CPU time:")
+    for name, us in sorted(host.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    {us / 1e3:9.4f} ms  {name[:90]}")
+
+    # collect=True at slab 1024: the host fold of the per-job outputs equals
+    # the accumulators the same run carried, and the streaming run's
+    full = run(day, outputs="full")
+    folded = fold_stream_stats(full.waits, full.t_job, full.busy_j, full.planned_j,
+                               full.saved_j, class_ids=day.job_ids, classes=full.stats.classes)
+    for f in _ACC_FIELDS + _CLASS_FIELDS:
+        check(np.array_equal(getattr(folded, f), getattr(full.stats, f)),
+              f"cluster-day {f}: fold of the full outputs differs from the carried accumulators")
+        check(np.array_equal(getattr(stats, f), getattr(full.stats, f)),
+              f"cluster-day {f}: outputs='stream' differs from outputs='full'")
+    print(f"outputs='full' ({full.waits.shape} per-job arrays): fold_stream_stats equals the "
+          "carried accumulators and the streaming run's, every field", flush=True)
+
+    # kernel A against its plain version at the day's slab grid, as
+    # gang_cover_times hands it over: (reps x slab, B, r), float32
+    check_cover_grids([(DAY_REPS * DAY_SLAB, DAY_B, DAY_POOL // DAY_B)], torch.float32)
+
+    # float64 on the card, bitwise the port's CPU run, in all four scheduler cases
+    n_jobs, reps, n_workers, pool = 2000, 4, 120, 6
+    small = traces.synthetic_cluster_day(n_jobs=n_jobs, duration=40.0 * n_jobs, seed=11)
+    check_cover_grids([(reps * DAY_SLAB, 3, n_workers // 3), (reps * DAY_SLAB, 3, pool // 3)],
+                      torch.float64)
+    for sched, wpj, cancel in [("fifo_gang", None, True), ("fifo_gang", None, False),
+                               ("packed", pool, True), ("balanced", pool, False)]:
+        sc = Scenario(outputs="full", scheduler=sched, workers_per_job=wpj,
+                      cancel_redundant=cancel, dtype="float64")
+        t0 = time.perf_counter()
+        card = simulate_stream(small, n_workers, 3, reps, scenario=sc, slab=DAY_SLAB)
+        card_s = time.perf_counter() - t0
+        cpu = simulate_stream(small, n_workers, 3, reps, scenario=sc, slab=DAY_SLAB, device="cpu")
+        for f in _ACC_FIELDS + _CLASS_FIELDS:
+            same = np.array_equal(getattr(card.stats, f).view(np.uint8),
+                                  getattr(cpu.stats, f).view(np.uint8))
+            check(same, f"float64 stream {sched} cancel={cancel}: {f} differs card vs CPU")
+        for f in ("waits", "t_job", "busy_j", "planned_j", "saved_j"):
+            check(np.array_equal(getattr(card, f).view(np.uint64), getattr(cpu, f).view(np.uint64)),
+                  f"float64 stream {sched} cancel={cancel}: {f} differs card vs CPU")
+        print(f"float64 {n_jobs} jobs x {reps} reps on {n_workers} workers, {sched} "
+              f"(pool {wpj or n_workers}), cancel={cancel}: card bitwise equal to CPU "
+              f"({card_s:.3f} s on the card)", flush=True)
+    return launches
+
+
+def phase_slo() -> dict:
+    import torch
+
+    from repro_torch.cluster import SLO, Scenario
+    from repro_torch.core import RedundancyPlanner, traces
+    from repro_torch.kernels import cover
+
+    phase(f"plan_slo: N={SLO_N}, classes job1 + job6, p99 targets {SLO_TARGETS} at "
+          f"{SLO_RATE} jobs/s, {SLO_JOBS} jobs, {SLO_REPS} reps, pool widths {SLO_WIDTHS}, "
+          "float64")
+    jobs = {j.name: j for j in traces.synthetic_google_jobs(2020)}
+    workload = [jobs[name] for name in SLO_TARGETS]
+    slos = tuple(SLO(quantile=0.99, target_s=t, arrival_rate=SLO_RATE, job_class=name)
+                 for name, t in SLO_TARGETS.items())
+    kw = dict(scenario=Scenario(size_dependent=False, dtype="float64"), n_jobs=SLO_JOBS,
+              n_reps=SLO_REPS, seed=SEED, schedulers=("fifo_gang", "packed", "balanced"),
+              pool_widths=SLO_WIDTHS)
+    planner = RedundancyPlanner(SLO_N)
+    cover.launches = cover.draws_launches = cover.philox_launches = 0
+    t0 = time.perf_counter()
+    plan = planner.plan_slo(workload, slos, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"draws": cover.draws_launches, "philox": cover.philox_launches}
+    n_cand = len(plan.candidates)
+    want = {"draws": n_cand * -(-SLO_JOBS // 1024), "philox": 0}
+    n_ok = sum(c.feasible for c in plan.candidates)
+    print(f"{n_cand} candidates in {wall:.3f} s ({wall / n_cand:.4f} s per candidate); cover "
+          f"launches by kernel {launches}; {n_ok} feasible; best {plan.best}")
+    check(n_cand == 41, f"expected 41 candidates, saw {n_cand}")
+    check(launches == want, f"expected {want} (one kernel-A launch per slab), saw {launches}")
+    check(0 < n_ok < n_cand, f"{n_ok} of {n_cand} feasible: the grid should hold both kinds")
+    # kernel A against its plain version at every slab grid of the sweep
+    grids = sorted({(SLO_REPS * 1024, c.n_batches, c.replication) for c in plan.candidates})
+    check_cover_grids(grids, torch.float64)
+    t0 = time.perf_counter()
+    cpu = planner.plan_slo(workload, slos, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    check(plan == cpu, "plan_slo on the card differs from the same call on the CPU")
+    mean_opt = min(plan.candidates, key=lambda c: c.mean_response)
+    print(f"the card's SLOPlan equals the CPU's ({cpu_s:.3f} s there), every candidate "
+          f"bitwise; mean-optimal candidate {mean_opt.scheduler}/{mean_opt.workers_per_job}/"
+          f"B={mean_opt.n_batches}", flush=True)
+    return launches
 
 
 def _randn(torch, shape, dtype, seed, scale=1.0):
@@ -1116,7 +1403,8 @@ def main() -> int:
         rms_rec = phase_rmsnorm_vs_plain()
         att_rec = phase_attention_vs_plain()
         plan_launches = phase_main_path()
-        phase_fifo()
+        path_launches = [plan_launches, phase_fifo(), phase_schemes(), phase_stream(),
+                         phase_slo()]
         serve_launches = phase_serve()
         phase_decode_profile()
         phase_cache_check()
@@ -1125,7 +1413,8 @@ def main() -> int:
         return 1
     rows = [
         # name, record, launches on the main paths, replaces
-        ("masked_cover", cover_rec, sum(plan_launches.values()) + serve_launches["masked_cover"],
+        ("masked_cover", cover_rec,
+         sum(sum(d.values()) for d in path_launches) + serve_launches["masked_cover"],
          "cover.cu", "src/repro/kernels/cover.py:47"),
         ("rmsnorm", rms_rec, serve_launches["rmsnorm"],
          "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:31"),
@@ -1155,7 +1444,7 @@ def main() -> int:
     # every frontier pass of the planning path) beside it
     kernels[0]["philox"] = philox_rec
     kernels[0]["launches_by_kernel"] = {
-        k: plan_launches[k] + serve_launches["masked_cover_by_kernel"][k]
+        k: sum(d[k] for d in path_launches) + serve_launches["masked_cover_by_kernel"][k]
         for k in ("draws", "philox")}
     print()
     print(json.dumps({"kernels": kernels}))

@@ -7,23 +7,34 @@ Public surface ported so far:
   * vectorized -- batched torch replay of the static engine semantics:
     whole-frontier candidate scoring (``frontier_job_times``) and FIFO
     queueing (``simulate_fifo``), the path behind ``plan_cluster`` /
-    ``plan_sweep``
+    ``plan_sweep``, and the stream slab
+  * stream     -- trace-scale streaming (``simulate_stream``) with on-device
+    response statistics, the path behind ``plan_slo``
 
-The epoch scan, the stream slab, the DES engine and the live runtime come
-with later slices (``ROADMAP.md``).
+The epoch scan, the DES engine and the live runtime come with later slices
+(``ROADMAP.md``).
 """
 # core first: its __init__ re-exports cluster.scenario, whose workers import
 # core.service_time, so entering through cluster would meet a half-built core
 from .. import core  # noqa: F401
-from . import scenario, scheduler, vectorized, workers
+from . import scenario, scheduler, stream, vectorized, workers
 from .scenario import SLO, FaultPlan, Retry, Scenario, Speculation
 from .scheduler import JobPlan, Scheduler, make_scheduler
-from .vectorized import FifoReport, frontier_job_times, simulate_fifo
+from .stream import StreamFullReport, StreamStats, fold_stream_stats, simulate_stream
+from .vectorized import (
+    STREAM_HIST_BINS,
+    STREAM_HIST_EDGES,
+    STREAM_QUANTILE_RTOL,
+    FifoReport,
+    frontier_job_times,
+    simulate_fifo,
+)
 from .workers import ChurnProcess, ChurnSchedule, Worker, WorkerPool, sample_churn_schedule
 
 __all__ = [
     "scenario",
     "scheduler",
+    "stream",
     "vectorized",
     "workers",
     "FaultPlan",
@@ -37,6 +48,13 @@ __all__ = [
     "FifoReport",
     "frontier_job_times",
     "simulate_fifo",
+    "STREAM_HIST_BINS",
+    "STREAM_HIST_EDGES",
+    "STREAM_QUANTILE_RTOL",
+    "StreamFullReport",
+    "StreamStats",
+    "fold_stream_stats",
+    "simulate_stream",
     "ChurnProcess",
     "ChurnSchedule",
     "Worker",

@@ -296,8 +296,9 @@ class Scenario:
     # "full" returns per-job starts/finishes (the classic reports); "stream"
     # carries running aggregates (count, moment sums, min/max, a log-spaced
     # response histogram) in the scan instead, so trace-scale runs never
-    # materialize (reps x jobs) outputs.  jax backends only; "full" paths
-    # stay bit-identical when this is left at the default.
+    # materialize (reps x jobs) outputs.  Array backends only (the
+    # reference's jax, the port's torch); "full" paths stay bit-identical
+    # when this is left at the default.
     outputs: str = "full"
 
     def __post_init__(self):

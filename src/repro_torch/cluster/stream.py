@@ -1,0 +1,462 @@
+"""Trace-scale streaming simulation: a cluster-day through the torch path.
+
+Port of ``repro.cluster.stream``.  The workload is a
+:class:`~repro_torch.core.traces.TraceStream` -- thousands of arrivals, each
+resampling one source trace job's empirical service-time distribution.  Its
+service draws are made per slab on the host with numpy, exactly as the
+reference makes them (a prefix-stable consumption of each rep's generator,
+so any slab partition yields the same numbers bit for bit), copied to the
+device once per slab and run through the stream slab
+(:func:`repro_torch.cluster.vectorized._stream_slab`): one launch of the
+cover kernel per slab for the cover times, then a loop over the slab's jobs
+that carries the pools' free times and the running statistics on the
+device.  Peak memory is O(slab), independent of the stream length.
+
+The queueing model is **symmetric gang pools**: ``fifo_gang`` is the exact
+single-pool FIFO gang regime of ``simulate_fifo``; ``packed`` / ``balanced``
+split the cluster into ``n_workers // workers_per_job`` disjoint pools and
+dispatch each arrival to the earliest-free pool (ties: lowest index / least
+cumulative placed load).
+
+``outputs="full"`` runs the same slab while *also* collecting the per-job
+arrays, and :func:`fold_stream_stats` re-derives the accumulators from them
+with the same fold, in the same job order, in the same dtype: streaming
+equals materialized bit for bit.  Against the reference on the same stream,
+every accumulator is bitwise equal in float64 except ``busy_sum`` /
+``saved_sum`` (and ``busy_j`` / ``planned_j`` / ``saved_j``), whose per-job
+slot sums the port adds left to right where XLA picks its own order.
+
+``epoch_stream_stats`` folds the epoch scan's reports and comes with it.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .._device import resolve_device, resolve_dtype
+from ..core.traces import TraceStream
+from .scenario import Scenario
+from .vectorized import (
+    STREAM_HIST_BINS,
+    STREAM_HIST_EDGES,
+    STREAM_QUANTILE_RTOL,
+    _stream_slab,
+    stream_acc_init,
+)
+
+__all__ = [
+    "StreamStats",
+    "StreamFullReport",
+    "simulate_stream",
+    "fold_stream_stats",
+    "STREAM_QUANTILE_RTOL",
+]
+
+_ACC_FIELDS = (
+    "count",
+    "resp_sum",
+    "resp_sq",
+    "resp_min",
+    "resp_max",
+    "comp_sum",
+    "busy_sum",
+    "saved_sum",
+    "hist",
+)
+
+_CLASS_FIELDS = ("class_count", "class_resp_sum", "class_hist")
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamStats:
+    """Streaming aggregates of one run (axis 0 = Monte-Carlo rep).
+
+    Everything a trace-scale sweep reports, in O(n_reps) memory: response
+    moments and extremes, total compute / charged worker-seconds /
+    cancellation savings, and a fixed log-spaced response histogram
+    (:data:`~repro_torch.cluster.vectorized.STREAM_HIST_EDGES`) standing in for
+    the full response vector.  Integer counts and a fixed fold order make
+    every field an exact function of the run, not an approximation -- only
+    :meth:`quantile` is resolution-limited (one histogram bin, ~18%).
+    """
+
+    count: np.ndarray  # (S,) completed jobs
+    resp_sum: np.ndarray  # (S,) sum of response times
+    resp_sq: np.ndarray  # (S,) sum of squared response times
+    resp_min: np.ndarray  # (S,)
+    resp_max: np.ndarray  # (S,)
+    comp_sum: np.ndarray  # (S,) sum of compute (cover) times
+    busy_sum: np.ndarray  # (S,) charged worker-seconds
+    saved_sum: np.ndarray  # (S,) cancelled-seconds-saved
+    hist: np.ndarray  # (S, STREAM_HIST_BINS) response histogram
+    class_count: np.ndarray | None = None  # (S, C) per-class completed jobs
+    class_resp_sum: np.ndarray | None = None  # (S, C) per-class response sums
+    class_hist: np.ndarray | None = None  # (S, C, STREAM_HIST_BINS)
+    classes: tuple | None = None  # (C,) class names (source trace jobs)
+
+    @classmethod
+    def from_device(cls, acc: dict, classes: tuple | None = None) -> "StreamStats":
+        """Pull a device accumulator dict (torch tensors) back to host numpy arrays."""
+        kw = {k: acc[k].cpu().numpy() for k in _ACC_FIELDS}
+        if "class_hist" in acc:
+            kw.update({k: acc[k].cpu().numpy() for k in _CLASS_FIELDS})
+            kw["classes"] = classes
+        return cls(**kw)
+
+    @property
+    def mean_response(self) -> np.ndarray:
+        """Per-rep mean response time, ``resp_sum / count``."""
+        return self.resp_sum / np.maximum(self.count, 1)
+
+    @property
+    def std_response(self) -> np.ndarray:
+        """Per-rep response-time standard deviation from the moment sums."""
+        m = self.mean_response
+        var = self.resp_sq / np.maximum(self.count, 1) - m * m
+        return np.sqrt(np.maximum(var, 0.0))
+
+    @property
+    def worker_seconds(self) -> np.ndarray:
+        """Per-rep charged worker-seconds (alias of ``busy_sum``)."""
+        return self.busy_sum
+
+    @property
+    def cancelled_seconds_saved(self) -> np.ndarray:
+        """Per-rep worker-seconds saved by replica cancellation."""
+        return self.saved_sum
+
+    def _class_index(self, job_class) -> int:
+        if isinstance(job_class, str):
+            if self.classes is None or job_class not in self.classes:
+                raise KeyError(
+                    f"unknown job class {job_class!r}; classes={self.classes}"
+                )
+            return self.classes.index(job_class)
+        return int(job_class)
+
+    def quantile(self, q: float, job_class=None) -> float:
+        """Pooled response quantile from the histogram (bin upper edge).
+
+        The estimator returns the *upper* edge of the bin holding the k-th
+        order statistic (``k = ceil(q * total)``), so for responses inside
+        the grid it never understates the true quantile and overstates it by
+        at most one log bin:
+        ``r <= quantile(q) <= r * (1 + STREAM_QUANTILE_RTOL)`` (~18%).  The
+        exact extremes are ``resp_min`` / ``resp_max``.
+
+        ``job_class`` (a source-trace name or index) restricts the quantile
+        to that class's responses; it needs the per-class state carried by
+        :func:`simulate_stream` and overflow past the last edge returns
+        ``inf`` (conservative: a would-be-feasible SLO is never reported
+        feasible because of histogram saturation).
+        """
+        if job_class is None:
+            h = self.hist.sum(axis=0)
+        else:
+            if self.class_hist is None:
+                raise ValueError("per-class quantile needs per-class stream state")
+            h = self.class_hist[:, self._class_index(job_class), :].sum(axis=0)
+        total = int(h.sum())
+        if total == 0:
+            return float("nan")
+        k = int(np.ceil(float(q) * total))
+        idx = int(np.searchsorted(np.cumsum(h), max(k, 1)))
+        if idx >= STREAM_HIST_EDGES.size:
+            if job_class is None:
+                return float(self.resp_max.max())
+            return float("inf")  # saturated class histogram: no upper bound
+        return float(STREAM_HIST_EDGES[idx])
+
+    def summary(self) -> dict:
+        """Pooled scalar summary (the bench/golden payload)."""
+        total = int(self.count.sum())
+        return {
+            "n_jobs_done": total,
+            "mean_response": float(self.resp_sum.sum() / max(total, 1)),
+            "p50_response": self.quantile(0.50),
+            "p95_response": self.quantile(0.95),
+            "p99_response": self.quantile(0.99),
+            "max_response": float(self.resp_max.max()),
+            "mean_compute": float(self.comp_sum.sum() / max(total, 1)),
+            "worker_seconds": float(self.busy_sum.sum() / self.count.shape[0]),
+            "cancelled_seconds_saved": float(
+                self.saved_sum.sum() / self.count.shape[0]
+            ),
+        }
+
+    def class_summary(self) -> dict:
+        """Per-class scalar summary: ``{name: {n_jobs_done, mean, p50..p999}}``.
+
+        Needs the per-class state :func:`simulate_stream` carries; raises if
+        the stats were produced without it (e.g. the epoch-scan stream lane).
+        """
+        if self.class_hist is None:
+            raise ValueError("class_summary needs per-class stream state")
+        names = self.classes or tuple(range(self.class_hist.shape[1]))
+        out = {}
+        for i, name in enumerate(names):
+            total = int(self.class_count[:, i].sum())
+            out[name] = {
+                "n_jobs_done": total,
+                "mean_response": float(
+                    self.class_resp_sum[:, i].sum() / max(total, 1)
+                ),
+                "p50_response": self.quantile(0.50, job_class=i),
+                "p95_response": self.quantile(0.95, job_class=i),
+                "p99_response": self.quantile(0.99, job_class=i),
+                "p999_response": self.quantile(0.999, job_class=i),
+            }
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamFullReport:
+    """``outputs="full"`` result: the materialized reference of the stream.
+
+    Per-job arrays stay in the kernel's compute dtype (what the device
+    actually produced); absolute times are rebuilt on the host in float64
+    from the relative waits, exactly like :func:`simulate_fifo`.  ``stats``
+    carries the accumulators the very same kernel run computed -- the
+    streaming side of the bit-for-bit property.
+    """
+
+    arrivals: np.ndarray  # (J,) float64
+    waits: np.ndarray  # (S, J) queue waits, compute dtype
+    t_job: np.ndarray  # (S, J) cover times, compute dtype
+    busy_j: np.ndarray  # (S, J) charged worker-seconds per job
+    planned_j: np.ndarray  # (S, J) placed (full-duration) worker-seconds
+    saved_j: np.ndarray  # (S, J) cancellation savings per job
+    stats: StreamStats
+
+    @property
+    def starts(self) -> np.ndarray:
+        """Per-(rep, job) start time: arrival plus queue wait."""
+        return self.arrivals[None, :] + np.asarray(self.waits, dtype=np.float64)
+
+    @property
+    def finishes(self) -> np.ndarray:
+        """Per-(rep, job) finish time: start plus job time."""
+        return self.starts + np.asarray(self.t_job, dtype=np.float64)
+
+    @property
+    def response_times(self) -> np.ndarray:
+        """Per-(rep, job) response time: finish minus arrival."""
+        return self.finishes - self.arrivals[None, :]
+
+
+def fold_stream_stats(
+    waits, t_job, busy_j, planned_j, saved_j, class_ids=None, classes=None
+) -> StreamStats:
+    """The host reference fold: materialized arrays -> StreamStats.
+
+    Replays exactly the accumulator updates the device scan performs -- same
+    job order (arrival order), same operations, same dtype, same histogram
+    edges -- as a sequential numpy loop.  This is what "streaming equals
+    materialized bit for bit" means operationally: this fold of the full
+    outputs must equal the device's carried accumulators exactly.
+
+    ``class_ids`` (a (J,) int array, with ``classes`` the tuple of class
+    names) additionally folds the per-class state the device carries when
+    classes are threaded through :func:`simulate_stream`.
+    """
+    waits = np.asarray(waits)
+    t_job = np.asarray(t_job)
+    dt = waits.dtype
+    s, n = waits.shape
+    edges = STREAM_HIST_EDGES.astype(dt)
+    count = np.zeros(s, dtype=np.int32)
+    resp_sum = np.zeros(s, dtype=dt)
+    resp_sq = np.zeros(s, dtype=dt)
+    resp_min = np.full(s, np.inf, dtype=dt)
+    resp_max = np.full(s, -np.inf, dtype=dt)
+    comp_sum = np.zeros(s, dtype=dt)
+    busy_sum = np.zeros(s, dtype=dt)
+    saved_sum = np.zeros(s, dtype=dt)
+    hist = np.zeros((s, STREAM_HIST_BINS), dtype=np.int32)
+    cls = None
+    class_count = class_resp_sum = class_hist = None
+    if class_ids is not None:
+        cls = np.asarray(class_ids, dtype=np.int64)
+        n_cls = len(classes) if classes is not None else int(cls.max()) + 1
+        class_count = np.zeros((s, n_cls), dtype=np.int32)
+        class_resp_sum = np.zeros((s, n_cls), dtype=dt)
+        class_hist = np.zeros((s, n_cls, STREAM_HIST_BINS), dtype=np.int32)
+    rows = np.arange(s)
+    for j in range(n):
+        resp = waits[:, j] + t_job[:, j]
+        count += 1
+        resp_sum += resp
+        resp_sq += resp * resp
+        resp_min = np.minimum(resp_min, resp)
+        resp_max = np.maximum(resp_max, resp)
+        comp_sum += t_job[:, j]
+        busy_sum += np.asarray(busy_j)[:, j].astype(dt, copy=False)
+        saved_sum += np.asarray(saved_j)[:, j].astype(dt, copy=False)
+        bins = np.searchsorted(edges, resp, side="right")
+        hist[rows, bins] += 1
+        if cls is not None:
+            class_count[rows, cls[j]] += 1
+            class_resp_sum[:, cls[j]] += resp
+            class_hist[rows, cls[j], bins] += 1
+    return StreamStats(
+        count=count,
+        resp_sum=resp_sum,
+        resp_sq=resp_sq,
+        resp_min=resp_min,
+        resp_max=resp_max,
+        comp_sum=comp_sum,
+        busy_sum=busy_sum,
+        saved_sum=saved_sum,
+        hist=hist,
+        class_count=class_count,
+        class_resp_sum=class_resp_sum,
+        class_hist=class_hist,
+        classes=tuple(classes) if classes is not None else None,
+    )
+
+
+def _resolve_pools(sc: Scenario, n_workers: int, n_batches: int):
+    """Map the scenario's scheduler knobs onto (n_gangs, pool_width, b, r)."""
+    name = sc.scheduler_name
+    if name == "fifo_gang":
+        if sc.workers_per_job is not None and int(sc.workers_per_job) != int(n_workers):
+            raise ValueError(
+                "simulate_stream: workers_per_job applies to the packed/"
+                "balanced pool schedulers; fifo_gang uses the whole cluster"
+            )
+        pool, gangs = int(n_workers), 1
+    else:
+        if sc.workers_per_job is None:
+            raise ValueError(
+                f"simulate_stream: scheduler={name!r} needs workers_per_job "
+                "(the pool width) set on the Scenario"
+            )
+        pool = int(sc.workers_per_job)
+        gangs = int(n_workers) // pool
+        if gangs < 1:
+            raise ValueError(
+                f"simulate_stream: workers_per_job={pool} exceeds "
+                f"n_workers={n_workers}"
+            )
+    b = int(n_batches)
+    if not (1 <= b <= pool):
+        raise ValueError(
+            f"simulate_stream: n_batches must lie in [1, {pool}] "
+            f"(the pool width), got {b}"
+        )
+    return gangs, pool, b, pool // b
+
+
+def _on(x: np.ndarray, np_dt, dev) -> torch.Tensor:
+    """``x`` rounded to the compute dtype on the host, then copied to ``dev``."""
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np_dt)).to(dev)
+
+
+def simulate_stream(
+    stream: TraceStream,
+    n_workers: int,
+    n_batches: int,
+    n_reps: int,
+    *,
+    scenario: Scenario | None = None,
+    slab: int | None = 1024,
+    device=None,
+):
+    """Run a :class:`~repro_torch.core.traces.TraceStream` through the torch path.
+
+    Returns :class:`StreamStats` (``scenario.outputs == "stream"``, the
+    default here) or :class:`StreamFullReport` (``outputs="full"``).  Knobs
+    honoured from the scenario: ``cancel_redundant``, ``size_dependent``,
+    ``scheduler`` (+ ``workers_per_job``), ``dtype``, ``outputs``.  Dynamic
+    knobs (churn, speeds, replan, speculation, per-job plans) belong to the
+    epoch scan -- this path raises on them rather than silently ignoring the
+    physics.  Runs on ``device`` (default: the CUDA card).
+
+    ``slab`` bounds host and device memory: draws, padding and outputs are
+    all O(slab) per step.  Draw streams are owned by the :class:`TraceStream`
+    seed (one generator per rep, consumed slab-wise in arrival order), so the
+    slab size never changes a single drawn number.
+    """
+    if not isinstance(stream, TraceStream):
+        raise TypeError(f"simulate_stream expects a TraceStream, got {type(stream)}")
+    sc = scenario if scenario is not None else Scenario(outputs="stream")
+    sc.validate(n_workers, backend="torch")
+    for field in ("churn", "churn_schedule", "speeds", "replan", "speculation", "job_plans"):
+        if getattr(sc, field) is not None:
+            raise ValueError(
+                f"simulate_stream: Scenario.{field} is not supported on the "
+                "streaming gang-pool path; use simulate_epochs for dynamic "
+                "scenarios"
+            )
+    gangs, _pool, b, r = _resolve_pools(sc, n_workers, n_batches)
+    dev, dt = resolve_device(device), resolve_dtype(sc.dtype)
+    np_dt = np.float64 if sc.dtype == "float64" else np.float32
+    balanced = sc.scheduler_name == "balanced"
+    n_reps = int(n_reps)
+    n = stream.n_jobs
+    j_pad = n if slab is None else min(int(slab), n)
+    collect = sc.outputs == "full"
+
+    rngs = [stream.make_rng(rep) for rep in range(n_reps)]
+    # host-side f64 precompute, O(n): gaps and per-job batch-size scales,
+    # each rounded to the compute dtype before it meets a device value
+    diffs = np.append(np.diff(stream.arrivals), 0.0)
+    scales_all = (
+        stream.n_tasks.astype(np.float64) / b
+        if sc.size_dependent
+        else np.ones(n, dtype=np.float64)
+    )
+    edges = _on(STREAM_HIST_EDGES, np_dt, dev)
+    rel_free = torch.full((n_reps, gangs), float(np_dt(-stream.arrivals[0])), dtype=dt, device=dev)
+    load = torch.zeros((n_reps, gangs), dtype=dt, device=dev)
+    classes = tuple(src.name for src in stream.sources)
+    n_classes = len(classes)
+    acc = stream_acc_init(n_reps, dt, n_classes, device=dev)
+    full_parts: list = []
+    for lo, hi in stream.slabs(j_pad):
+        k = hi - lo
+        draws = np.stack(
+            [stream.sample_slab(rngs[s], lo, hi, b * r) for s in range(n_reps)]
+        ).reshape(n_reps, k, b, r)
+        if k < j_pad:  # final partial slab: pad with masked-out unit jobs
+            draws = np.concatenate(
+                [draws, np.ones((n_reps, j_pad - k, b, r))], axis=1
+            )
+        pad = (0, j_pad - k)
+        rel_free, load, acc, outs = _stream_slab(
+            _on(draws, np_dt, dev),  # the slab's one host-to-device copy
+            _on(np.pad(scales_all[lo:hi], pad, constant_values=1.0), np_dt, dev),
+            np.pad(diffs[lo:hi], pad).astype(np_dt),
+            np.arange(j_pad) < k,
+            np.pad(stream.job_ids[lo:hi], pad),
+            rel_free,
+            load,
+            acc,
+            edges,
+            b=b,
+            r=r,
+            n_gangs=gangs,
+            cancel_redundant=bool(sc.cancel_redundant),
+            balanced=balanced,
+            collect=collect,
+            n_classes=n_classes,
+        )
+        if collect:
+            full_parts.append(tuple(o[:, :k].cpu().numpy() for o in outs))
+    stats = StreamStats.from_device(acc, classes=classes)
+    if not collect:
+        return stats
+    waits, t_job, busy_j, planned_j, saved_j = (
+        np.concatenate(parts, axis=1) for parts in zip(*full_parts)
+    )
+    return StreamFullReport(
+        arrivals=stream.arrivals,
+        waits=waits,
+        t_job=t_job,
+        busy_j=busy_j,
+        planned_j=planned_j,
+        saved_j=saved_j,
+        stats=stats,
+    )

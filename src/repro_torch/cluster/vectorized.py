@@ -24,8 +24,15 @@ port's counterpart of the reference's ``fold_in(key(seed), rep)``.  So
 ``rep_chunk`` is bit-identical under any chunking, as in the reference.
 ``simulate_fifo`` draws from a ``torch.Generator`` seeded with ``seed``.
 Neither stream is the reference's ``jax.random`` stream, so the two agree in
-law (3 sigma) and not draw for draw.  Space sharing, churn and the stream
-slab come with later slices.
+law (3 sigma) and not draw for draw.
+
+The stream slab (:func:`_stream_slab`, behind
+:func:`repro_torch.cluster.stream.simulate_stream`) is the trace-scale
+sibling of the FIFO scan: G symmetric gang pools, an accumulator dict in
+place of per-job outputs, and host numpy draws (``TraceStream.sample_slab``)
+that both packages consume identically, so it is held to the reference
+exactly rather than in law.  Space sharing on the engine's space lane and
+churn come with later slices.
 """
 from __future__ import annotations
 
@@ -39,7 +46,16 @@ from ..core.service_time import ServiceTime
 from ..core.simulator import gang_cover_times
 from ..kernels.cover import frontier_sample_cover
 
-__all__ = ["frontier_job_times", "simulate_fifo", "FifoReport"]
+__all__ = [
+    "frontier_job_times",
+    "simulate_fifo",
+    "FifoReport",
+    "STREAM_HIST_EDGES",
+    "STREAM_HIST_BINS",
+    "STREAM_QUANTILE_RTOL",
+    "stream_acc_init",
+]
+
 
 def _candidate_grid(n_workers: int, candidates) -> tuple[np.ndarray, np.ndarray]:
     bs = np.asarray(list(candidates), dtype=np.int32)
@@ -217,3 +233,168 @@ def simulate_fifo(
         worker_seconds=busy.double().cpu().numpy(),
         cancelled_seconds_saved=saved.double().cpu().numpy(),
     )
+
+
+# --------------------------------------------------------------------------
+# the stream slab: trace-scale multi-gang FIFO with on-device accumulators
+# --------------------------------------------------------------------------
+
+# Log-spaced response-time histogram edges shared by the device fold and the
+# host reference fold: 1 ms .. 1e6 s at ~18% per-bin resolution.  Bin i holds
+# responses in [edges[i-1], edges[i]); integer counts make the sketch exactly
+# order-independent, so streaming equals materialized bit for bit.
+STREAM_HIST_EDGES = np.logspace(-3.0, 6.0, 128)
+STREAM_HIST_BINS = STREAM_HIST_EDGES.size + 1
+
+# Committed accuracy of histogram quantiles: the estimator returns the upper
+# edge of the bin holding the k-th order statistic, so for any response in
+# [edges[0], edges[-1]] the true quantile r satisfies
+# ``r <= estimate <= r * (1 + STREAM_QUANTILE_RTOL)`` -- one log bin, never
+# an underestimate.
+STREAM_QUANTILE_RTOL = float(STREAM_HIST_EDGES[1] / STREAM_HIST_EDGES[0]) - 1.0
+
+# accumulators folded as running sums, in this order, by _stream_slab
+_SUM_FIELDS = ("resp_sum", "resp_sq", "comp_sum", "busy_sum", "saved_sum")
+
+
+def stream_acc_init(n_reps: int, dtype: torch.dtype, n_classes: int = 0, *, device) -> dict:
+    """Zeroed accumulator carry for :func:`_stream_slab` (one row per rep).
+
+    With ``n_classes > 0`` the carry also holds per-class response state
+    (count / response sum / histogram), keyed by the job's source-trace
+    index -- the substrate of per-class SLO quantiles.
+    """
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    acc = {
+        "count": zeros(n_reps, dt=torch.int32),
+        **{k: zeros(n_reps) for k in _SUM_FIELDS},
+        "resp_min": torch.full((n_reps,), torch.inf, dtype=dtype, device=device),
+        "resp_max": torch.full((n_reps,), -torch.inf, dtype=dtype, device=device),
+        "hist": zeros(n_reps, STREAM_HIST_BINS, dt=torch.int32),
+    }
+    if n_classes:
+        acc["class_count"] = zeros(n_reps, n_classes, dt=torch.int32)
+        acc["class_resp_sum"] = zeros(n_reps, n_classes)
+        acc["class_hist"] = zeros(n_reps, n_classes, STREAM_HIST_BINS, dt=torch.int32)
+    return acc
+
+
+def _slot_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis left to right, one add per slot.
+
+    The order is explicit so the card and the CPU add in the same order and
+    agree bitwise; the reference's ``jnp.sum`` takes XLA's reduction order,
+    which agrees with this one only to rounding.
+    """
+    out = x[..., 0].clone()
+    for i in range(1, x.shape[-1]):
+        out += x[..., i]
+    return out
+
+
+def _stream_slab(
+    draws: torch.Tensor,  # (S, J, b, r) unscaled service draws, compute dtype
+    scales: torch.Tensor,  # (J,) per-job batch-size scale, compute dtype
+    gaps: np.ndarray,  # (J,) inter-arrival deltas (gap[j] = a[j+1] - a[j]), compute dtype
+    mask: np.ndarray,  # (J,) bool: real job vs slab padding (padding last)
+    cls: np.ndarray,  # (J,) job-class ids (ignored when n_classes == 0)
+    rel_free: torch.Tensor,  # (S, G) pool free-times relative to current arrival
+    load: torch.Tensor,  # (S, G) cumulative placed load (balanced tie-break)
+    acc: dict,  # accumulator carry, see stream_acc_init; updated in place
+    edges: torch.Tensor,  # histogram edges in the compute dtype
+    *,
+    b: int,
+    r: int,
+    n_gangs: int,
+    cancel_redundant: bool,
+    balanced: bool,
+    collect: bool,
+    n_classes: int = 0,
+):
+    """One slab of the multi-gang streaming FIFO scan.
+
+    Each arrival is a gang of ``b`` batches x ``r`` replicas dispatched to
+    the earliest-free pool (ties: lowest index for packed/fifo, least
+    cumulative placed load for balanced).  The per-job tensors come first,
+    the cover times from one launch of the cover kernel (kernel A) on CUDA;
+    then a Python loop over the slab's jobs carries ``rel_free`` and
+    ``load`` on the device.  The accumulators fold each real job's response
+    (wait + cover time) in job order: running sums one add per job, as the
+    reference's scan step does; minima, maxima and the integer histograms,
+    which no order changes, once per slab.  ``collect=True`` also returns the
+    per-job arrays (waits, cover times, charged / planned / saved
+    worker-seconds) for the materialized reference path.
+    """
+    d = draws * scales[None, :, None, None]
+    n_reps, n_jobs = d.shape[0], d.shape[1]
+    batch_min = d.amin(dim=-1)  # (S, J, b)
+    t_job = gang_cover_times(d)  # (S, J): kernel A on CUDA
+    hold = t_job if cancel_redundant else d.amax(dim=(-2, -1))
+    planned = _slot_sum(d.reshape(n_reps, n_jobs, b * r))  # every replica's full duration
+    busy = _slot_sum(batch_min) * r if cancel_redundant else planned
+    saved = planned - busy
+    dev, dt = d.device, d.dtype
+    t_rows, h_rows = t_job.T.contiguous(), hold.T.contiguous()  # (J, S)
+    pl_rows = planned.T.contiguous() if balanced else None
+    gidx = torch.arange(n_gangs, dtype=dt, device=dev)
+    cols = torch.arange(n_gangs, device=dev)
+    resp = torch.empty((n_jobs, n_reps), dtype=dt, device=dev)
+    waits = torch.zeros((n_jobs, n_reps), dtype=dt, device=dev) if collect else None
+    for j, (gap, real) in enumerate(zip(gaps.tolist(), mask.tolist())):
+        if not real:  # slab padding: the carry only moves by its gap (0)
+            rel_free = rel_free - gap
+            continue
+        feas = rel_free.amin(dim=1)  # (S,) earliest any pool frees
+        elig = rel_free <= feas[:, None]
+        key = torch.where(elig, load if balanced else gidx, torch.inf)
+        g = key.argmin(dim=1)  # ties -> lowest pool index
+        wait = feas.clamp_min(0.0)
+        torch.add(wait, t_rows[j], out=resp[j])
+        sel = cols == g[:, None]
+        rel_free = torch.where(sel, (wait + h_rows[j])[:, None], rel_free) - gap
+        if balanced:
+            load = load + torch.where(sel, pl_rows[j][:, None], 0.0)
+        if collect:
+            waits[j] = wait
+    k = int(mask.sum())
+    _fold_slab(acc, resp[:k], t_rows[:k], busy.T[:k], saved.T[:k],
+               torch.as_tensor(cls[:k], device=dev), edges, n_classes)
+    if collect:
+        return rel_free, load, acc, (waits.T, t_job, busy, planned, saved)
+    return rel_free, load, acc, None
+
+
+def _fold_slab(acc, resp, comp, busy, saved, cls, edges, n_classes):
+    """Fold a slab's real jobs, ``(k, S)`` rows in job order, into ``acc``."""
+    k, n_reps = resp.shape
+    if k == 0:
+        return
+    # max(sq, 0) is a value-identity on a square; it mirrors the reference,
+    # where it pins the multiply as a standalone IEEE op against contraction
+    resp2 = torch.clamp_min(resp * resp, 0.0)
+    parts = [x[:, None, :] for x in (resp, resp2, comp, busy, saved)]
+    sums = torch.stack([acc[f] for f in _SUM_FIELDS])  # (5, S)
+    if n_classes:
+        onehot = cls[:, None] == torch.arange(n_classes, device=resp.device)  # (k, C)
+        parts.append(torch.where(onehot[:, :, None], resp[:, None, :], 0.0))  # (k, C, S)
+        sums = torch.cat([sums, acc["class_resp_sum"].T])
+    terms = torch.cat(parts, dim=1)  # (k, 5 + C, S)
+    for j in range(k):  # one add per job, in job order, as the reference's scan
+        sums += terms[j]
+    for i, f in enumerate(_SUM_FIELDS):
+        acc[f].copy_(sums[i])
+    if n_classes:
+        acc["class_resp_sum"].copy_(sums[len(_SUM_FIELDS):].T)
+    acc["count"] += k
+    torch.minimum(acc["resp_min"], resp.amin(dim=0), out=acc["resp_min"])
+    torch.maximum(acc["resp_max"], resp.amax(dim=0), out=acc["resp_max"])
+    bins = torch.searchsorted(edges, resp, right=True)  # (k, S)
+    rep_ids = torch.arange(n_reps, device=resp.device).expand(k, n_reps)
+    one = torch.ones((), dtype=torch.int32, device=resp.device).expand(k, n_reps)
+    acc["hist"].index_put_((rep_ids, bins), one, accumulate=True)
+    if n_classes:
+        cls_ids = cls[:, None].expand(k, n_reps)
+        acc["class_count"].index_put_((rep_ids, cls_ids), one, accumulate=True)
+        acc["class_hist"].index_put_((rep_ids, cls_ids, bins), one, accumulate=True)

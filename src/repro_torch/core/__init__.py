@@ -3,14 +3,22 @@
 Public surface ported so far:
   * service_time -- Exp / SExp / Pareto / Empirical models (torch samplers)
   * analysis     -- closed-form E[T], CoV[T] and regime boundaries
+  * batching     -- the paper's batching schemes (§III, Fig. 5)
+  * assignment   -- host-count vectors and majorization (§IV, Lemmas 2-3)
+  * coupon       -- coverage probability of random assignment (Lemma 1)
   * simulator    -- Monte-Carlo job-time oracle on the cover kernel
-  * planner      -- RedundancyPlanner -> (B, r)
+  * planner      -- RedundancyPlanner -> (B, r), and plan_slo -> SLOPlan
   * traces       -- Google-trace-like workload generator (§VII)
-
-``batching``, ``assignment`` and ``coupon`` come with a later slice.
 """
-from . import analysis, simulator, traces
-from .planner import RedundancyPlan, RedundancyPlanner, fit_service_time, plan_sweep
+from . import analysis, assignment, batching, coupon, simulator, traces
+from .planner import (
+    RedundancyPlan,
+    RedundancyPlanner,
+    SLOCandidate,
+    SLOPlan,
+    fit_service_time,
+    plan_sweep,
+)
 
 # re-exported after core's own submodules are bound: cluster's modules import
 # those submodules directly, so this back-edge stays cycle-safe either way
@@ -28,10 +36,15 @@ from .service_time import (
 
 __all__ = [
     "analysis",
+    "assignment",
+    "batching",
+    "coupon",
     "simulator",
     "traces",
     "RedundancyPlan",
     "RedundancyPlanner",
+    "SLOCandidate",
+    "SLOPlan",
     "SLO",
     "Scenario",
     "fit_service_time",

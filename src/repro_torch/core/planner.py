@@ -14,9 +14,12 @@ The closed-form and bootstrap paths (:meth:`RedundancyPlanner.plan`,
 :meth:`~RedundancyPlanner.plan_empirical`, :meth:`~RedundancyPlanner.plan_auto`)
 are numpy and bit-exact to the reference.  :meth:`~RedundancyPlanner.plan_cluster`
 and :func:`plan_sweep` score the frontier by Monte-Carlo on the card through
-:func:`repro_torch.cluster.vectorized.frontier_job_times`.  Dynamic and
-space-sharing scenarios, the Python event engine and ``plan_slo`` come with
-later slices of the port.
+:func:`repro_torch.cluster.vectorized.frontier_job_times`;
+:meth:`~RedundancyPlanner.plan_slo` runs every (B, r, scheduler) candidate
+through the trace-scale stream (:func:`repro_torch.cluster.stream.
+simulate_stream`) and returns the same :class:`SLOPlan` as the reference.
+Dynamic and space-sharing scenarios on the epoch scan and the Python event
+engine come with later slices of the port.
 """
 from __future__ import annotations
 
@@ -38,6 +41,8 @@ from .service_time import (
 __all__ = [
     "RedundancyPlan",
     "RedundancyPlanner",
+    "SLOCandidate",
+    "SLOPlan",
     "fit_service_time",
     "plan_sweep",
 ]
@@ -65,6 +70,75 @@ class RedundancyPlan:
         if self.n_workers == 1:
             return 1.0
         return 1.0 - (self.n_batches - 1) / (self.n_workers - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class SLOCandidate:
+    """One evaluated point of the :meth:`RedundancyPlanner.plan_slo` grid.
+
+    ``achieved`` holds the response quantile the candidate delivered for
+    each SLO (in SLO order); ``feasible`` is whether every one of them met
+    its target.  ``cost_worker_seconds`` is the per-rep mean charged
+    worker-seconds over the evaluation stream -- the cost plan_slo
+    minimizes among feasible candidates.
+    """
+
+    scheduler: str
+    workers_per_job: int | None  # pool width (None on fifo_gang)
+    n_batches: int
+    replication: int
+    feasible: bool
+    cost_worker_seconds: float
+    mean_response: float
+    achieved: tuple  # response quantile per SLO, SLO order
+
+
+@dataclasses.dataclass(frozen=True)
+class SLOPlan:
+    """The :meth:`RedundancyPlanner.plan_slo` verdict.
+
+    ``feasible`` says whether *any* candidate met every SLO; when it did,
+    ``best`` is the cheapest such candidate (worker-seconds, ties broken by
+    mean response) -- when it did not, ``best`` is ``None`` and the sorted
+    ``candidates`` tuple shows how close the grid came.  Infeasibility is
+    an explicit verdict, never a silent fallback to the cheapest violator.
+    """
+
+    n_workers: int
+    slos: tuple  # tuple[repro_torch.cluster.SLO, ...]
+    classes: tuple  # workload class names, stream source order
+    feasible: bool
+    best: SLOCandidate | None
+    candidates: tuple  # every evaluated SLOCandidate, best-first
+    source: str  # 'stream' (the epoch-scan lane is not ported yet)
+
+    def require_feasible(self) -> SLOCandidate:
+        """The best candidate, or ``ValueError`` if no candidate met the SLOs."""
+        if not self.feasible or self.best is None:
+            raise ValueError(
+                f"no (B, r, scheduler) candidate met the SLOs {self.slos!r} "
+                f"on n_workers={self.n_workers} (closest: {self.candidates[0]!r})"
+            )
+        return self.best
+
+    def best_for(self, job_class: str) -> SLOCandidate | None:
+        """Cheapest candidate feasible for *one* class's SLOs alone.
+
+        Filters the SLO list down to the entries naming ``job_class`` and
+        re-ranks the already-evaluated grid against just those -- the
+        per-class answer under space sharing, where one class's target may
+        be achievable even when the joint plan is infeasible.  Returns
+        ``None`` when no candidate meets the class's SLOs.
+        """
+        idx = [i for i, s in enumerate(self.slos) if s.job_class == job_class]
+        if not idx:
+            raise KeyError(f"no SLO names job_class {job_class!r}")
+        ok = [
+            c
+            for c in self.candidates
+            if all(c.achieved[i] <= self.slos[i].target_s for i in idx)
+        ]
+        return min(ok, key=lambda c: (c.cost_worker_seconds, c.mean_response)) if ok else None
 
 
 def fit_service_time(samples: Sequence[float]) -> ServiceTime:
@@ -229,6 +303,203 @@ class RedundancyPlanner:
         means, covs = _frontier_stats(rows)
         b = self._select(means, covs, objective, blend)
         return self._mk_plan(b, means, covs, objective, f"cluster_engine:{backend}")
+
+    # -- tail-SLO path (cheapest candidate meeting a response target) --------
+
+    def plan_slo(
+        self,
+        workload,
+        slo=None,
+        *,
+        scenario=None,
+        n_jobs: int = 2000,
+        n_reps: int = 4,
+        seed: int = 0,
+        schedulers: Sequence[str] = ("fifo_gang", "packed", "balanced"),
+        pool_widths: Sequence[int] | None = None,
+        slab: int | None = 1024,
+        device=None,
+    ) -> SLOPlan:
+        """Cheapest (B, r, scheduler) meeting tail response-time SLOs.
+
+        The paper's second core result is that mean-optimal replication is
+        not tail-optimal; this is the planner surface that acts on it.  Each
+        grid candidate is *executed* against a seeded Poisson arrival stream
+        (:func:`repro_torch.core.traces.poisson_stream` at the SLO's
+        ``arrival_rate``) on the trace-scale stream
+        (:func:`repro_torch.cluster.simulate_stream`, on ``device``, default
+        the CUDA card), whose scan carries pooled *and per-class* response
+        histograms -- so p99/p999 feasibility per job class costs O(n_reps)
+        memory however long the stream.  The quantile estimator is
+        conservative by construction (bin upper edge, see
+        :data:`repro_torch.cluster.STREAM_QUANTILE_RTOL`): a candidate is
+        never declared feasible because of histogram resolution.
+
+        ``workload`` is one job class or a sequence of them -- each a
+        :class:`~repro_torch.core.traces.TraceJob` or a fitted
+        :class:`~repro_torch.core.service_time.ServiceTime` (sampled into a
+        seeded trace job); arrivals draw classes uniformly.  ``slo`` is one
+        :class:`~repro_torch.cluster.SLO` or a sequence (defaults to
+        ``scenario.slo``); every SLO must share one ``arrival_rate``, and a
+        per-class SLO names its class via ``SLO.job_class``.
+
+        The grid: ``fifo_gang`` sweeps this planner's B candidates on the
+        whole cluster; ``packed`` / ``balanced`` additionally sweep pool
+        widths (``pool_widths``, default every proper divisor of the worker
+        budget) with B over each width's divisors -- the statically
+        space-shared case where per-class SLOs bind.  Dynamic scenarios
+        (``speeds`` / ``churn``) run on the epoch scan, which the port has not
+        reached: they raise :class:`NotImplementedError`.
+
+        Returns an :class:`SLOPlan`: ``best`` is the cheapest feasible
+        candidate in charged worker-seconds, or ``None`` with
+        ``feasible=False`` -- an explicit infeasible verdict, never a
+        silent fallback.
+
+        Example (small grid, generous target)::
+
+            >>> from repro_torch.core import SLO, Exponential
+            >>> plan = RedundancyPlanner(4).plan_slo(
+            ...     [Exponential(1.0)],
+            ...     SLO(quantile=0.9, target_s=30.0, arrival_rate=0.2),
+            ...     n_jobs=200, n_reps=2, schedulers=("fifo_gang",), device="cpu")
+            >>> plan.feasible
+            True
+            >>> plan.best.scheduler
+            'fifo_gang'
+        """
+        from ..cluster.scenario import SLO, Scenario
+        from .traces import TraceJob, poisson_stream
+
+        # default to whole-job service draws: under the §VI size model
+        # (size_dependent=True) a job's work scales with its source trace's
+        # task count, which is meaningful for real TraceJobs but arbitrary
+        # for ServiceTime workloads sampled into 4000-task stand-ins -- pass
+        # an explicit scenario to opt in
+        sc = scenario if scenario is not None else Scenario(size_dependent=False)
+        if slo is None:
+            slo = sc.slo
+        if slo is None:
+            raise ValueError("plan_slo needs an SLO (positionally or via scenario.slo)")
+        slos = tuple(slo) if isinstance(slo, (list, tuple)) else (slo,)
+        for s in slos:
+            if not isinstance(s, SLO):
+                raise ValueError(f"plan_slo: expected SLO entries, got {type(s)}")
+        rates = {float(s.arrival_rate) for s in slos}
+        if len(rates) != 1:
+            raise ValueError(
+                f"plan_slo: every SLO must share one arrival_rate, got {sorted(rates)}"
+            )
+        if isinstance(workload, (TraceJob, ServiceTime)):
+            workload = [workload]
+        sources = []
+        for i, w in enumerate(workload):
+            if isinstance(w, TraceJob):
+                sources.append(w)
+            elif isinstance(w, ServiceTime):
+                rng = np.random.default_rng(
+                    np.random.SeedSequence((int(seed), 0x51_0, i))
+                )
+                name = type(w).__name__.lower()
+                if any(src.name == name for src in sources):
+                    name = f"{name}{i}"
+                sources.append(
+                    TraceJob(
+                        name=name,
+                        family="fitted",
+                        task_times=w.sample_np(rng, (4000,)),
+                    )
+                )
+            else:
+                raise ValueError(
+                    f"plan_slo: workload entries must be TraceJob or "
+                    f"ServiceTime, got {type(w)}"
+                )
+        names = tuple(src.name for src in sources)
+        for s in slos:
+            if s.job_class is not None and s.job_class not in names:
+                raise ValueError(
+                    f"plan_slo: SLO.job_class {s.job_class!r} is not a "
+                    f"workload class (classes: {names})"
+                )
+        stream = poisson_stream(sources, rates.pop(), n_jobs, seed=seed)
+        if sc.is_dynamic:
+            raise NotImplementedError(
+                "plan_slo on a dynamic scenario scores candidates on the epoch scan, "
+                "which the port reaches in a later slice (ROADMAP.md, queue 1, item 4)"
+            )
+        evaluated = self._slo_stream_candidates(
+            sc, slos, stream, n_reps, schedulers, pool_widths, slab, device
+        )
+        evaluated.sort(
+            key=lambda c: (not c.feasible, c.cost_worker_seconds, c.mean_response)
+        )
+        best = evaluated[0] if evaluated and evaluated[0].feasible else None
+        return SLOPlan(
+            n_workers=self.n_workers,
+            slos=slos,
+            classes=names,
+            feasible=best is not None,
+            best=best,
+            candidates=tuple(evaluated),
+            source="stream",
+        )
+
+    def _slo_grid(self, schedulers, pool_widths):
+        """(scheduler, pool_width, B) triples for the plan_slo sweep."""
+        grid = []
+        for sched in schedulers:
+            if sched == "fifo_gang":
+                grid.extend((sched, None, b) for b in self.candidates)
+            elif sched in ("packed", "balanced"):
+                widths = (
+                    [int(w) for w in pool_widths]
+                    if pool_widths is not None
+                    else [w for w in analysis.feasible_B(self.n_workers) if w < self.n_workers]
+                )
+                for w in widths:
+                    if self.n_workers % w:
+                        raise ValueError(
+                            f"plan_slo: pool width {w} must divide "
+                            f"n_workers={self.n_workers}"
+                        )
+                    grid.extend((sched, w, b) for b in analysis.feasible_B(w))
+            else:
+                raise ValueError(f"plan_slo: unknown scheduler {sched!r}")
+        return grid
+
+    def _slo_stream_candidates(
+        self, sc, slos, stream, n_reps, schedulers, pool_widths, slab, device
+    ):
+        """Score the static grid on the streaming kernel's class histograms."""
+        from ..cluster.stream import simulate_stream
+
+        out = []
+        for sched, width, b in self._slo_grid(schedulers, pool_widths):
+            sc_c = sc.replace(
+                scheduler=sched, workers_per_job=width, outputs="stream",
+                n_batches=None, n_workers=None,
+            )
+            stats = simulate_stream(
+                stream, self.n_workers, b, n_reps, scenario=sc_c, slab=slab, device=device
+            )
+            achieved = tuple(
+                stats.quantile(s.quantile, job_class=s.job_class) for s in slos
+            )
+            total = int(stats.count.sum())
+            out.append(
+                SLOCandidate(
+                    scheduler=sched,
+                    workers_per_job=width,
+                    n_batches=b,
+                    replication=(self.n_workers if width is None else width) // b,
+                    feasible=all(a <= s.target_s for a, s in zip(achieved, slos)),
+                    cost_worker_seconds=float(stats.busy_sum.mean()),
+                    mean_response=float(stats.resp_sum.sum() / max(total, 1)),
+                    achieved=achieved,
+                )
+            )
+        return out
 
     # -- helpers -------------------------------------------------------------
 

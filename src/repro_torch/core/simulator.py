@@ -6,8 +6,13 @@ covers all N tasks.  For balanced non-overlapping batches this reduces to the
 paper's ``T = max_i min_j T_ij`` -- :func:`gang_cover_times`, which on a CUDA
 tensor runs the hand-written cover kernel (:mod:`repro_torch.kernels.cover`).
 
-``simulate_membership`` (overlapping schemes) comes with the
-batching/assignment slice.
+For any membership matrix (the overlapping schemes of Fig. 5, random
+placement) the earliest cover is the max over tasks of the earliest time any
+of the task's hosts delivers, ``T = max_t min_{w : M[w, t]} T_w`` (``inf``
+when a task has no host): :func:`membership_cover_times` gathers each task's
+host times into a padded ``(S, T, k_max)`` grid and reduces it with the same
+kernel, where the reference sorts each sample and scans a ``cumsum`` of
+membership rows.
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ __all__ = [
     "gang_cover_times",
     "simulate_balanced",
     "simulate_counts",
+    "simulate_membership",
+    "membership_cover_times",
     "JobTimeStats",
     "stats_from_samples",
 ]
@@ -147,3 +154,77 @@ def simulate_counts(
     mask = slots < torch.as_tensor(counts, device=dev)[:, None]  # (B, max_c)
     draws = torch.where(mask[None], draws, torch.inf)
     return gang_cover_times(draws).cpu().numpy()  # inf where a count is 0
+
+
+# --------------------------------------------------------------------------
+# general membership matrix (overlapping schemes; earliest-cover semantics)
+# --------------------------------------------------------------------------
+
+# elements of one gathered (chunk, T, k_max) grid: 2**28 is 1 GiB in float32
+_MEMBERSHIP_CHUNK_ELEMENTS = 2**28
+
+
+def _host_lists(membership: np.ndarray) -> np.ndarray:
+    """``(T, k_max)`` worker ids hosting each task, padded with ``W`` (an
+    index past the last worker, which the caller points at ``+inf``)."""
+    n_workers, n_tasks = membership.shape
+    hosts = [np.flatnonzero(membership[:, t]) for t in range(n_tasks)]
+    k_max = max((h.size for h in hosts), default=0)
+    idx = np.full((n_tasks, max(k_max, 1)), n_workers, dtype=np.int64)
+    for t, h in enumerate(hosts):
+        idx[t, : h.size] = h
+    return idx
+
+
+def membership_cover_times(times: torch.Tensor, membership) -> torch.Tensor:
+    """``(S, W)`` worker delivery times and a ``(W, T)`` membership -> ``(S,)``.
+
+    Sample ``s`` completes at ``max_t min_{w : M[w, t]} times[s, w]``, ``inf``
+    when some task has no host: the reference's ``_cover_times`` (the first
+    sorted time at which the delivered batches cover every task), as a masked
+    ``max min``.  Each task's hosts are gathered into a ``(chunk, T, k_max)``
+    grid, padding slots at ``+inf``, and reduced by :func:`gang_cover_times`:
+    one launch of the cover kernel per chunk of samples on CUDA, its plain
+    version on the CPU.  Only min and max touch the values, so the result is
+    bitwise the reference's on the same times.
+    """
+    membership = np.asarray(membership, dtype=bool)
+    if (membership.ndim != 2 or membership.shape[1] == 0 or times.dim() != 2
+            or times.shape[1] != membership.shape[0]):
+        raise ValueError("need (S, W) times and a (W, T) membership matrix with T >= 1")
+    n_samples = times.shape[0]
+    idx = torch.as_tensor(_host_lists(membership), device=times.device)
+    pad = torch.full((n_samples, 1), torch.inf, dtype=times.dtype, device=times.device)
+    padded = torch.cat([times, pad], dim=1)  # column W is the padding slot
+    chunk = max(1, _MEMBERSHIP_CHUNK_ELEMENTS // idx.numel())
+    out = torch.empty(n_samples, dtype=times.dtype, device=times.device)
+    for lo in range(0, n_samples, chunk):
+        grid = padded[lo : lo + chunk][:, idx]  # (chunk, T, k_max)
+        out[lo : lo + chunk] = gang_cover_times(grid)
+    return out
+
+
+def simulate_membership(
+    generator: torch.Generator,
+    dist: ServiceTime,
+    membership: np.ndarray,
+    n_samples: int,
+    size_dependent: bool = True,
+    *,
+    device=None,
+    dtype="float32",
+) -> np.ndarray:
+    """Job times for any batching scheme (Fig. 5 schemes 1/2/3, random, ...).
+
+    Worker ``w`` delivers at ``tau_w * |batch_w|`` (``size_dependent``) or
+    ``tau_w``, with ``tau`` drawn from ``dist``; the job completes at the
+    earliest cover (:func:`membership_cover_times`).  ``generator`` must
+    live on ``device``.
+    """
+    membership = np.asarray(membership, dtype=bool)
+    dev, dt = resolve_device(device), resolve_dtype(dtype)
+    n_workers = membership.shape[0]
+    draws = dist.sample(generator, (int(n_samples), n_workers), dev, dt)
+    if size_dependent:
+        draws = draws * torch.as_tensor(membership.sum(axis=1), dtype=dt, device=dev)
+    return membership_cover_times(draws, membership).cpu().numpy()

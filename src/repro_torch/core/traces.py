@@ -1,9 +1,10 @@
 """Synthetic Google-cluster-trace-like workloads (§VII stand-in).
 
-A numpy copy of the parts of ``repro.core.traces`` that the port's planning
-loop uses: :class:`TraceJob`, :func:`synthetic_google_jobs` (the §VII
-Empirical fixtures), :class:`TraceStream` and :func:`poisson_stream`.  Draws
-are host numpy, so equal seeds give bit-identical jobs and slabs in both
+A numpy copy of ``repro.core.traces``: :class:`TraceJob`,
+:func:`synthetic_google_jobs` (the §VII Empirical fixtures),
+:class:`TraceStream`, :func:`synthetic_cluster_day`, :func:`poisson_stream`,
+:func:`tail_family` and :func:`save_jobs` / :func:`load_jobs`.  Draws are
+host numpy, so equal seeds give bit-identical jobs and slabs in both
 packages.
 
 The paper extracts per-task service times (finish - schedule timestamps) for
@@ -16,7 +17,9 @@ exponential family and Pareto mixtures for the heavy-tail family.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+import json
+import pathlib
+from typing import Dict, List
 
 import numpy as np
 
@@ -25,7 +28,11 @@ __all__ = [
     "TraceStream",
     "STREAM_VERSION",
     "synthetic_google_jobs",
+    "synthetic_cluster_day",
     "poisson_stream",
+    "save_jobs",
+    "load_jobs",
+    "tail_family",
 ]
 
 
@@ -181,6 +188,34 @@ class TraceStream:
         return self._flat[self._off[jid][:, None] + idx]
 
 
+def synthetic_cluster_day(
+    n_jobs: int = 10_000,
+    duration: float = 86_400.0,
+    seed: int = 7,
+    families=("exponential", "heavy"),
+    trace_seed: int = 2020,
+) -> TraceStream:
+    """A synthetic cluster-day: ``n_jobs`` arrivals over ``duration`` seconds.
+
+    Arrivals are sorted uniforms over the day (a Poisson process conditioned
+    on its count) and each arrival resamples one of the
+    :func:`synthetic_google_jobs` source jobs restricted to ``families``,
+    chosen uniformly.  Fully determined by ``(seed, trace_seed,
+    STREAM_VERSION)``.
+    """
+    sources = tuple(
+        j for j in synthetic_google_jobs(trace_seed) if j.family in families
+    )
+    if not sources:
+        raise ValueError(f"no synthetic trace jobs in families {families!r}")
+    rng = np.random.default_rng(
+        np.random.SeedSequence((int(seed), STREAM_VERSION, 0xDA7))
+    )
+    arrivals = np.sort(rng.uniform(0.0, float(duration), size=int(n_jobs)))
+    job_ids = rng.integers(0, len(sources), size=int(n_jobs))
+    return TraceStream(arrivals=arrivals, job_ids=job_ids, sources=sources, seed=seed)
+
+
 def poisson_stream(
     sources,
     arrival_rate: float,
@@ -212,3 +247,49 @@ def poisson_stream(
     job_ids = rng.integers(0, len(sources), size=int(n_jobs))
     return TraceStream(arrivals=arrivals, job_ids=job_ids, sources=sources, seed=seed)
 
+
+def tail_family(task_times: np.ndarray) -> str:
+    """Classify exponential vs heavy tail from the empirical log-CCDF.
+
+    Heuristic used by the paper's Fig. 11 discussion: fit the upper-quartile
+    log-CCDF against t (exponential decay => linear in t) and against log t
+    (power law => linear in log t); pick the better fit.
+    """
+    x = np.sort(np.asarray(task_times, dtype=np.float64))
+    n = x.size
+    ccdf = 1.0 - (np.arange(1, n + 1) - 0.5) / n
+    # use the top half of the distribution, drop zeros
+    sel = slice(n // 2, n - 1)
+    t, p = x[sel], ccdf[sel]
+    good = p > 0
+    t, p = t[good], np.log(p[good])
+    if t.size < 8:
+        return "exponential"
+
+    def r2(u, v):
+        a = np.polyfit(u, v, 1)
+        resid = v - np.polyval(a, u)
+        ss = ((v - v.mean()) ** 2).sum()
+        return 1.0 - (resid**2).sum() / max(ss, 1e-12)
+
+    r2_exp = r2(t, p)  # log-CCDF vs t
+    r2_pow = r2(np.log(t), p)  # log-CCDF vs log t
+    return "heavy" if r2_pow > r2_exp else "exponential"
+
+
+def save_jobs(jobs: List[TraceJob], path: str | pathlib.Path) -> None:
+    """Write jobs as a compressed ``.npz`` plus a ``.json`` family sidecar."""
+    path = pathlib.Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    arrays = {j.name: j.task_times for j in jobs}
+    meta = {j.name: j.family for j in jobs}
+    np.savez_compressed(path.with_suffix(".npz"), **arrays)
+    path.with_suffix(".json").write_text(json.dumps(meta, indent=2))
+
+
+def load_jobs(path: str | pathlib.Path) -> List[TraceJob]:
+    """Read back what :func:`save_jobs` wrote."""
+    path = pathlib.Path(path)
+    data = np.load(path.with_suffix(".npz"))
+    meta: Dict[str, str] = json.loads(path.with_suffix(".json").read_text())
+    return [TraceJob(name=k, family=meta[k], task_times=data[k]) for k in data.files]
