@@ -48,6 +48,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports
    the selection's host time, its peak device memory and the card's idle
    share over one ``plan_cluster`` (``torch.profiler``); checks
    ``frontier_job_times`` with ``rep_chunk=4096`` bitwise equal to one launch;
+5b. runs churned planning on the epoch scan's gang lane, the reference
+   benchmark's dynamic scenario (``benchmarks/cluster_bench.py``
+   ``bench_dynamic``: ``ChurnProcess(0.02, 2.0)``, speeds
+   ``default_rng(0).uniform(0.5, 2.0, N)``, 2 churn pairs per worker, 96-job
+   streams) at N = 100 with 4096 reps (9 candidates x 43 streams = 387
+   lanes), for Exp(1) and Pareto(1, 1.8): ``plan_cluster`` in float32 with
+   the frontier rows bitwise equal to the same call on the CPU and the same
+   B*; the rows of ``tests/golden/epoch_scan_frontier.json`` (the JAX
+   package's output, float64) bitwise; ``simulate_epochs`` at N = 100, B = 50,
+   96 Poisson arrivals (mean gap 3 s), 64 reps, cancelling, size-independent
+   task times, the churn horizon auto-sized, float64, bitwise equal to the
+   CPU except the two worker-second sums (rtol 1e-12); ``rep_chunk`` 1024
+   and 16 bitwise equal to one call; and prints the wall time per
+   ``plan_cluster``, the steps run, the kernel launches per step, the host
+   ms per step, the peak device memory and the card's idle share over one
+   call (``torch.profiler``).  No kernel runs on this path (the counters of
+   both cover kernels stay at 0);
 6. runs ``simulate_fifo`` on the card the same way and checks its accounting
    invariant;
 7. runs the paper's batching schemes at full width: ``simulate_membership``
@@ -119,6 +136,14 @@ CARD_ISSUE_PER_S = 4 * 32 * 132 * 1.98e9
 N_REPS = 32768
 BUDGETS = (100, 720)
 SEED = 1
+# churned planning: the reference benchmark's dynamic scenario at the
+# planning budget (benchmarks/cluster_bench.py bench_dynamic)
+CHURN_N, CHURN_REPS, CHURN_PAIRS, CHURN_STREAM = 100, 4096, 2, 96
+CHURN_FAIL_RATE, CHURN_DOWNTIME = 0.02, 2.0
+# simulate_epochs on the card: B, Poisson arrivals at a mean gap, reps (the
+# churn horizon auto-sized from the stream, the entry point's default)
+EPOCH_B, EPOCH_JOBS, EPOCH_GAP, EPOCH_REPS = 50, 96, 3.0, 64
+GOLDEN_EPOCH = ROOT / "tests" / "golden" / "epoch_scan_frontier.json"
 # simulate_fifo's workload: N workers in B batches (r = N / B), FIFO_JOBS jobs
 FIFO_N, FIFO_B, FIFO_JOBS = 100, 10, 64
 # the paper's batching schemes at full width: N workers = tasks, B batches
@@ -717,6 +742,183 @@ def phase_main_path() -> dict:
           "frontier_job_times with rep_chunk=4096 differs from one launch")
     print(f"frontier_job_times rep_chunk=4096 ({N_REPS // 4096} launches) bitwise equal to "
           f"one launch at N={n}", flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def churn_scenario(**kw):
+    import numpy as np
+
+    from repro_torch.cluster import ChurnProcess, Scenario
+
+    speeds = np.random.default_rng(0).uniform(0.5, 2.0, size=CHURN_N)
+    return Scenario(churn=ChurnProcess(fail_rate=CHURN_FAIL_RATE, mean_downtime=CHURN_DOWNTIME),
+                    speeds=tuple(float(x) for x in speeds), **kw)
+
+
+def phase_churned_planning() -> dict:
+    import warnings
+
+    # the sampled churn horizon (2 pairs a worker, the reference benchmark's
+    # choice) ends before most streams do; the warnings are counted and shown once
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        launches = _churned_planning()
+    seen = sorted({str(w.message).split(":")[0] for w in caught
+                   if issubclass(w.category, RuntimeWarning)})
+    for text in seen:
+        print(f"RuntimeWarning (expected, by the scenario's design): {text}")
+    return launches
+
+
+def _churned_planning() -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.cluster import ChurnProcess, Scenario, epoch_scan
+    from repro_torch.cluster.epoch_scan import frontier_job_times_dynamic, simulate_epochs
+    from repro_torch.core import RedundancyPlanner
+    from repro_torch.core.service_time import Exponential, Pareto
+    from repro_torch.kernels import cover
+
+    n_streams = -(-CHURN_REPS // CHURN_STREAM)
+    phase(f"churned planning on the epoch scan: N={CHURN_N}, {CHURN_REPS} reps "
+          f"({n_streams} streams of {CHURN_STREAM} jobs), churn ({CHURN_FAIL_RATE}, "
+          f"{CHURN_DOWNTIME}), {CHURN_PAIRS} pairs per worker, heterogeneous speeds, float32")
+    sc = churn_scenario(churn_pairs_per_worker=CHURN_PAIRS, jobs_per_stream=CHURN_STREAM)
+    planner = RedundancyPlanner(CHURN_N)
+    cands = planner.candidates
+    laws = [("Exp(1)", Exponential(mu=1.0)), ("Pareto(1, 1.8)", Pareto(sigma=1.0, alpha=1.8))]
+    launches = {"draws": 0, "philox": 0}
+    for name, dist in laws:
+        planner.plan_cluster(dist, n_reps=CHURN_REPS, seed=SEED, scenario=sc)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        cover.launches = cover.draws_launches = cover.philox_launches = 0
+        epoch_scan.steps_run = 0
+        walls = []
+        for _ in range(3):  # host times vary between runs on a shared host
+            t0 = time.perf_counter()
+            plan = planner.plan_cluster(dist, n_reps=CHURN_REPS, seed=SEED, scenario=sc)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        steps = epoch_scan.steps_run // 3
+        got = {"draws": cover.draws_launches, "philox": cover.philox_launches}
+        peak = torch.cuda.max_memory_allocated() - base
+        check(got == {"draws": 0, "philox": 0}, f"{name}: a cover kernel ran: {got}")
+        wall = statistics.median(walls)
+        print(f"{name:15s}: B*={plan.n_batches} r={plan.replication} E[T]="
+              f"{plan.predicted_mean:.6g}; plan_cluster {wall:.4f} s (median of 3, "
+              f"{min(walls):.4f} to {max(walls):.4f}); {steps} steps, "
+              f"{wall * 1e3 / steps:.4f} ms per step (host clock, host draws included); "
+              f"peak device memory {peak / 1e6:.3f} MB above its {base / 1e6:.3f} MB start")
+        check(all(math.isfinite(m) and m > 0 for m in plan.frontier_mean),
+              f"{name}: a frontier mean is not finite and positive")
+        # the host's share: drawing the 387 lanes with numpy, alone
+        pairs = CHURN_PAIRS
+        n_pad, jobs_pad, ev_pad, resc_cap, _ = epoch_scan._shapes(
+            CHURN_N, CHURN_STREAM, sc.churn, None, pairs)
+        lanes = np.arange(len(cands) * n_streams)
+        t0 = time.perf_counter()
+        epoch_scan._prepare_lanes(dist, CHURN_N, n_pad, lanes, len(lanes), jobs_pad, ev_pad,
+                                  resc_cap, SEED, sc.churn, None, pairs, np.float32)
+        draw_s = time.perf_counter() - t0
+        print(f"{name:15s}: host numpy draws of the {len(lanes)} lanes alone {draw_s:.4f} s; the "
+              f"lane loop's share of a call about {(wall - draw_s) * 1e3 / steps:.4f} ms per step")
+        # the frontier rows and B*, card against CPU, bitwise
+        rows = frontier_job_times_dynamic(dist, CHURN_N, cands, CHURN_REPS, seed=SEED, scenario=sc)
+        t0 = time.perf_counter()
+        cpu = frontier_job_times_dynamic(dist, CHURN_N, cands, CHURN_REPS, seed=SEED,
+                                         scenario=sc, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        check(rows.shape == (len(cands), n_streams * CHURN_STREAM), f"rows shape {rows.shape}")
+        check(np.array_equal(rows.view(np.uint64), cpu.view(np.uint64)),
+              f"{name}: frontier rows differ card vs CPU")
+        plan_cpu = planner.plan_cluster(dist, n_reps=CHURN_REPS, seed=SEED, scenario=sc,
+                                        device="cpu")
+        check(plan == plan_cpu, f"{name}: plan differs card vs CPU")
+        print(f"{name:15s}: frontier rows {rows.shape} bitwise equal to the CPU's "
+              f"({cpu_s:.3f} s there), {np.isfinite(rows).mean():.6f} finite; same plan")
+        # where a call's time goes: launches per step, the card's idle share
+        host: dict = {}
+        counts: dict = {}
+        epoch_scan.steps_run = 0
+        wall_ms, by_name = profile_device(
+            lambda: planner.plan_cluster(dist, n_reps=CHURN_REPS, seed=SEED, scenario=sc),
+            host, counts)
+        steps = epoch_scan.steps_run
+        busy_ms = sum(by_name.values()) / 1e3
+        n_kernels = sum(counts.values())
+        idle = f"{1.0 - busy_ms / wall_ms:.1%}" if busy_ms > 0 else "not measured"
+        print(f"{name:15s}: profiled plan_cluster {wall_ms:.4f} ms, card busy {busy_ms:.4f} ms, "
+              f"idle share {idle}; {n_kernels} kernels and copies, "
+              f"{n_kernels / steps:.2f} per step over {steps} steps")
+        for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:4]:
+            print(f"    {us / 1e3:9.4f} ms  {counts[kname]:7d}x  {kname[:80]}")
+        print("  host operators by own CPU time:")
+        for hname, us in sorted(host.items(), key=lambda kv: -kv[1])[:5]:
+            print(f"    {us / 1e3:9.4f} ms  {hname[:90]}")
+        launches = {k: launches[k] + got[k] for k in launches}
+
+    # rep_chunk: 1024 streams per pass covers all 43 in one; 16 splits them in three
+    dist = laws[0][1]
+    one = frontier_job_times_dynamic(dist, CHURN_N, cands, CHURN_REPS, seed=SEED, scenario=sc)
+    for chunk in (1024, 16):
+        part = frontier_job_times_dynamic(dist, CHURN_N, cands, CHURN_REPS, seed=SEED,
+                                          scenario=sc.replace(rep_chunk=chunk))
+        check(np.array_equal(one.view(np.uint64), part.view(np.uint64)),
+              f"rep_chunk={chunk} differs from one call")
+    print(f"rep_chunk 1024 ({-(-n_streams // 1024)} pass) and 16 ({-(-n_streams // 16)} passes) "
+          "bitwise equal to one call")
+
+    # the JAX package's frontier rows (float64, a small churned scenario)
+    golden = json.loads(GOLDEN_EPOCH.read_text())
+    g_sc = Scenario(churn=ChurnProcess(**golden["churn"]), speeds=tuple(golden["speeds"]),
+                    **golden["scenario"])
+    g_dist = {"Pareto": Pareto, "Exponential": Exponential}[golden["dist"]["kind"]](
+        **golden["dist"]["fields"])
+    g_rows = frontier_job_times_dynamic(g_dist, golden["n_workers"], golden["candidates"],
+                                        golden["n_reps"], seed=golden["seed"], scenario=g_sc)
+    want = np.array(golden["rows"], dtype=np.float64)
+    check(np.array_equal(g_rows.view(np.uint64), want.view(np.uint64)),
+          f"frontier rows differ from {GOLDEN_EPOCH.relative_to(ROOT)}")
+    print(f"frontier rows {g_rows.shape} bitwise equal to {GOLDEN_EPOCH.relative_to(ROOT)} "
+          "(the JAX package's output)")
+
+    # simulate_epochs in float64: card against CPU
+    arrivals = np.cumsum(np.random.default_rng(SEED).exponential(EPOCH_GAP, EPOCH_JOBS))
+    e_sc = churn_scenario(cancel_redundant=True, size_dependent=False, dtype="float64")
+    args = (Exponential(mu=1.0), CHURN_N, EPOCH_B, arrivals, EPOCH_REPS)
+    epoch_scan.steps_run = 0
+    t0 = time.perf_counter()
+    card = simulate_epochs(*args, seed=SEED, scenario=e_sc)
+    card_s = time.perf_counter() - t0
+    steps = epoch_scan.steps_run
+    t0 = time.perf_counter()
+    cpu = simulate_epochs(*args, seed=SEED, scenario=e_sc, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    for f in ("starts", "finishes", "n_batches_used", "replication_used", "epoch_times",
+              "n_worker_failures", "n_replicas_rescued", "n_replans"):
+        a, b = getattr(card, f), getattr(cpu, f)
+        bits = (lambda x: x.view(np.uint64)) if a.dtype == np.float64 else (lambda x: x)
+        check(a.dtype == b.dtype and np.array_equal(bits(a), bits(b)),
+              f"simulate_epochs {f} differs card vs CPU")
+    worst = 0.0
+    for f in ("worker_seconds", "cancelled_seconds_saved"):
+        a, b = getattr(card, f), getattr(cpu, f)
+        check(bool((np.abs(a - b) <= 1e-12 * np.abs(b)).all()),
+              f"simulate_epochs {f}: card vs CPU beyond rtol 1e-12")
+        worst = max(worst, float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300))))
+    check(np.isfinite(card.finishes).all(), "simulate_epochs: an unfinished job")
+    check(card.n_replicas_rescued.sum() > 0, "simulate_epochs: no rescue in the run")
+    print(f"simulate_epochs N={CHURN_N} B={EPOCH_B}, {EPOCH_JOBS} Poisson arrivals, "
+          f"{EPOCH_REPS} reps, cancelling, float64: {card_s:.4f} s on the card ({steps} steps), "
+          f"{cpu_s:.4f} s on the CPU; bitwise equal except the worker-second sums (max "
+          f"relative {worst:.3e}); failures {int(card.n_worker_failures.sum())}, rescues "
+          f"{int(card.n_replicas_rescued.sum())}, churn horizon outrun in "
+          f"{int(card.churn_truncated.sum())} of {EPOCH_REPS} reps", flush=True)
     torch.cuda.empty_cache()
     return launches
 
@@ -1403,8 +1605,8 @@ def main() -> int:
         rms_rec = phase_rmsnorm_vs_plain()
         att_rec = phase_attention_vs_plain()
         plan_launches = phase_main_path()
-        path_launches = [plan_launches, phase_fifo(), phase_schemes(), phase_stream(),
-                         phase_slo()]
+        path_launches = [plan_launches, phase_churned_planning(), phase_fifo(),
+                         phase_schemes(), phase_stream(), phase_slo()]
         serve_launches = phase_serve()
         phase_decode_profile()
         phase_cache_check()

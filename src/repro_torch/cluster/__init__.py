@@ -10,14 +10,20 @@ Public surface ported so far:
     ``plan_sweep``, and the stream slab
   * stream     -- trace-scale streaming (``simulate_stream``) with on-device
     response statistics, the path behind ``plan_slo``
+  * epoch_scan -- the epoch scan's gang lane: churn, replica rescue,
+    heterogeneous speeds and FIFO gang dispatch (``simulate_epochs``), and
+    whole-frontier scoring of dynamic scenarios
+    (``frontier_job_times_dynamic``), the path behind a dynamic
+    ``plan_cluster``
 
-The epoch scan, the DES engine and the live runtime come with later slices
-(``ROADMAP.md``).
+The epoch scan's other lanes, the DES engine and the live runtime come with
+later slices (``ROADMAP.md``).
 """
 # core first: its __init__ re-exports cluster.scenario, whose workers import
 # core.service_time, so entering through cluster would meet a half-built core
 from .. import core  # noqa: F401
-from . import scenario, scheduler, stream, vectorized, workers
+from . import epoch_scan, scenario, scheduler, stream, vectorized, workers
+from .epoch_scan import EpochReport, frontier_job_times_dynamic, simulate_epochs
 from .scenario import SLO, FaultPlan, Retry, Scenario, Speculation
 from .scheduler import JobPlan, Scheduler, make_scheduler
 from .stream import StreamFullReport, StreamStats, fold_stream_stats, simulate_stream
@@ -32,6 +38,7 @@ from .vectorized import (
 from .workers import ChurnProcess, ChurnSchedule, Worker, WorkerPool, sample_churn_schedule
 
 __all__ = [
+    "epoch_scan",
     "scenario",
     "scheduler",
     "stream",
@@ -45,6 +52,9 @@ __all__ = [
     "JobPlan",
     "Scheduler",
     "make_scheduler",
+    "EpochReport",
+    "simulate_epochs",
+    "frontier_job_times_dynamic",
     "FifoReport",
     "frontier_job_times",
     "simulate_fifo",

@@ -1,0 +1,928 @@
+"""The epoch scan's gang lane in torch: churn, rescue and heterogeneous speeds.
+
+Port of the single-gang lane of ``repro.cluster.epoch_scan``.  It replays the
+dynamic semantics of the event-driven cluster engine -- worker fail/join
+churn, replica rescue, per-worker speed factors, FIFO multi-job gang
+dispatch and replica cancellation -- as a bounded step loop, batched over
+Monte-Carlo reps (and, for planning, over a whole candidate frontier).  Each
+step performs exactly one action:
+
+  * *rescue*: dispatch the oldest pending rescue onto the earliest-freeing
+    alive worker, or
+  * *commit + dispatch*: commit batch wins up to the next churn boundary and
+    gang-dispatch the next queued job, or
+  * *commit + boundary*: apply one fail/join event (replica kill, rescue
+    queueing, the engine's sim-over churn truncation).
+
+Every lane is one row of ``(L, ...)`` tensors on one device; a step is a
+fixed sequence of eager torch operations on all of them.  The loop runs in
+chunks of :data:`_STEP_CHUNK` steps, and a lane whose ``done`` predicate
+holds at a chunk boundary leaves the batch with its state as it stands --
+the freezing granularity of the reference's batched ``while_loop``, which
+fixes when straggling replicas commit and so the order of the worker-second
+sums.
+
+Reproducibility: lane ``i`` draws every replica duration, rescue duration
+and (under sampled churn) its own fail/join timeline on the host from
+``numpy.random.default_rng(SeedSequence((seed, i)))``, at the reference's
+bucketed shapes (:func:`_shapes`), so both packages consume the same numbers
+and ``rep_chunk`` is bit-identical to one call.  In float64 every output is
+the reference's bit for bit except ``worker_seconds`` and
+``cancelled_seconds_saved``, sums over replica slots whose order neither XLA
+nor torch fixes.  Lane batches are not padded to powers of two: the
+reference pads them for its compile cache, and padding lanes carry no result.
+
+Not ported yet, and refused by name at the entry points: the in-scan
+replanner (``replan``), speculation, the space-sharing lane,
+``outputs="stream"``, and ``devices > 1`` (the port runs every lane on one
+device).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import warnings
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .._device import resolve_device, resolve_dtype
+from ..core.service_time import ServiceTime
+from .scenario import UNSET, Scenario, resolve_scenario
+from .workers import ChurnProcess, ChurnSchedule
+
+__all__ = [
+    "EpochReport",
+    "simulate_epochs",
+    "frontier_job_times_dynamic",
+]
+
+# steps run since import (or since a caller last reset it to 0), summed over
+# lane batches: each batch adds _STEP_CHUNK per chunk it runs
+steps_run = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class EpochReport:
+    """Batched outcome of :func:`simulate_epochs` (axis 0 = Monte-Carlo rep).
+
+    Mirrors the engine's ``EngineReport`` field for field where the
+    semantics overlap; ``inf`` marks jobs never dispatched / completed (dead
+    cluster), exactly like the engine's unfinished records.
+    ``epoch_times`` are the applied churn-event times per rep (inf-padded).
+    """
+
+    arrivals: np.ndarray  # (n_jobs,)
+    starts: np.ndarray  # (n_reps, n_jobs)
+    finishes: np.ndarray  # (n_reps, n_jobs)
+    n_batches_used: np.ndarray  # (n_reps, n_jobs)
+    replication_used: np.ndarray  # (n_reps, n_jobs)
+    worker_seconds: np.ndarray  # (n_reps,)
+    cancelled_seconds_saved: np.ndarray  # (n_reps,)
+    n_worker_failures: np.ndarray  # (n_reps,)
+    n_replicas_rescued: np.ndarray  # (n_reps,)
+    n_replans: np.ndarray  # (n_reps,)
+    epoch_times: np.ndarray  # (n_reps, n_events) applied boundaries, inf pad
+    n_speculative: np.ndarray = None  # (n_reps,) reactive backups launched
+    # (n_reps,) bool: the rep's timeline outran its sampled churn horizon;
+    # None when churn is scheduled or absent -- see simulate_epochs
+    churn_truncated: np.ndarray = None
+
+    @property
+    def compute_times(self) -> np.ndarray:
+        """Per-(rep, job) compute time: finish minus start."""
+        return self.finishes - self.starts
+
+    @property
+    def response_times(self) -> np.ndarray:
+        """Per-(rep, job) response time: finish minus arrival."""
+        return self.finishes - self.arrivals[None, :]
+
+    @property
+    def queue_waits(self) -> np.ndarray:
+        """Per-(rep, job) queueing delay: start minus arrival."""
+        return self.starts - self.arrivals[None, :]
+
+    @property
+    def final_n_batches(self) -> np.ndarray:
+        """The B each rep ended the run on."""
+        return self.n_batches_used[:, -1]
+
+    def accounting(self) -> dict:
+        """Per-rep counters, keyed identically to ``EngineReport.accounting``."""
+        return {
+            "worker_seconds": self.worker_seconds,
+            "cancelled_seconds_saved": self.cancelled_seconds_saved,
+            "n_worker_failures": self.n_worker_failures,
+            "n_replicas_rescued": self.n_replicas_rescued,
+            "n_replans": self.n_replans,
+            "n_speculative": (
+                self.n_speculative
+                if self.n_speculative is not None
+                else np.zeros_like(self.n_replans)
+            ),
+            # task-level payload failures exist on the engine and the live
+            # runtime only; the lanes report structural zeros so the
+            # accounting key set stays identical across backends
+            "n_task_failures": np.zeros_like(self.n_replans),
+            "n_retries": np.zeros_like(self.n_replans),
+        }
+
+
+# --------------------------------------------------------------------------
+# shape buckets (part of the draw contract: draws are made at these shapes)
+# --------------------------------------------------------------------------
+
+_STEP_CHUNK = 16  # steps per early-exit check
+
+
+def _pow2(x: int) -> int:
+    """Smallest power of two >= max(x, 1): the shape-bucket rounding."""
+    return 1 << (max(int(x), 1) - 1).bit_length()
+
+
+def _bucket_workers(n: int) -> int:
+    """Worker counts bucket to multiples of 4 (the reference's padding)."""
+    return max(4, -(-int(n) // 4) * 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class _RunnerCfg:
+    """Static configuration of one lane batch."""
+
+    n: int  # padded worker count
+    jobs_pad: int
+    ev_pad: int
+    resc_cap: int
+    n_chunks: int
+    cancel: bool
+    size_dep: bool
+    dtype: str
+    # False drops the per-event epoch-times buffer and the per-job B/r
+    # records; the planning path reads starts/finishes only
+    full_outputs: bool = True
+
+
+# --------------------------------------------------------------------------
+# the lane batch: one Monte-Carlo rep of one candidate per row
+# --------------------------------------------------------------------------
+
+
+def _init_state(cfg: _RunnerCfg, b0: torch.Tensor, n_real: int, dt, dev) -> dict:
+    n, L = cfg.n, b0.shape[0]
+    ns = 2 * n  # replica slots: [0, n) gang replica of worker i, [n, 2n) rescue of batch i - n
+    inf = float("inf")
+    i64 = torch.int64
+    # buffers written by gated scatters carry one sentinel column past their
+    # end: a write switched off points there (the reference's dropped
+    # out-of-bounds scatter) and every read slices it away
+    alive = torch.zeros(L, n + 1, dtype=torch.bool, device=dev)
+    alive[:, :n_real] = True
+    st = {
+        "t_cursor": torch.zeros(L, dtype=dt, device=dev),
+        "e": torch.zeros(L, dtype=i64, device=dev),
+        "alive": alive,
+        "q": torch.zeros(L, dtype=i64, device=dev),
+        "job_active": torch.zeros(L, dtype=torch.bool, device=dev),
+        "job_b": torch.ones(L, dtype=i64, device=dev),
+        "q_active": torch.zeros(L, dtype=i64, device=dev),
+        "g_b": torch.zeros(L, n, dtype=i64, device=dev),
+        "rb_w": torch.zeros(L, n + 1, dtype=i64, device=dev),
+        "rp_live": torch.zeros(L, ns + 1, dtype=torch.bool, device=dev),
+        "rp_start": torch.zeros(L, ns + 1, dtype=dt, device=dev),
+        "rp_end": torch.full((L, ns + 1), inf, dtype=dt, device=dev),
+        "batch_done": torch.ones(L, n, dtype=torch.bool, device=dev),
+        "batch_done_t": torch.full((L, n), -inf, dtype=dt, device=dev),
+        "resc_pending": torch.zeros(L, n + 1, dtype=torch.bool, device=dev),
+        "resc_t": torch.full((L, n), inf, dtype=dt, device=dev),
+        "resc_k": torch.zeros(L, dtype=i64, device=dev),
+        "busy": torch.zeros(L, dtype=dt, device=dev),
+        "saved": torch.zeros(L, dtype=dt, device=dev),
+        "n_fail": torch.zeros(L, dtype=i64, device=dev),
+        "n_resc": torch.zeros(L, dtype=i64, device=dev),
+        "plan_b": b0.to(i64),
+        "starts": torch.full((L, cfg.jobs_pad + 1), inf, dtype=dt, device=dev),
+        "fins": torch.full((L, cfg.jobs_pad + 1), inf, dtype=dt, device=dev),
+        # the lane's global row in the batch's inputs and outputs
+        "row": torch.arange(L, device=dev),
+    }
+    if cfg.full_outputs:
+        st["br"] = torch.zeros(L, cfg.jobs_pad + 1, dtype=i64, device=dev)
+        st["ep_times"] = torch.full((L, cfg.ev_pad + 1), inf, dtype=dt, device=dev)
+    return st
+
+
+def _step(cfg: _RunnerCfg, st: dict, inp: dict) -> None:
+    """One action per step, as one gated pass over every lane (in place).
+
+    The expressions, and the order in which each reads the state, are the
+    reference's (``epoch_scan.py::_build_lane``), so every value but the two
+    worker-second sums is bitwise equal in float64.
+    """
+    n, jobs_pad, ev_pad, resc_cap = cfg.n, cfg.jobs_pad, cfg.ev_pad, cfg.resc_cap
+    ns = 2 * n
+    inf = float("inf")
+    row = st["row"]
+    L = row.shape[0]
+    bidx = wid = inp["bidx"]
+    speeds, n_tasks = inp["speeds"], inp["n_tasks"]
+    e = st["e"]
+    t_next = inp["ev_t"][row, e]
+    rp_b = torch.cat([st["g_b"], bidx.expand(L, n)], 1)
+    rp_w = torch.cat([wid.expand(L, n), st["rb_w"][:, :n]], 1)
+    live = st["rp_live"][:, :ns]
+    rp_start = st["rp_start"][:, :ns]
+    rp_end = st["rp_end"][:, :ns]
+    alive = st["alive"][:, :n]
+    resc_pending = st["resc_pending"][:, :n]
+    # per-batch earliest live replica end (segment min; seg always in bounds)
+    win = torch.full((L, n), inf, dtype=rp_end.dtype, device=row.device).scatter_reduce_(
+        1, rp_b, torch.where(live, rp_end, inf), "amin"
+    )
+
+    def batch_scale(job_b):
+        return n_tasks / job_b.to(n_tasks.dtype) if cfg.size_dep else inp["one"]
+
+    # -- rescue: oldest pending rescue onto the earliest-freeing alive worker,
+    # from the pre-commit state
+    if cfg.cancel:
+        proj_vals = torch.where(live, win.gather(1, rp_b), -inf)
+    else:
+        proj_vals = torch.where(live, rp_end, -inf)
+    proj = torch.full_like(win, -inf).scatter_reduce_(1, rp_w, proj_vals, "amax")
+    wfree = torch.where(alive, torch.maximum(proj, st["t_cursor"][:, None]), inf)
+    wfree = torch.where(wfree <= t_next[:, None], wfree, inf)
+    tgt = torch.argmin(torch.where(resc_pending, st["resc_t"], inf), 1)
+    wstar = torch.argmin(wfree, 1)
+    td_r = wfree.gather(1, wstar[:, None])[:, 0]
+    can_r = resc_pending.any(1) & torch.isfinite(td_r) & st["job_active"]
+    rk = st["resc_k"].clamp(0, resc_cap - 1)
+    dur_r = inp["tau_resc"][row, rk, tgt] * batch_scale(st["job_b"]) / speeds[wstar]
+    i_tgt = torch.where(can_r, tgt, n)[:, None]
+    i_slot = torch.where(can_r, n + tgt, ns)[:, None]
+    st["rb_w"].scatter_(1, i_tgt, wstar[:, None])
+    st["rp_start"].scatter_(1, i_slot, td_r[:, None])
+    st["rp_end"].scatter_(1, i_slot, (td_r + dur_r)[:, None])
+    st["rp_live"].scatter_(1, i_slot, True)
+    st["resc_pending"].scatter_(1, i_tgt, False)
+    st["n_resc"] += can_r
+    st["resc_k"] += can_r
+
+    # -- commit completions up to the next boundary (none on rescue steps)
+    newly = ~st["batch_done"] & (win <= t_next[:, None]) & torch.isfinite(win) & ~can_r[:, None]
+    if cfg.cancel:
+        win_r = win.gather(1, rp_b)
+        done_r = live & newly.gather(1, rp_b)
+        busy_add = torch.where(done_r, win_r - rp_start, 0.0).sum(1)
+        saved_add = torch.where(done_r, rp_end - win_r, 0.0).sum(1)
+        t_new = torch.where(newly, win, -inf).amax(1)
+    else:
+        done_r = live & (rp_end <= t_next[:, None]) & ~can_r[:, None]
+        busy_add = torch.where(done_r, rp_end - rp_start, 0.0).sum(1)
+        saved_add = None
+        t_new = torch.where(done_r, rp_end, -inf).amax(1)
+    done2 = st["batch_done"] | newly
+    done_t2 = torch.where(newly, win, st["batch_done_t"])
+    all_done = done2.all(1)
+    fin = torch.where(bidx < st["job_b"][:, None], done_t2, -inf).amax(1)
+    settled = all_done & ~can_r
+    completes = st["job_active"] & settled
+    live &= ~done_r
+    st["busy"] += busy_add
+    if saved_add is not None:
+        st["saved"] += saved_add
+    st["batch_done"] = done2
+    st["batch_done_t"] = done_t2
+    st["t_cursor"] = torch.maximum(
+        st["t_cursor"], torch.maximum(t_new, torch.where(completes, fin, -inf))
+    )
+    st["fins"].scatter_(1, torch.where(completes, st["q_active"], jobs_pad)[:, None], fin[:, None])
+    st["job_active"] &= ~settled
+    resc_pending &= ~completes[:, None]
+
+    # -- gang-dispatch the next queued job (whole-cluster FIFO gangs)
+    n_alive = alive.sum(1)
+    q = st["q"]
+    can_d = ~st["job_active"] & (q < inp["jobs_real"]) & (n_alive > 0) & ~live.any(1) & ~can_r
+    # an out-of-range job index clamps, as a jax gather does; can_d is
+    # already false there
+    qc = q.clamp(max=jobs_pad - 1)
+    td = torch.maximum(st["t_cursor"], inp["arrivals"][qc])
+    can_d &= td < t_next
+    b = torch.where(st["plan_b"] > 0, st["plan_b"], n_alive)
+    b = torch.minimum(b.clamp(min=1), n_alive.clamp(min=1))
+    r = n_alive // b.clamp(min=1)
+    rank = torch.cumsum(alive, 1) - 1
+    sel = alive & (rank < (b * r)[:, None])
+    # draw index = alive-rank (free workers in wid order draw sequentially);
+    # batch = rank mod b.  A leading dead worker's rank of -1 clamps: its
+    # value is masked out below
+    dur = inp["tau"][row, qc].gather(1, rank.clamp(min=0)) * batch_scale(b)[..., None] / speeds
+    go = can_d[:, None] & sel
+    st["g_b"] = torch.where(go, rank % b[:, None], st["g_b"])
+    # can_d needs every slot dead, so dispatch writes the gang slots only
+    live[:, :n] |= go
+    rp_start[:, :n] = torch.where(go, td[:, None], rp_start[:, :n])
+    rp_end[:, :n] = torch.where(go, td[:, None] + dur, rp_end[:, :n])
+    over = bidx >= b[:, None]
+    st["batch_done"] = torch.where(can_d[:, None], over, st["batch_done"])
+    st["batch_done_t"] = torch.where(
+        can_d[:, None], torch.where(over, -inf, inf), st["batch_done_t"]
+    )
+    st["job_active"] |= can_d
+    st["job_b"] = torch.where(can_d, b, st["job_b"])
+    st["q_active"] = torch.where(can_d, q, st["q_active"])
+    i_q = torch.where(can_d, q, jobs_pad)[:, None]
+    st["starts"].scatter_(1, i_q, td[:, None])
+    if cfg.full_outputs:
+        st["br"].scatter_(1, i_q, (b << 16 | r)[:, None])
+    st["q"] = q + can_d
+
+    # -- otherwise apply one fail/join event (the engine stops replaying
+    # churn once every job is recorded: the sim_over gate)
+    t_ev = t_next
+    w_raw = inp["ev_w"][row, e]
+    up = inp["ev_up"][row, e]
+    do_b = ~can_r & ~can_d
+    sim_over = (st["q"] >= inp["jobs_real"]) & ~st["job_active"]
+    act = do_b & (w_raw >= 0) & torch.isfinite(t_ev) & ~sim_over
+    w = w_raw.clamp(0, n - 1)
+    was = alive.gather(1, w[:, None])[:, 0]
+    do_fail = act & ~up & was
+    flip = do_fail | (act & up & ~was)
+    # a fail flips alive to False (= up), a join to True (= up)
+    st["alive"].scatter_(1, torch.where(flip, w, n)[:, None], up[:, None])
+    kill = live & (rp_w == w[:, None]) & do_fail[:, None]
+    st["busy"] += torch.where(kill, t_ev[:, None] - rp_start, 0.0).sum(1)
+    live &= ~kill
+    # a batch that just lost its last live replica needs a rescue: one
+    # segment count carries both indicators (kills in the low bits,
+    # survivors shifted past any possible kill count)
+    seg = torch.zeros(L, n, dtype=torch.int32, device=row.device).scatter_add_(
+        1, rp_b, kill.to(torch.int32) + 4096 * live.to(torch.int32)
+    )
+    lost = ((seg & 4095) > 0) & (seg < 4096) & ~st["batch_done"]
+    resc_pending |= lost
+    st["resc_t"] = torch.where(lost, t_ev[:, None], st["resc_t"])
+    st["n_fail"] += do_fail
+    # a churn event that itself frees the gang dispatches at its own time
+    st["t_cursor"] = torch.maximum(
+        st["t_cursor"],
+        torch.where(do_b & torch.isfinite(t_ev), t_ev.clamp(min=0.0), -inf),
+    )
+    if cfg.full_outputs:
+        st["ep_times"].scatter_(1, torch.where(flip, e, ev_pad)[:, None], t_ev[:, None])
+    st["e"] = (e + do_b).clamp(max=ev_pad - 1)
+
+
+def _lane_outputs(cfg: _RunnerCfg, st: dict) -> dict:
+    ns = 2 * cfg.n
+    # flush replicas still in flight: their full duration is committed worker
+    # time, which keeps ws(cancel on) + saved == ws(cancel off)
+    flush = torch.where(
+        st["rp_live"][:, :ns], st["rp_end"][:, :ns] - st["rp_start"][:, :ns], 0.0
+    ).sum(1)
+    out = {
+        "starts": st["starts"][:, : cfg.jobs_pad],
+        "finishes": st["fins"][:, : cfg.jobs_pad],
+        "worker_seconds": st["busy"] + flush,
+        "cancelled_seconds_saved": st["saved"],
+        "n_worker_failures": st["n_fail"],
+        "n_replicas_rescued": st["n_resc"],
+    }
+    if cfg.full_outputs:
+        out["br"] = st["br"][:, : cfg.jobs_pad]
+        out["epoch_times"] = st["ep_times"][:, : cfg.ev_pad]
+    return out
+
+
+def _run_lane_batch(cfg: _RunnerCfg, inp: dict, b0: torch.Tensor, n_real: int) -> dict:
+    """Run every lane to its ``done`` chunk boundary (or the step budget).
+
+    A lane whose ``done`` holds at a chunk boundary leaves the working batch
+    with its state as it stands; the rest run on.  Lanes are independent,
+    so which lanes share a batch never changes a lane's result.
+    """
+    global steps_run
+    dt = inp["tau"].dtype
+    st = _init_state(cfg, b0, n_real, dt, b0.device)
+    L = b0.shape[0]
+    if L == 0:
+        return _lane_outputs(cfg, st)
+    results: dict = {}
+    for chunk in range(cfg.n_chunks):
+        for _ in range(_STEP_CHUNK):
+            _step(cfg, st, inp)
+        steps_run += _STEP_CHUNK
+        last = chunk == cfg.n_chunks - 1
+        done = (st["q"] >= inp["jobs_real"]) & ~st["job_active"]
+        leave = torch.ones_like(done) if last else done
+        n_leave = int(leave.sum())
+        if n_leave == 0:
+            continue
+        keep = (~leave).nonzero()[:, 0]
+        gone = leave.nonzero()[:, 0]
+        for k, v in _lane_outputs(cfg, {key: t[gone] for key, t in st.items()}).items():
+            if k not in results:
+                results[k] = torch.empty((L,) + v.shape[1:], dtype=v.dtype, device=v.device)
+            results[k][st["row"][gone]] = v
+        if n_leave == st["row"].shape[0]:
+            break
+        st = {key: t[keep] for key, t in st.items()}
+    return results
+
+
+# --------------------------------------------------------------------------
+# per-lane draw preparation (chunk-invariant seed derivation), host numpy
+# --------------------------------------------------------------------------
+
+
+def _sample_churn_np(rng, churn: ChurnProcess, n_workers: int, pairs: int):
+    """One lane's alternating-renewal fail/join timeline, the engine's law.
+
+    Also returns the lane's *horizon*: the earliest time any worker's
+    sampled stream runs dry (its last of ``2 * pairs`` events).  Past it the
+    lane's workers stay up while the engine keeps churning; callers compare
+    finish times against it and warn.  With ``mean_downtime == 0`` failures
+    are permanent, every stream ends at +inf and the horizon is never
+    reached.
+    """
+    ups = rng.exponential(1.0 / churn.fail_rate, (n_workers, pairs))
+    if churn.mean_downtime > 0.0:
+        downs = rng.exponential(churn.mean_downtime, (n_workers, pairs))
+    else:
+        downs = np.full((n_workers, pairs), np.inf)
+    iv = np.stack([ups, downs], axis=-1).reshape(n_workers, 2 * pairs)
+    t = np.cumsum(iv, axis=-1)  # fail at even positions, join at odd
+    horizon = float(np.min(t[:, -1]))
+    u = np.broadcast_to((np.arange(2 * pairs) % 2).astype(bool), t.shape).ravel()
+    w = np.broadcast_to(np.arange(n_workers, dtype=np.int32)[:, None], t.shape).ravel()
+    t = t.ravel()
+    order = np.argsort(t, kind="stable")
+    t, w, u = t[order], w[order], u[order]
+    return t, np.where(np.isfinite(t), w, -1), u, horizon
+
+
+def _pack_schedule(schedule: Optional[ChurnSchedule], n_lanes: int, ev_pad: int, dtype):
+    """Shared explicit timeline (or the no-churn stream), inf-padded."""
+    t = np.full(ev_pad, np.inf, np.float64)
+    w = np.full(ev_pad, -1, np.int32)
+    u = np.zeros(ev_pad, bool)
+    if schedule is not None and len(schedule):
+        t[: len(schedule)] = np.asarray(schedule.times, np.float64)
+        w[: len(schedule)] = np.asarray(schedule.wids, np.int32)
+        u[: len(schedule)] = np.asarray(schedule.ups, bool)
+    tile = lambda a: np.broadcast_to(a, (n_lanes,) + a.shape)  # noqa: E731
+    return tile(t.astype(dtype)), tile(w), tile(u)
+
+
+def _prepare_lanes(dist, n_workers, n_pad, lane_idx, n_real, jobs_pad, ev_pad, resc_cap,
+                   seed, churn, churn_schedule, pairs, dtype):
+    """Per-lane inputs of both entry points, as numpy arrays: service draws,
+    rescue draws, the churn event stream and each lane's churn horizon.
+
+    Lane ``i`` draws from ``default_rng(SeedSequence((seed, i)))``, a pure
+    function of the global lane index.  Only the first ``n_real`` lanes
+    carry results; lanes past them get constant durations.  Rescue draws are
+    sampled only when churn events can create rescues -- tau is drawn first
+    per lane, so skipping them changes nothing.
+    """
+    n_lanes = len(lane_idx)
+    seed = int(seed)
+    sample_churn = churn is not None and churn.fail_rate > 0.0 and pairs > 0
+    need_resc = sample_churn or (churn_schedule is not None and len(churn_schedule))
+    tau = np.ones((n_lanes, jobs_pad, n_pad), dtype)
+    tau_resc = np.ones((n_lanes, resc_cap, n_pad), dtype)
+    horizon = np.full(n_lanes, np.inf)
+    if sample_churn:
+        ev_t = np.full((n_lanes, ev_pad), np.inf, dtype)
+        ev_w = np.full((n_lanes, ev_pad), -1, np.int32)
+        ev_up = np.zeros((n_lanes, ev_pad), bool)
+    for i, lane in enumerate(lane_idx[:n_real]):
+        rng = np.random.default_rng(np.random.SeedSequence((seed, int(lane))))
+        tau[i] = dist.sample_np(rng, (jobs_pad, n_pad))
+        if need_resc:
+            tau_resc[i] = dist.sample_np(rng, (resc_cap, n_pad))
+        if sample_churn:
+            t, w, u, horizon[i] = _sample_churn_np(rng, churn, n_workers, pairs)
+            k = min(len(t), ev_pad)
+            ev_t[i, :k], ev_w[i, :k], ev_up[i, :k] = t[:k], w[:k], u[:k]
+    if not sample_churn:
+        ev_t, ev_w, ev_up = _pack_schedule(churn_schedule, n_lanes, ev_pad, dtype)
+    return tau, tau_resc, ev_t, ev_w, ev_up, horizon
+
+
+def _shapes(n_workers, n_jobs, churn, churn_schedule, pairs):
+    """Padded worker, job, event and rescue counts, and the chunk budget."""
+    n_pad = _bucket_workers(n_workers)
+    jobs_pad = _pow2(n_jobs) if n_jobs < 32 else -(-n_jobs // 32) * 32
+    if churn is not None and churn.fail_rate > 0.0 and pairs > 0:
+        ev_real = 2 * pairs * n_workers
+    elif churn_schedule is not None:
+        ev_real = len(churn_schedule)
+    else:
+        ev_real = 0
+    ev_pad = _pow2(ev_real + 1)
+    # rescue dispatches are bounded by worker failures, at most half the
+    # event stream under the alternating fail/join law
+    resc_cap = max(8, ev_pad // 2)
+    # one step per job dispatch + one per churn event + a rescue allowance,
+    # plus one trailing commit; overruns leave jobs at inf exactly like the
+    # engine's max_events cap
+    budget = jobs_pad + ev_pad + resc_cap + 2
+    n_chunks = -(-budget // _STEP_CHUNK)
+    return n_pad, jobs_pad, ev_pad, resc_cap, n_chunks
+
+
+def _run_lanes(dist, cfg, n_workers, lane_idx, b0, arrivals_pad, n_jobs_real, seed,
+               speeds, churn, churn_schedule, pairs, n_tasks, device):
+    """Draw the lanes on the host, copy them to ``device`` once, run them."""
+    np_dtype = np.dtype(cfg.dtype)
+    dt = resolve_dtype(cfg.dtype)
+    tau, tau_resc, ev_t, ev_w, ev_up, horizon = _prepare_lanes(
+        dist, n_workers, cfg.n, lane_idx, len(lane_idx), cfg.jobs_pad, cfg.ev_pad,
+        cfg.resc_cap, seed, churn, churn_schedule, pairs, np_dtype,
+    )
+
+    def put(a, dtype=None):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    inp = {
+        "tau": put(tau),
+        "tau_resc": put(tau_resc),
+        "ev_t": put(ev_t),
+        "ev_w": put(ev_w, torch.int64),
+        "ev_up": put(ev_up),
+        "arrivals": put(np.asarray(arrivals_pad, np_dtype)),
+        "speeds": put(np.asarray(speeds, np_dtype)),
+        "n_tasks": torch.tensor(float(n_tasks), dtype=dt, device=device),
+        "one": torch.ones((), dtype=dt, device=device),
+        "jobs_real": int(n_jobs_real),
+        "bidx": torch.arange(cfg.n, device=device),
+    }
+    out = _run_lane_batch(cfg, inp, put(b0, torch.int64), int(n_workers))
+    res = {k: v.cpu().numpy() for k, v in out.items()}
+    res["churn_horizon"] = horizon  # host-side, inf unless churn sampled
+    return res
+
+
+# --------------------------------------------------------------------------
+# public entry points
+# --------------------------------------------------------------------------
+
+
+# float32 resolves consecutive integers only up to 2^24; past half that, a
+# single ulp of an absolute timestamp already approaches one second
+_F32_SAFE_TIME = float(2**23)
+
+
+def _check_arrival_span(arrivals, dtype):
+    """Refuse float32 lanes whose absolute arrivals exceed the float32-safe
+    range: the lanes carry absolute event times in the lane dtype, and ulps
+    this large silently quantize queue waits and service times."""
+    if dtype != "float32":
+        return  # float64 is safe; invalid dtypes get the validation error
+    finite = arrivals[np.isfinite(arrivals)]
+    span = float(np.abs(finite).max()) if finite.size else 0.0
+    if span > _F32_SAFE_TIME:
+        raise ValueError(
+            f"arrival magnitude {span:.6g} s exceeds the float32-safe range "
+            f"(~{_F32_SAFE_TIME:.3g} s): the scan lanes carry absolute times "
+            "in the lane dtype, and float32 ulps this large silently quantize "
+            'queue waits and service times.  Pass dtype="float64" or rebase '
+            "arrivals near zero."
+        )
+
+
+def _reject_unported(sc: Scenario, where: str, *, stream_ok: bool) -> None:
+    """Refuse the knobs whose lanes the port has not reached, by name."""
+    later = [
+        (sc.replan is not None, "replan (the in-scan replanner)", "4"),
+        (sc.speculation is not None, "speculation (the speculative backup bank)", "5"),
+        (sc.is_space, "space-sharing knobs (scheduler / workers_per_job / job_plans)", "6"),
+        (not stream_ok and sc.outputs == "stream", 'outputs="stream" (the streaming fold)', "7"),
+    ]
+    for hit, what, item in later:
+        if hit:
+            raise NotImplementedError(
+                f"{where}: {what} runs on a lane of the epoch scan that the port "
+                f"reaches in a later slice (ROADMAP.md §1, item 1.{item})"
+            )
+    if sc.devices != 1:
+        raise NotImplementedError(
+            f"{where}: devices={sc.devices}: the port runs every lane on one "
+            "device (ROADMAP.md §1, item 1.8)"
+        )
+
+
+def _validate_common(n_workers, sc):
+    """Scenario validation, returning the bucket-padded speed vector."""
+    sc.validate(n_workers=n_workers, backend="torch")
+    speeds = np.ones(n_workers) if sc.speeds is None else np.asarray(sc.speeds, np.float64)
+    pad = _bucket_workers(n_workers) - n_workers
+    return np.concatenate([speeds, np.ones(pad)])
+
+
+def _resolve_churn_pairs(pairs, dist, churn, n_workers, n_batches, n_tasks,
+                         size_dependent, speeds, arrivals, n_jobs):
+    """Resolve ``churn_pairs_per_worker`` (None = auto-size from the stream).
+
+    The lanes sample a finite stream of fail/join pairs per worker, after
+    which that worker stays up.  Auto-sizing estimates the timeline (arrival
+    span plus jobs x mean batch duration at the slowest speed) and draws
+    enough pairs to cover twice that, floored at 8 and capped at 1024; the
+    post-run truncation check warns if even the cap fell short.  An explicit
+    integer is honoured as given (it fixes the lanes' draw shapes).
+    """
+    if pairs is not None:
+        return int(pairs)
+    if churn is None or churn.fail_rate <= 0.0:
+        return 8  # no sampled churn: the horizon is never consulted
+    # mean service estimate from a fixed-seed host draw: it only sizes an
+    # integer, so it must not perturb (or depend on) the caller's seed
+    rng = np.random.default_rng(np.random.SeedSequence((0x5A11, 0)))
+    mean_tau = float(np.mean(dist.sample_np(rng, (256,))))
+    b = int(n_batches) if n_batches else n_workers
+    scale = (float(n_tasks) / b) if size_dependent else 1.0
+    slow = float(np.min(speeds)) if len(speeds) else 1.0
+    span = float(arrivals[-1] - arrivals[0]) if arrivals is not None and len(arrivals) else 0.0
+    t_est = span + n_jobs * mean_tau * scale / max(slow, 1e-12)
+    period = 1.0 / churn.fail_rate + churn.mean_downtime
+    pairs = math.ceil(2.0 * t_est / max(period, 1e-12)) + 4
+    return max(8, min(int(pairs), 1024))
+
+
+def _warn_churn_truncated(truncated, pairs):
+    n_hit, n_reps = int(np.sum(truncated)), len(truncated)
+    warnings.warn(
+        f"sampled churn horizon ended before the simulated timeline in "
+        f"{n_hit}/{n_reps} rep(s): past the horizon the lanes' workers stay "
+        "up while the Python engine keeps churning, so results diverge from "
+        f"the engine's law.  Raise churn_pairs_per_worker (resolved to "
+        f"{pairs}; None auto-sizes from the stream) or pass an explicit "
+        "churn_schedule, which both backends replay identically.",
+        RuntimeWarning,
+        stacklevel=3,
+    )
+
+
+def _rep_slices(total: int, rep_chunk: Optional[int]):
+    if rep_chunk is None or rep_chunk >= total:
+        return [(0, total)]
+    if rep_chunk < 1:
+        raise ValueError("rep_chunk must be >= 1")
+    return [(lo, min(lo + rep_chunk, total)) for lo in range(0, total, rep_chunk)]
+
+
+def simulate_epochs(
+    dist: Optional[ServiceTime] = None,
+    n_workers: Optional[int] = None,
+    n_batches: Optional[int] = None,
+    arrivals=None,
+    n_reps: Optional[int] = None,
+    *,
+    seed: int = 0,
+    cancel_redundant=UNSET,
+    size_dependent=UNSET,
+    n_tasks=UNSET,
+    speeds=UNSET,
+    churn=UNSET,
+    churn_schedule=UNSET,
+    churn_pairs_per_worker=UNSET,
+    replan=UNSET,
+    speculation=UNSET,
+    scheduler=UNSET,
+    workers_per_job=UNSET,
+    job_plans=UNSET,
+    dtype=UNSET,
+    rep_chunk=UNSET,
+    devices=UNSET,
+    outputs=UNSET,
+    scenario: Optional[Scenario] = None,
+    device=None,
+) -> EpochReport:
+    """Replay the engine's gang semantics on the epoch scan, on ``device``.
+
+    Same signature and result as the reference's ``simulate_epochs``, plus
+    ``device`` (default: the CUDA card; ``"cpu"`` runs the same lanes on the
+    host).  ``n_batches=None`` means full parallelism (B = alive workers at
+    dispatch), like the engine.  Each rep derives every draw from
+    ``default_rng(SeedSequence((seed, rep)))``, so ``rep_chunk`` is
+    bit-identical to one call.  ``churn_pairs_per_worker=None`` auto-sizes
+    the sampled-churn horizon; a rep whose timeline still outruns it raises a
+    ``RuntimeWarning`` and is flagged in ``EpochReport.churn_truncated``.
+
+    The scenario knobs are best passed as one ``scenario=Scenario(...)``;
+    the loose keyword forms keep working behind a ``DeprecationWarning``.
+    ``replan``, ``speculation``, space sharing, ``outputs="stream"`` and
+    ``devices > 1`` raise :class:`NotImplementedError`.
+    """
+    sc = resolve_scenario(
+        scenario,
+        {
+            "cancel_redundant": cancel_redundant,
+            "size_dependent": size_dependent,
+            "n_tasks": n_tasks,
+            "speeds": speeds,
+            "churn": churn,
+            "churn_schedule": churn_schedule,
+            "churn_pairs_per_worker": churn_pairs_per_worker,
+            "replan": replan,
+            "speculation": speculation,
+            "scheduler": scheduler,
+            "workers_per_job": workers_per_job,
+            "job_plans": job_plans,
+            "dtype": dtype,
+            "rep_chunk": rep_chunk,
+            "devices": devices,
+            "outputs": outputs,
+        },
+        where="simulate_epochs",
+    )
+    _reject_unported(sc, "simulate_epochs", stream_ok=False)
+    dist = dist if dist is not None else sc.dist
+    n_workers = int(n_workers if n_workers is not None else sc.n_workers)
+    n_batches = n_batches if n_batches is not None else sc.n_batches
+    if dist is None or arrivals is None or n_reps is None:
+        raise ValueError("simulate_epochs needs dist (or scenario.dist), arrivals, and n_reps")
+    arrivals = np.asarray(arrivals, dtype=np.float64)
+    if arrivals.ndim != 1 or arrivals.size == 0:
+        raise ValueError("arrivals must be a non-empty 1-D array")
+    if (np.diff(arrivals) < 0).any():
+        raise ValueError("arrivals must be sorted (FIFO order)")
+    _check_arrival_span(arrivals, sc.dtype)
+    if n_batches is not None and not (1 <= int(n_batches) <= n_workers):
+        raise ValueError(f"n_batches must lie in [1, {n_workers}] or be None")
+    speeds = _validate_common(n_workers, sc)
+    dev = resolve_device(device)
+    churn, churn_schedule = sc.churn, sc.churn_schedule
+    n_tasks = sc.n_tasks if sc.n_tasks is not None else n_workers
+    n_jobs = arrivals.size
+    pairs = _resolve_churn_pairs(
+        sc.churn_pairs_per_worker, dist, churn, n_workers, n_batches, n_tasks,
+        sc.size_dependent, speeds, arrivals, n_jobs,
+    )
+    n_pad, jobs_pad, ev_pad, resc_cap, n_chunks = _shapes(
+        n_workers, n_jobs, churn, churn_schedule, pairs
+    )
+    cfg = _RunnerCfg(
+        n_pad, jobs_pad, ev_pad, resc_cap, n_chunks,
+        bool(sc.cancel_redundant), bool(sc.size_dependent), sc.dtype,
+    )
+    arrivals_pad = np.concatenate([arrivals, np.full(jobs_pad - n_jobs, np.inf)])
+    b0_val = 0 if n_batches is None else int(n_batches)
+    chunks = [
+        _run_lanes(
+            dist, cfg, n_workers, np.arange(lo, hi), np.full(hi - lo, b0_val, np.int32),
+            arrivals_pad, n_jobs, seed, speeds, churn, churn_schedule, pairs, n_tasks, dev,
+        )
+        for lo, hi in _rep_slices(int(n_reps), sc.rep_chunk)
+    ]
+    out = {k: np.concatenate([c[k] for c in chunks], axis=0) for k in chunks[0]}
+    br = out["br"][:, :n_jobs].astype(np.int32)
+    finishes = out["finishes"].astype(np.float64)[:, :n_jobs]
+    truncated = None
+    if churn is not None and churn.fail_rate > 0.0:
+        # a rep whose timeline outran its sampled horizon ran its tail
+        # churn-free (unfinished jobs at inf count as outrunning it)
+        truncated = finishes.max(axis=1) > out["churn_horizon"]
+        if truncated.any():
+            _warn_churn_truncated(truncated, pairs)
+    n_fail = out["n_worker_failures"].astype(np.int32)
+    return EpochReport(
+        arrivals=arrivals,
+        starts=out["starts"].astype(np.float64)[:, :n_jobs],
+        finishes=finishes,
+        n_batches_used=br >> 16,
+        replication_used=br & 0xFFFF,
+        worker_seconds=out["worker_seconds"].astype(np.float64),
+        cancelled_seconds_saved=out["cancelled_seconds_saved"].astype(np.float64),
+        n_worker_failures=n_fail,
+        n_replicas_rescued=out["n_replicas_rescued"].astype(np.int32),
+        n_replans=np.zeros_like(n_fail),
+        epoch_times=out["epoch_times"].astype(np.float64),
+        churn_truncated=truncated,
+    )
+
+
+def frontier_job_times_dynamic(
+    dist: Optional[ServiceTime] = None,
+    n_workers: Optional[int] = None,
+    candidates=None,
+    n_reps: Optional[int] = None,
+    *,
+    seed: int = 0,
+    n_jobs: Optional[int] = None,
+    cancel_redundant=UNSET,
+    size_dependent=UNSET,
+    n_tasks=UNSET,
+    speeds=UNSET,
+    churn=UNSET,
+    churn_schedule=UNSET,
+    churn_pairs_per_worker=UNSET,
+    replan=UNSET,
+    speculation=UNSET,
+    scheduler=UNSET,
+    workers_per_job=UNSET,
+    job_plans=UNSET,
+    dtype=UNSET,
+    rep_chunk=UNSET,
+    devices=UNSET,
+    scenario: Optional[Scenario] = None,
+    device=None,
+) -> np.ndarray:
+    """Per-candidate job compute times under churn and heterogeneous speeds.
+
+    The dynamic sibling of :func:`repro_torch.cluster.vectorized.
+    frontier_job_times` and the path behind ``plan_cluster`` on dynamic
+    scenarios: every candidate B runs serial job streams of ``n_jobs`` jobs
+    (under churn, consecutive jobs share a timeline) across
+    ``ceil(n_reps / n_jobs)`` independent streams, all of them lanes of one
+    batch on ``device`` (default: the CUDA card).  Returns
+    ``(len(candidates), >= n_reps)`` compute times; unfinished jobs are inf.
+
+    Lane (candidate ci, stream s) draws from ``SeedSequence((seed, ci * S +
+    s))``, so ``rep_chunk`` (at most that many streams per candidate in one
+    batch) is bit-identical to one call.  ``Scenario.outputs`` is accepted
+    and ignored, as in the reference.  ``replan``, ``speculation``, space
+    sharing and ``devices > 1`` raise :class:`NotImplementedError`.
+    """
+    sc = resolve_scenario(
+        scenario,
+        {
+            "cancel_redundant": cancel_redundant,
+            "size_dependent": size_dependent,
+            "n_tasks": n_tasks,
+            "speeds": speeds,
+            "churn": churn,
+            "churn_schedule": churn_schedule,
+            "churn_pairs_per_worker": churn_pairs_per_worker,
+            "replan": replan,
+            "speculation": speculation,
+            "scheduler": scheduler,
+            "workers_per_job": workers_per_job,
+            "job_plans": job_plans,
+            "dtype": dtype,
+            "rep_chunk": rep_chunk,
+            "devices": devices,
+        },
+        where="frontier_job_times_dynamic",
+    )
+    _reject_unported(sc, "frontier_job_times_dynamic", stream_ok=True)
+    dist = dist if dist is not None else sc.dist
+    n_workers = int(n_workers if n_workers is not None else sc.n_workers)
+    if dist is None or candidates is None or n_reps is None:
+        raise ValueError(
+            "frontier_job_times_dynamic needs dist (or scenario.dist), candidates, and n_reps"
+        )
+    bs = np.asarray(list(candidates), dtype=np.int32)
+    if bs.size == 0:
+        raise ValueError("need at least one candidate B")
+    if (bs < 1).any() or (bs > n_workers).any():
+        raise ValueError(f"candidates must lie in [1, {n_workers}], got {bs.tolist()}")
+    speeds = _validate_common(n_workers, sc)
+    dev = resolve_device(device)
+    churn, churn_schedule = sc.churn, sc.churn_schedule
+    n_tasks = sc.n_tasks if sc.n_tasks is not None else n_workers
+    n_jobs = sc.jobs_per_stream if n_jobs is None else n_jobs
+    n_jobs = max(1, min(int(n_jobs), int(n_reps)))
+    s = math.ceil(n_reps / n_jobs)
+    c = len(bs)
+    # auto-size against the widest-scale candidate (smallest B): its jobs
+    # run longest, so its streams are the ones that outlive short horizons
+    pairs = _resolve_churn_pairs(
+        sc.churn_pairs_per_worker, dist, churn, n_workers, int(bs.min()), n_tasks,
+        sc.size_dependent, speeds, None, n_jobs,
+    )
+    n_pad, jobs_pad, ev_pad, resc_cap, n_chunks = _shapes(
+        n_workers, n_jobs, churn, churn_schedule, pairs
+    )
+    cfg = _RunnerCfg(
+        n_pad, jobs_pad, ev_pad, resc_cap, n_chunks,
+        bool(sc.cancel_redundant), bool(sc.size_dependent), sc.dtype,
+        full_outputs=False,  # planning reads starts/finishes only
+    )
+    arrivals_pad = np.concatenate([np.zeros(n_jobs), np.full(jobs_pad - n_jobs, np.inf)])
+    chunks = []
+    trunc = np.zeros(0, bool)
+    for lo, hi in _rep_slices(s, sc.rep_chunk):
+        # lane (ci, rep) has global index ci * s + rep: chunking over reps
+        # keeps every lane's SeedSequence identity, hence its draws, unchanged
+        lane_idx = (np.arange(c)[:, None] * s + np.arange(lo, hi)[None, :]).ravel()
+        b0 = np.repeat(bs, hi - lo)
+        out = _run_lanes(
+            dist, cfg, n_workers, lane_idx, b0, arrivals_pad, n_jobs, seed,
+            speeds, churn, churn_schedule, pairs, n_tasks, dev,
+        )
+        fin = out["finishes"].astype(np.float64)
+        start = out["starts"].astype(np.float64)
+        if churn is not None and churn.fail_rate > 0.0:
+            trunc = np.append(trunc, fin[:, :n_jobs].max(axis=1) > out["churn_horizon"])
+        # unfinished jobs (inf start and finish) score inf, not inf - inf
+        with np.errstate(invalid="ignore"):
+            t = np.where(np.isfinite(fin), fin - start, np.inf)
+        chunks.append(t[:, :n_jobs].reshape(c, (hi - lo) * n_jobs))
+    if trunc.any():
+        _warn_churn_truncated(trunc, pairs)
+    return np.concatenate(chunks, axis=1)

@@ -7,15 +7,18 @@ byte (``to_json`` writes it back identically) -- that JSON, with the
 distribution inside it, is the state the two packages hand each other.
 
 Decoding a ``replan`` field raises :class:`NotImplementedError`: its
-``ReplanConfig`` belongs to the epoch scan, which the port has not reached.
-The reference's loose-keyword compatibility shim has no counterpart: the
-port's entry points take ``scenario=`` only.
+``ReplanConfig`` belongs to the epoch scan's in-scan replanner, which the
+port has not reached.  The legacy loose-keyword call forms keep working
+behind :func:`resolve_scenario`, as in the reference: it rebuilds the
+equivalent ``Scenario`` and emits one :class:`DeprecationWarning` naming the
+entry point.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import warnings
 from typing import Optional, Tuple, Union
 
 from .scheduler import SCHEDULERS, JobPlan, Scheduler
@@ -27,7 +30,26 @@ __all__ = [
     "SLO",
     "Scenario",
     "Speculation",
+    "UNSET",
+    "resolve_scenario",
 ]
+
+
+class _Unset:
+    """Sentinel distinguishing 'kwarg not passed' from an explicit None."""
+
+    _instance = None
+
+    def __new__(cls):
+        if cls._instance is None:
+            cls._instance = super().__new__(cls)
+        return cls._instance
+
+    def __repr__(self) -> str:  # pragma: no cover - cosmetic
+        return "UNSET"
+
+
+UNSET = _Unset()
 
 # backends that run the batched array lanes: the reference's jax and the port
 _ARRAY_BACKENDS = ("jax", "torch")
@@ -522,6 +544,32 @@ class Scenario:
                 )
         return self
 
+    # -- translations --------------------------------------------------------
+
+    def to_scan_cfg(self) -> dict:
+        """Keyword set for the epoch scan
+        (:func:`~repro_torch.cluster.epoch_scan.simulate_epochs` /
+        :func:`~repro_torch.cluster.epoch_scan.frontier_job_times_dynamic`).
+        """
+        return {
+            "cancel_redundant": self.cancel_redundant,
+            "size_dependent": self.size_dependent,
+            "n_tasks": self.n_tasks,
+            "speeds": self.speeds,
+            "churn": self.churn,
+            "churn_schedule": self.churn_schedule,
+            "churn_pairs_per_worker": self.churn_pairs_per_worker,
+            "replan": self.replan,
+            "speculation": self.speculation,
+            "scheduler": self.scheduler_name,
+            "workers_per_job": self.workers_per_job,
+            "job_plans": self.job_plans,
+            "dtype": self.dtype,
+            "rep_chunk": self.rep_chunk,
+            "devices": self.devices,
+            "outputs": self.outputs,
+        }
+
     def replace(self, **changes) -> "Scenario":
         """A modified copy: ``sc.replace(cancel_redundant=True)`` -- the
         ergonomic way to derive scenario variants from a base spec.
@@ -627,8 +675,9 @@ def _decode_field(name: str, v):
         )
     if name == "replan":
         raise NotImplementedError(
-            "Scenario.replan: ReplanConfig belongs to the epoch scan, which the "
-            "port reaches in a later slice (ROADMAP.md, queue 1, item 4)"
+            "Scenario.replan: ReplanConfig belongs to the epoch scan's in-scan "
+            "replanner, which the port reaches in a later slice (ROADMAP.md §1, "
+            "item 1.4)"
         )
     if name == "speculation":
         return Speculation(**v)
@@ -643,3 +692,43 @@ def _decode_field(name: str, v):
     if name == "speeds":
         return tuple(v)
     return v
+
+
+def resolve_scenario(
+    scenario: Optional[Scenario],
+    explicit: dict,
+    *,
+    where: str,
+    stacklevel: int = 3,
+) -> Scenario:
+    """The legacy-kwarg compat shim behind the public entry points.
+
+    ``explicit`` maps scenario-owned kwarg names to their call values, with
+    :data:`UNSET` marking 'not passed'.  With ``scenario=`` given, loose
+    scenario kwargs are rejected (one spec, one source of truth); without
+    it, a Scenario is rebuilt from the loose kwargs and a
+    ``DeprecationWarning`` points callers at the new API.
+    """
+    passed = {k: v for k, v in explicit.items() if v is not UNSET}
+    if scenario is not None:
+        if passed:
+            raise ValueError(
+                f"{where}: got scenario= and loose scenario kwargs "
+                f"({', '.join(sorted(passed))}); fold them into the Scenario"
+            )
+        return scenario
+    if passed:
+        warnings.warn(
+            f"{where}: passing {', '.join(sorted(passed))} as loose keyword "
+            "arguments is deprecated; pass scenario=Scenario(...) instead",
+            DeprecationWarning,
+            stacklevel=stacklevel,
+        )
+    return Scenario(**passed)
+
+
+def scenario_from_kwargs(**kwargs) -> Scenario:
+    """Build a Scenario from loose kwargs without the deprecation warning
+    (internal plumbing for modules that still speak the kwarg dialect).
+    """
+    return Scenario(**{k: v for k, v in kwargs.items() if v is not UNSET})

@@ -203,7 +203,7 @@ def simulate_fifo(
     if is_space(scheduler, workers_per_job, job_plans):
         raise NotImplementedError(
             "space-sharing knobs run on the epoch scan's space lane, which the port "
-            "reaches in a later slice (ROADMAP.md, queue 1, item 4)"
+            "reaches in a later slice (ROADMAP.md §1, item 1.6)"
         )
     arrivals = np.asarray(arrivals, dtype=np.float64)
     if arrivals.ndim != 1 or arrivals.size == 0:

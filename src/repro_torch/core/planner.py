@@ -18,8 +18,11 @@ and :func:`plan_sweep` score the frontier by Monte-Carlo on the card through
 :meth:`~RedundancyPlanner.plan_slo` runs every (B, r, scheduler) candidate
 through the trace-scale stream (:func:`repro_torch.cluster.stream.
 simulate_stream`) and returns the same :class:`SLOPlan` as the reference.
-Dynamic and space-sharing scenarios on the epoch scan and the Python event
-engine come with later slices of the port.
+Dynamic gang scenarios (churn, heterogeneous speeds) score on the epoch scan
+(:func:`repro_torch.cluster.epoch_scan.frontier_job_times_dynamic`); the
+replanner, speculation, space sharing and the Python event engine come with
+later slices of the port.  Both entry points take the reference's loose
+scenario keywords behind its ``DeprecationWarning`` shim.
 """
 from __future__ import annotations
 
@@ -37,6 +40,10 @@ from .service_time import (
     ServiceTime,
     ShiftedExponential,
 )
+
+# "not passed" marker for the loose scenario kwargs: core cannot import
+# cluster.scenario's UNSET at module level (cluster imports core)
+_UNSET = type("_PlannerUnset", (), {"__repr__": lambda self: "UNSET"})()
 
 __all__ = [
     "RedundancyPlan",
@@ -248,58 +255,114 @@ class RedundancyPlanner:
         n_reps: int = 400,
         seed: int = 0,
         blend: float = 0.5,
+        size_dependent=_UNSET,
+        cancel_redundant=_UNSET,
         backend: str = "torch",
+        speeds=_UNSET,
+        churn=_UNSET,
+        churn_schedule=_UNSET,
+        replan=_UNSET,
+        speculation=_UNSET,
+        scheduler=_UNSET,
+        workers_per_job=_UNSET,
+        job_plans=_UNSET,
+        jobs_per_stream=_UNSET,
+        churn_pairs_per_worker=_UNSET,
+        dtype=_UNSET,
+        rep_chunk=_UNSET,
+        devices=_UNSET,
         scenario=None,
         device=None,
     ) -> RedundancyPlan:
         """Pick (B, r) by *executing* every candidate under the engine's semantics.
 
         ``backend="torch"`` scores the whole candidate frontier in one
-        device pass (:func:`repro_torch.cluster.vectorized.frontier_job_times`)
-        on ``device`` (default: the CUDA card).  The scenario is a
-        :class:`~repro_torch.cluster.scenario.Scenario` (which may also carry
-        ``dist``); its static knobs (``size_dependent``, ``cancel_redundant``)
-        apply, and ``rep_chunk`` bounds the reps of one launch (the rows are
-        bit-identical for every chunking).  Dynamic or space-sharing scenarios
+        device pass on ``device`` (default: the CUDA card): the static
+        frontier (:func:`repro_torch.cluster.vectorized.frontier_job_times`)
+        when the cluster is static, or the epoch scan's gang lane
+        (:func:`repro_torch.cluster.epoch_scan.frontier_job_times_dynamic`)
+        once ``speeds``, ``churn`` or ``churn_schedule`` is set -- then
+        samples come in serial streams of ``jobs_per_stream`` jobs sharing
+        one churn timeline.  ``rep_chunk`` bounds the reps of one pass (the
+        rows are bit-identical for every chunking); ``dtype`` applies to the
+        dynamic path only.  ``replan``, ``speculation``, space-sharing knobs
         and ``backend="python"`` raise :class:`NotImplementedError` until
         their slices of the port land.
-        """
-        from ..cluster.scenario import Scenario
 
-        sc = scenario if scenario is not None else Scenario()
+        The scenario knobs are best passed as one ``scenario=Scenario(...)``
+        (which may also carry ``dist``); the loose keyword forms keep working
+        behind a :class:`DeprecationWarning`, and both forms give identical
+        plans on identical seeds.
+        """
+        from ..cluster.scenario import resolve_scenario
+
+        sc = resolve_scenario(
+            scenario,
+            {
+                k: v
+                for k, v in {
+                    "cancel_redundant": cancel_redundant,
+                    "size_dependent": size_dependent,
+                    "speeds": speeds,
+                    "churn": churn,
+                    "churn_schedule": churn_schedule,
+                    "churn_pairs_per_worker": churn_pairs_per_worker,
+                    "replan": replan,
+                    "speculation": speculation,
+                    "scheduler": scheduler,
+                    "workers_per_job": workers_per_job,
+                    "job_plans": job_plans,
+                    "jobs_per_stream": jobs_per_stream,
+                    "dtype": dtype,
+                    "rep_chunk": rep_chunk,
+                    "devices": devices,
+                }.items()
+                if v is not _UNSET
+            },
+            where="plan_cluster",
+        )
         dist = dist if dist is not None else sc.dist
         if dist is None:
             raise ValueError("plan_cluster needs dist (positionally or via scenario.dist)")
         if backend == "python":
             raise NotImplementedError(
                 "backend='python' scores candidates on the DES engine, which the port "
-                "reaches in a later slice (ROADMAP.md, queue 1, item 5)"
+                "reaches in a later slice (ROADMAP.md §1, item 2)"
             )
         if backend != "torch":
             raise ValueError(f"unknown backend {backend!r} (expected 'torch')")
         sc.validate(n_workers=self.n_workers, backend="torch")
-        if sc.is_dynamic or sc.is_space:
+        if sc.replan is not None or sc.speculation is not None or sc.is_space:
             raise NotImplementedError(
-                "dynamic and space-sharing scenarios run on the epoch scan, which the "
-                "port reaches in a later slice (ROADMAP.md, queue 1, item 4)"
+                "replanning, speculative and space-sharing scenarios run on lanes of "
+                "the epoch scan that the port reaches in later slices (ROADMAP.md §1, "
+                "items 1.4 to 1.6)"
             )
-        if sc.dtype != "float32" or sc.devices != 1:
-            raise ValueError(
-                "Scenario.dtype/devices apply to dynamic scenarios (the epoch scan); "
-                "the static frontier path supports rep_chunk only"
-            )
-        from ..cluster.vectorized import frontier_job_times
+        if sc.is_dynamic:
+            from ..cluster.epoch_scan import frontier_job_times_dynamic
 
-        rows = frontier_job_times(
-            dist,
-            self.n_workers,
-            self.candidates,
-            n_reps,
-            seed=seed,
-            size_dependent=sc.size_dependent,
-            rep_chunk=sc.rep_chunk,
-            device=device,
-        )
+            rows = frontier_job_times_dynamic(
+                dist, self.n_workers, self.candidates, n_reps, seed=seed, scenario=sc,
+                device=device,
+            )
+        else:
+            if sc.dtype != "float32" or sc.devices != 1:
+                raise ValueError(
+                    "Scenario.dtype/devices apply to dynamic scenarios (the epoch scan); "
+                    "the static frontier path supports rep_chunk only"
+                )
+            from ..cluster.vectorized import frontier_job_times
+
+            rows = frontier_job_times(
+                dist,
+                self.n_workers,
+                self.candidates,
+                n_reps,
+                seed=seed,
+                size_dependent=sc.size_dependent,
+                rep_chunk=sc.rep_chunk,
+                device=device,
+            )
         means, covs = _frontier_stats(rows)
         b = self._select(means, covs, objective, blend)
         return self._mk_plan(b, means, covs, objective, f"cluster_engine:{backend}")
@@ -425,8 +488,9 @@ class RedundancyPlanner:
         stream = poisson_stream(sources, rates.pop(), n_jobs, seed=seed)
         if sc.is_dynamic:
             raise NotImplementedError(
-                "plan_slo on a dynamic scenario scores candidates on the epoch scan, "
-                "which the port reaches in a later slice (ROADMAP.md, queue 1, item 4)"
+                "plan_slo on a dynamic scenario scores candidates on the epoch scan's "
+                "stream lane, which the port reaches in a later slice (ROADMAP.md §1, "
+                "item 1.7)"
             )
         evaluated = self._slo_stream_candidates(
             sc, slos, stream, n_reps, schedulers, pool_widths, slab, device
@@ -581,8 +645,23 @@ def plan_sweep(
     n_reps: int = 400,
     seed: int = 0,
     blend: float = 0.5,
+    size_dependent=_UNSET,
+    cancel_redundant=_UNSET,
     backend: str = "torch",
     candidates: Iterable[int] | None = None,
+    speeds=_UNSET,
+    churn=_UNSET,
+    churn_schedule=_UNSET,
+    replan=_UNSET,
+    speculation=_UNSET,
+    scheduler=_UNSET,
+    workers_per_job=_UNSET,
+    job_plans=_UNSET,
+    jobs_per_stream=_UNSET,
+    churn_pairs_per_worker=_UNSET,
+    dtype=_UNSET,
+    rep_chunk=_UNSET,
+    devices=_UNSET,
     scenario=None,
     device=None,
 ) -> list:
@@ -591,12 +670,51 @@ def plan_sweep(
     Returns ``plans`` with ``plans[i][j]`` the :class:`RedundancyPlan` for
     ``dists[i]`` under ``budgets[j]``.  Each grid point scores its entire
     candidate frontier in one device pass (one launch of the cover kernel on
-    CUDA), so a sweep is ``len(dists) * len(budgets)`` passes.
+    CUDA for a static cluster; the epoch scan's lane batch for a dynamic
+    one), so a sweep is ``len(dists) * len(budgets)`` passes.
 
     Grid point (i, j) uses seed ``seed + i * len(budgets) + j``, the
     reference's derivation, so each sweep entry equals an identically-seeded
-    :meth:`RedundancyPlanner.plan_cluster` call.
+    :meth:`RedundancyPlanner.plan_cluster` call.  ``speeds`` takes either one
+    per-worker sequence or a callable ``budget -> speeds`` (a sweep-level
+    convenience re-attached per budget; it cannot live in a frozen Scenario).
+    Scenario knobs are best passed as one ``scenario=Scenario(...)``; the
+    loose keyword forms keep working behind one ``DeprecationWarning``.
     """
+    from ..cluster.scenario import resolve_scenario
+
+    speeds_fn = speeds if callable(speeds) else None
+    if speeds_fn is not None and scenario is not None:
+        raise ValueError(
+            "plan_sweep: got scenario= and loose scenario kwargs (speeds); "
+            "pass per-budget speeds by calling plan_sweep once per budget "
+            "with scenario.replace(speeds=...)"
+        )
+    explicit = {
+        k: v
+        for k, v in {
+            "size_dependent": size_dependent,
+            "cancel_redundant": cancel_redundant,
+            "speeds": speeds,
+            "churn": churn,
+            "churn_schedule": churn_schedule,
+            "replan": replan,
+            "speculation": speculation,
+            "scheduler": scheduler,
+            "workers_per_job": workers_per_job,
+            "job_plans": job_plans,
+            "jobs_per_stream": jobs_per_stream,
+            "churn_pairs_per_worker": churn_pairs_per_worker,
+            "dtype": dtype,
+            "rep_chunk": rep_chunk,
+            "devices": devices,
+        }.items()
+        if v is not _UNSET
+    }
+    if speeds_fn is not None:
+        explicit.pop("speeds")  # re-attached per grid point below
+    sc = resolve_scenario(scenario, explicit, where="plan_sweep")
+
     dists = list(dists)
     budgets = [int(n) for n in budgets]
     plans = []
@@ -604,6 +722,7 @@ def plan_sweep(
         row = []
         for j, n_workers in enumerate(budgets):
             planner = RedundancyPlanner(n_workers, candidates=candidates)
+            sc_ij = sc.replace(speeds=speeds_fn(n_workers)) if speeds_fn is not None else sc
             row.append(
                 planner.plan_cluster(
                     dist,
@@ -612,7 +731,7 @@ def plan_sweep(
                     seed=seed + i * len(budgets) + j,
                     blend=blend,
                     backend=backend,
-                    scenario=scenario,
+                    scenario=sc_ij,
                     device=device,
                 )
             )

@@ -280,7 +280,8 @@ def test_entry_points_need_a_device_when_no_card(monkeypatch):
                               device="cpu"),
         lambda: P.RedundancyPlanner(4).plan_cluster(P.Exponential(1.0), backend="python"),
         lambda: P.RedundancyPlanner(4).plan_cluster(
-            scenario=pc.Scenario(dist=P.Exponential(1.0), speeds=(1.0,) * 4), device="cpu"),
+            scenario=pc.Scenario(dist=P.Exponential(1.0), speculation=pc.Speculation()),
+            device="cpu"),
         lambda: P.RedundancyPlanner(2).plan_slo(
             P.Exponential(1.0), pc.SLO(target_s=60.0, arrival_rate=0.05),
             scenario=pc.Scenario(speeds=(1.0, 0.5)), n_jobs=20, device="cpu"),
@@ -323,7 +324,8 @@ def test_port_never_imports_jax_or_the_reference():
 @pytest.mark.parametrize(
     "module",
     ["repro_torch.cluster", "repro_torch.cluster.vectorized", "repro_torch.core.service_time",
-     "repro_torch.kernels.cover", "repro_torch.cluster.stream", "repro_torch.core.coupon"],
+     "repro_torch.kernels.cover", "repro_torch.cluster.stream", "repro_torch.core.coupon",
+     "repro_torch.cluster.epoch_scan"],
 )
 def test_each_module_imports_first_in_a_fresh_process(module):
     """``cluster`` and ``core`` import each other at package level; whichever
