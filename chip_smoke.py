@@ -65,6 +65,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports
    ms per step, the peak device memory and the card's idle share over one
    call (``torch.profiler``).  No kernel runs on this path (the counters of
    both cover kernels stay at 0);
+5c. runs the epoch scan's adaptive policies and its streaming fold (no
+   kernel) on the churned-planning scenario with its 2 churn pairs per
+   worker: the in-scan replanner (``ReplanConfig(512, 128, 96)``, as
+   ``examples/elastic_failover.py`` sets it) in ``simulate_epochs`` from
+   B = N = 100 over the 96 Poisson arrivals, 64 reps, cancelling, float64
+   (decisions and times equal to the CPU run, a replan in every rep) and in
+   ``plan_cluster`` at 4096 reps, float32 (the CPU's B*); speculation as
+   ``examples/speculative_backup.py`` runs it (N = 10, Pareto(1, 1.5),
+   ``Speculation(0.4, 2.0, 3)``, 40 jobs at t = 0, 200 reps, cancelling,
+   B = N and the closed form's B*, float64) bitwise against the CPU but the
+   two sums, with backups launched and a lower mean compute time than B = N
+   without them; ``outputs="stream"`` on the churned case without the
+   replanner, its stats bitwise equal to ``epoch_stream_stats`` of the
+   card's full report and to the CPU's stream; ``plan_slo`` on the churned
+   cluster (``RedundancyPlanner(100)``, Pareto(1, 1.8), p99 <= 4 s at 0.3
+   jobs/s, ``fifo_gang``, 200 jobs, 8 reps, float64) equal to the CPU's
+   ``SLOPlan`` with some but not all of the 9 candidates feasible; and the
+   JAX package's float64 runs ``tests/golden/epoch_scan_replan.json`` and
+   ``epoch_scan_speculation.json``; prints for each case the wall time
+   (median of 3 calls; ``plan_slo`` one call), steps, host ms per step,
+   kernel launches per step, the card's idle share (``torch.profiler``) and
+   peak device memory;
 6. runs ``simulate_fifo`` on the card the same way and checks its accounting
    invariant;
 7. runs the paper's batching schemes at full width: ``simulate_membership``
@@ -144,6 +166,18 @@ CHURN_FAIL_RATE, CHURN_DOWNTIME = 0.02, 2.0
 # churn horizon auto-sized from the stream, the entry point's default)
 EPOCH_B, EPOCH_JOBS, EPOCH_GAP, EPOCH_REPS = 50, 96, 3.0, 64
 GOLDEN_EPOCH = ROOT / "tests" / "golden" / "epoch_scan_frontier.json"
+# the dynamic policies on the churned-planning scenario: the in-scan
+# replanner with examples/elastic_failover.py's ReplanConfig, from B = N
+REPLAN_WINDOW, REPLAN_EVERY, REPLAN_MIN = 512, 128, 96
+# speculation as examples/speculative_backup.py runs it: N workers, jobs at
+# t = 0, reps, the Speculation knobs, Pareto(1, SPEC_ALPHA), cancelling
+SPEC_N, SPEC_JOBS, SPEC_REPS, SPEC_ALPHA = 10, 40, 200, 1.5
+SPEC_INTERVAL, SPEC_THETA, SPEC_MIN_OBS = 0.4, 2.0, 3
+# plan_slo on the churned cluster: one Pareto(1, 1.8) class, a p99 target at
+# a Poisson rate that some but not all of the 9 candidates meet
+SLO_DYN_JOBS, SLO_DYN_REPS, SLO_DYN_RATE, SLO_DYN_TARGET = 200, 8, 0.3, 4.0
+GOLDEN_POLICIES = [ROOT / "tests" / "golden" / f"epoch_scan_{name}.json"
+                   for name in ("replan", "speculation")]
 # simulate_fifo's workload: N workers in B batches (r = N / B), FIFO_JOBS jobs
 FIFO_N, FIFO_B, FIFO_JOBS = 100, 10, 64
 # the paper's batching schemes at full width: N workers = tasks, B batches
@@ -176,8 +210,11 @@ def check(ok: bool, what: str) -> None:
         raise PhaseFailed(what)
 
 
+T0 = time.perf_counter()
+
+
 def phase(name: str):
-    print(f"\n== {name}", flush=True)
+    print(f"\n== {name}  [{time.perf_counter() - T0:.1f} s into the script]", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -217,30 +254,40 @@ def close_to(got, want, dtype_name: str) -> tuple[bool, float]:
     return ok, float(err.max()) if err.numel() else 0.0
 
 
-def profile_device(fn, host: dict | None = None,
-                   counts: dict | None = None) -> tuple[float, dict]:
+def profile_device(fn, host: dict | None = None, counts: dict | None = None,
+                   cpu: bool = True) -> tuple[float, dict]:
     """Host-clock ms of ``fn()`` up to a synchronise, and the microseconds the
     card spent in each kernel or copy meanwhile, by name, from a
     ``torch.profiler`` trace (empty when the trace shows no device activity).
     With ``host`` given, also sums each host-side operator's own (self) CPU
     microseconds into it, by name; with ``counts``, counts each kernel's
-    launches into it, by name."""
+    launches into it, by name.  ``cpu=False`` traces the card only and reads
+    the profiler's raw events back (no operator tree): a trace of a few
+    hundred thousand launches then takes seconds, not minutes, to read."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    if cpu:
+        events = [(e.name, e.time_range.elapsed_us(), e.device_type == cuda, e)
+                  for e in prof.events()]
+    else:
+        events = [(e.name(), e.duration_ns() / 1e3, e.device_type() == cuda, None)
+                  for e in prof.profiler.kineto_results.events()]
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for name, us, on_card, e in events:
+        if on_card:
+            by_name[name] = by_name.get(name, 0.0) + us
             if counts is not None:
-                counts[e.name] = counts.get(e.name, 0) + 1
+                counts[name] = counts.get(name, 0) + 1
         elif host is not None:
-            host[e.name] = host.get(e.name, 0.0) + e.self_cpu_time_total
+            host[name] = host.get(name, 0.0) + e.self_cpu_time_total
     return wall_ms, by_name
 
 
@@ -921,6 +968,264 @@ def _churned_planning() -> dict:
           f"{int(card.churn_truncated.sum())} of {EPOCH_REPS} reps", flush=True)
     torch.cuda.empty_cache()
     return launches
+
+
+def _measure(label: str, fn, repeats: int = 3, profiled=None):
+    """Run ``fn`` ``repeats`` times on the card and ``profiled`` (default
+    ``fn``) once more under ``torch.profiler``; print the median wall time,
+    the steps of one call, host ms per step, kernel launches per step and the
+    card's idle share (of the profiled call), and the peak device memory.
+    Returns the first call's result."""
+    import torch
+
+    from repro_torch.cluster import epoch_scan
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    walls, first = [], None
+    epoch_scan.steps_run = 0
+    for i in range(repeats):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        first = out if i == 0 else first
+    steps = epoch_scan.steps_run // repeats
+    peak = torch.cuda.max_memory_allocated() - base
+    counts: dict = {}
+    epoch_scan.steps_run = 0
+    t0 = time.perf_counter()
+    wall_ms, by_name = profile_device(profiled or fn, counts=counts, cpu=False)
+    read_s = time.perf_counter() - t0 - wall_ms / 1e3
+    busy_ms = sum(by_name.values()) / 1e3
+    n_kernels = sum(counts.values())
+    idle = f"{1.0 - busy_ms / wall_ms:.1%}" if busy_ms > 0 else "not measured"
+    wall = statistics.median(walls)
+    print(f"{label}: {wall:.4f} s (median of {repeats}, {min(walls):.4f} to {max(walls):.4f}); "
+          f"{steps} steps, {wall * 1e3 / max(steps, 1):.4f} host ms per step; "
+          f"{n_kernels / max(epoch_scan.steps_run, 1):.2f} kernel launches and copies per step "
+          f"({n_kernels} in a profiled call of {wall_ms:.1f} ms, read back in {read_s:.1f} s); "
+          f"card idle {idle}; peak "
+          f"device memory {peak / 1e6:.3f} MB above its {base / 1e6:.3f} MB start", flush=True)
+    return first
+
+
+def _same_report(card, cpu, what: str, fields, sums=()) -> None:
+    """Integers and float64 times bitwise, the worker-second sums within rtol 1e-12."""
+    import numpy as np
+
+    for f in fields:
+        a, b = getattr(card, f), getattr(cpu, f)
+        if a is None and b is None:
+            continue
+        bits = (lambda x: x.view(np.uint64)) if a.dtype == np.float64 else (lambda x: x)
+        check(a.dtype == b.dtype and np.array_equal(bits(a), bits(b)),
+              f"{what}: {f} differs card vs CPU")
+    for f in sums:
+        a, b = getattr(card, f), getattr(cpu, f)
+        check(bool((np.abs(a - b) <= 1e-12 * np.abs(b)).all()),
+              f"{what}: {f} card vs CPU beyond rtol 1e-12")
+
+
+def phase_dynamic_policies() -> dict:
+    import warnings
+
+    # the sampled churn horizon (2 pairs a worker) ends before most streams
+    # do, as in the churned-planning phase; the warnings are shown once
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        launches = _dynamic_policies()
+    seen = sorted({str(w.message).split(":")[0] for w in caught
+                   if issubclass(w.category, RuntimeWarning)})
+    for text in seen:
+        print(f"RuntimeWarning (expected, by the scenario's design): {text}")
+    return launches
+
+
+def _dynamic_policies() -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.cluster import (
+        SLO,
+        ChurnProcess,
+        ReplanConfig,
+        Scenario,
+        Speculation,
+        epoch_stream_stats,
+    )
+    from repro_torch.cluster.epoch_scan import simulate_epochs
+    from repro_torch.cluster.stream import _ACC_FIELDS
+    from repro_torch.core import RedundancyPlanner, traces
+    from repro_torch.core.service_time import Exponential, Pareto
+    from repro_torch.kernels import cover
+
+    replan = ReplanConfig(window=REPLAN_WINDOW, refit_every=REPLAN_EVERY,
+                          min_observations=REPLAN_MIN)
+    phase(f"dynamic policies on the epoch scan: the replanner ({replan}) at N={CHURN_N} on "
+          f"the churned scenario, speculation at N={SPEC_N}, the streaming fold, plan_slo on "
+          "the churned cluster")
+    cover.launches = cover.draws_launches = cover.philox_launches = 0
+    decisions = ("n_replans", "n_batches_used", "replication_used")
+    times = ("starts", "finishes", "epoch_times", "n_worker_failures", "n_replicas_rescued")
+    sums = ("worker_seconds", "cancelled_seconds_saved")
+
+    # -- the replanner in simulate_epochs, from B = N, float64
+    arrivals = np.cumsum(np.random.default_rng(SEED).exponential(EPOCH_GAP, EPOCH_JOBS))
+    r_sc = churn_scenario(cancel_redundant=True, size_dependent=False, dtype="float64",
+                          churn_pairs_per_worker=CHURN_PAIRS, replan=replan)
+    law = Pareto(sigma=1.0, alpha=1.8)
+    args = (law, CHURN_N, CHURN_N, arrivals, EPOCH_REPS)
+    card = _measure(f"replanner simulate_epochs N={CHURN_N}, {EPOCH_JOBS} jobs, {EPOCH_REPS} "
+                    "reps, float64", lambda: simulate_epochs(*args, seed=SEED, scenario=r_sc))
+    t0 = time.perf_counter()
+    cpu = simulate_epochs(*args, seed=SEED, scenario=r_sc, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    _same_report(card, cpu, "replanner simulate_epochs", decisions + times, sums)
+    check(bool((card.n_replans >= 1).all()), "replanner: a rep ran without a replan")
+    check(np.isfinite(card.finishes).all(), "replanner: an unfinished job")
+    print(f"replanner: decisions and times equal to the CPU's ({cpu_s:.4f} s there); replans "
+          f"per rep {int(card.n_replans.min())} to {int(card.n_replans.max())}, final B "
+          f"{sorted(set(card.final_n_batches.tolist()))}", flush=True)
+
+    # -- the replanner while plan_cluster scores the frontier, float32
+    p_sc = churn_scenario(churn_pairs_per_worker=CHURN_PAIRS, jobs_per_stream=CHURN_STREAM,
+                          replan=replan)
+    planner = RedundancyPlanner(CHURN_N)
+    plan = _measure(f"replanner plan_cluster N={CHURN_N}, {CHURN_REPS} reps, float32",
+                    lambda: planner.plan_cluster(law, n_reps=CHURN_REPS, seed=SEED,
+                                                 scenario=p_sc))
+    t0 = time.perf_counter()
+    plan_cpu = planner.plan_cluster(law, n_reps=CHURN_REPS, seed=SEED, scenario=p_sc,
+                                    device="cpu")
+    cpu_s = time.perf_counter() - t0
+    check(plan.n_batches == plan_cpu.n_batches, f"replanner plan_cluster: B* {plan.n_batches} "
+          f"on the card, {plan_cpu.n_batches} on the CPU")
+    print(f"replanner plan_cluster: B*={plan.n_batches} as on the CPU ({cpu_s:.4f} s there); "
+          f"whole plan equal: {plan == plan_cpu}", flush=True)
+
+    # -- speculation as the reference's example runs it, float64
+    s_sc = Scenario(speculation=Speculation(interval=SPEC_INTERVAL, theta=SPEC_THETA,
+                                            min_observations=SPEC_MIN_OBS),
+                    cancel_redundant=True, dtype="float64")
+    s_law = Pareto(sigma=1.0, alpha=SPEC_ALPHA)
+    b_star = RedundancyPlanner(SPEC_N).plan(s_law, objective="mean").n_batches
+    s_fields = decisions + times + ("n_speculative",)
+    for b in (SPEC_N, b_star):
+        s_args = (s_law, SPEC_N, b, np.zeros(SPEC_JOBS), SPEC_REPS)
+        label = f"speculation N={SPEC_N} B={b}, {SPEC_JOBS} jobs, {SPEC_REPS} reps, float64"
+        run = lambda: simulate_epochs(*s_args, seed=SEED, scenario=s_sc)  # noqa: E731
+        card = _measure(label, run) if b == SPEC_N else run()
+        cpu = simulate_epochs(*s_args, seed=SEED, scenario=s_sc, device="cpu")
+        _same_report(card, cpu, f"speculation B={b}", s_fields, sums)
+        check(card.n_speculative.sum() > 0, f"speculation B={b}: no backup launched")
+        msg = (f"speculation B={b}: bitwise equal to the CPU but the sums; backups per rep "
+               f"{card.n_speculative.mean():.2f}; mean compute time "
+               f"{card.compute_times.mean():.6f}")
+        if b == SPEC_N:
+            plain = simulate_epochs(*s_args, seed=SEED, scenario=s_sc.replace(speculation=None))
+            check(card.compute_times.mean() < plain.compute_times.mean(),
+                  "speculation did not cut the mean compute time at B = N")
+            msg += f" against {plain.compute_times.mean():.6f} without backups"
+        print(msg, flush=True)
+
+    # -- the streaming fold on the churned case without the replanner
+    f_sc = r_sc.replace(replan=None)
+    stream = _measure(f"streaming fold simulate_epochs N={CHURN_N}, {EPOCH_JOBS} jobs, "
+                      f"{EPOCH_REPS} reps, float64 (no replanner)",
+                      lambda: simulate_epochs(*args, seed=SEED,
+                                              scenario=f_sc.replace(outputs="stream")))
+    full = simulate_epochs(*args, seed=SEED, scenario=f_sc)
+    cpu = simulate_epochs(*args, seed=SEED, scenario=f_sc.replace(outputs="stream"),
+                          device="cpu")
+    host = epoch_stream_stats(full)
+    for f in _ACC_FIELDS:
+        a, h, c = getattr(stream.stats, f), getattr(host, f), getattr(cpu.stats, f)
+        check(a.dtype == h.dtype and np.array_equal(a, h),
+              f"stream {f} differs from the host fold of the card's full report")
+        # busy_sum / saved_sum are the lane's worker-second sums: the card's
+        # reduction picks their order, so against the CPU they hold to 1e-12
+        same = (np.abs(a - c) <= 1e-12 * np.abs(c)).all() if f in ("busy_sum", "saved_sum") \
+            else np.array_equal(a, c)
+        check(a.dtype == c.dtype and bool(same), f"stream {f} differs from the CPU's stream")
+    print(f"streaming fold: stats bitwise equal to epoch_stream_stats of the card's full report; "
+          f"against the CPU's stream bitwise but the two worker-second sums (rtol 1e-12); "
+          f"{int(stream.stats.count.sum())} jobs folded, {int(stream.n_unfinished.sum())} "
+          "unfinished", flush=True)
+
+    # -- plan_slo on the churned cluster, float64
+    slo = SLO(quantile=0.99, target_s=SLO_DYN_TARGET, arrival_rate=SLO_DYN_RATE)
+    d_sc = churn_scenario(cancel_redundant=True, size_dependent=False, dtype="float64",
+                          churn_pairs_per_worker=CHURN_PAIRS)
+    kw = dict(scenario=d_sc, n_jobs=SLO_DYN_JOBS, n_reps=SLO_DYN_REPS, seed=SEED,
+              schedulers=("fifo_gang",))
+    # one call (its 9 candidates are 9 simulate_epochs calls), and the
+    # profiler over one candidate's, B = 10: the phase's time budget
+    stream_jobs = traces.poisson_stream(
+        [traces.TraceJob(name="pareto", family="fitted", task_times=np.ones(1))],
+        SLO_DYN_RATE, SLO_DYN_JOBS, seed=SEED).arrivals
+    slo_plan = _measure(f"plan_slo N={CHURN_N} churned, Pareto(1, 1.8), p99 <= "
+                        f"{SLO_DYN_TARGET} s at {SLO_DYN_RATE} jobs/s, {SLO_DYN_JOBS} jobs, "
+                        f"{SLO_DYN_REPS} reps, float64 (profiled: the B=10 candidate)",
+                        lambda: planner.plan_slo(law, slo, **kw), repeats=1,
+                        profiled=lambda: simulate_epochs(law, CHURN_N, 10, stream_jobs,
+                                                         SLO_DYN_REPS, seed=SEED,
+                                                         scenario=d_sc))
+    t0 = time.perf_counter()
+    slo_cpu = planner.plan_slo(law, slo, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    n_ok, n_cand = sum(c.feasible for c in slo_plan.candidates), len(planner.candidates)
+    check(slo_plan.source == "epoch_scan", f"plan_slo source {slo_plan.source}")
+    check(len(slo_plan.candidates) == n_cand and 0 < n_ok < n_cand,
+          f"{n_ok} of {len(slo_plan.candidates)} candidates feasible: want some but not all")
+    check(slo_plan.feasible == slo_cpu.feasible and slo_plan.best.n_batches
+          == slo_cpu.best.n_batches, "plan_slo: the card's best differs from the CPU's")
+    for g, w in zip(slo_plan.candidates, slo_cpu.candidates):
+        check((g.n_batches, g.feasible, g.achieved, g.mean_response)
+              == (w.n_batches, w.feasible, w.achieved, w.mean_response)
+              and abs(g.cost_worker_seconds - w.cost_worker_seconds)
+              <= 1e-12 * abs(w.cost_worker_seconds), f"plan_slo candidate B={w.n_batches} "
+              "differs card vs CPU")
+    print(f"plan_slo: the card's SLOPlan equals the CPU's ({cpu_s:.3f} s there); {n_ok} of "
+          f"{n_cand} feasible; best B={slo_plan.best.n_batches} at "
+          f"{slo_plan.best.cost_worker_seconds:.6g} worker-seconds", flush=True)
+
+    # -- the JAX package's float64 runs of one replanning and one churned
+    # speculation scenario
+    for path in GOLDEN_POLICIES:
+        golden = json.loads(path.read_text())
+        g_kw = dict(golden["scenario"], speeds=tuple(golden["speeds"]))
+        if "replan" in golden:
+            g_kw["replan"] = ReplanConfig(**golden["replan"])
+        if "speculation" in golden:
+            g_kw["speculation"] = Speculation(**golden["speculation"])
+        if "churn" in golden:
+            g_kw["churn"] = ChurnProcess(**golden["churn"])
+        g_law = {"Pareto": Pareto, "Exponential": Exponential}[golden["dist"]["kind"]](
+            **golden["dist"]["fields"])
+        rep = simulate_epochs(g_law, golden["n_workers"], golden["n_batches"],
+                              np.asarray(golden["arrivals"]), golden["n_reps"],
+                              seed=golden["seed"], scenario=Scenario(**g_kw))
+        for f in ("n_replans", "n_batches_used", "replication_used", "starts", "finishes",
+                  "n_speculative", "n_worker_failures", "n_replicas_rescued", "epoch_times"):
+            if f not in golden:
+                continue
+            got = np.asarray(getattr(rep, f))
+            want = np.asarray(golden[f], dtype=got.dtype)
+            bits = (lambda x: x.view(np.uint64)) if got.dtype == np.float64 else (lambda x: x)
+            check(np.array_equal(bits(got), bits(want)), f"{path.name}: {f} differs")
+        for f in sums:
+            got, want = np.asarray(getattr(rep, f)), np.asarray(golden[f])
+            check(bool((np.abs(got - want) <= 1e-12 * np.abs(want)).all()),
+                  f"{path.name}: {f} beyond rtol 1e-12")
+        print(f"{path.relative_to(ROOT)}: the card's run equals the JAX package's "
+              "(bitwise but the sums, rtol 1e-12)", flush=True)
+    got = {"draws": cover.draws_launches, "philox": cover.philox_launches}
+    check(got == {"draws": 0, "philox": 0}, f"a cover kernel ran: {got}")
+    torch.cuda.empty_cache()
+    return got
 
 
 def phase_fifo() -> dict:
@@ -1605,7 +1910,8 @@ def main() -> int:
         rms_rec = phase_rmsnorm_vs_plain()
         att_rec = phase_attention_vs_plain()
         plan_launches = phase_main_path()
-        path_launches = [plan_launches, phase_churned_planning(), phase_fifo(),
+        path_launches = [plan_launches, phase_churned_planning(), phase_dynamic_policies(),
+                         phase_fifo(),
                          phase_schemes(), phase_stream(), phase_slo()]
         serve_launches = phase_serve()
         phase_decode_profile()

@@ -10,23 +10,40 @@ Public surface ported so far:
     ``plan_sweep``, and the stream slab
   * stream     -- trace-scale streaming (``simulate_stream``) with on-device
     response statistics, the path behind ``plan_slo``
+  * control    -- OnlineReplanner (sliding-window refit + replan) and
+    SpeculativePolicy, the oracles of the epoch scan's adaptive policies
   * epoch_scan -- the epoch scan's gang lane: churn, replica rescue,
-    heterogeneous speeds and FIFO gang dispatch (``simulate_epochs``), and
+    heterogeneous speeds, FIFO gang dispatch, the in-scan replanner
+    (``ReplanConfig``) and speculative backups (``simulate_epochs``, with
+    ``outputs="stream"`` folding to an ``EpochStreamReport``), and
     whole-frontier scoring of dynamic scenarios
     (``frontier_job_times_dynamic``), the path behind a dynamic
-    ``plan_cluster``
+    ``plan_cluster`` and ``plan_slo``
 
-The epoch scan's other lanes, the DES engine and the live runtime come with
+The epoch scan's space lane, the DES engine and the live runtime come with
 later slices (``ROADMAP.md``).
 """
 # core first: its __init__ re-exports cluster.scenario, whose workers import
 # core.service_time, so entering through cluster would meet a half-built core
 from .. import core  # noqa: F401
-from . import epoch_scan, scenario, scheduler, stream, vectorized, workers
-from .epoch_scan import EpochReport, frontier_job_times_dynamic, simulate_epochs
+from . import control, epoch_scan, scenario, scheduler, stream, vectorized, workers
+from .control import OnlineReplanner, SpeculativePolicy
+from .epoch_scan import (
+    EpochReport,
+    EpochStreamReport,
+    ReplanConfig,
+    frontier_job_times_dynamic,
+    simulate_epochs,
+)
 from .scenario import SLO, FaultPlan, Retry, Scenario, Speculation
 from .scheduler import JobPlan, Scheduler, make_scheduler
-from .stream import StreamFullReport, StreamStats, fold_stream_stats, simulate_stream
+from .stream import (
+    StreamFullReport,
+    StreamStats,
+    epoch_stream_stats,
+    fold_stream_stats,
+    simulate_stream,
+)
 from .vectorized import (
     STREAM_HIST_BINS,
     STREAM_HIST_EDGES,
@@ -38,6 +55,7 @@ from .vectorized import (
 from .workers import ChurnProcess, ChurnSchedule, Worker, WorkerPool, sample_churn_schedule
 
 __all__ = [
+    "control",
     "epoch_scan",
     "scenario",
     "scheduler",
@@ -52,7 +70,11 @@ __all__ = [
     "JobPlan",
     "Scheduler",
     "make_scheduler",
+    "OnlineReplanner",
+    "SpeculativePolicy",
     "EpochReport",
+    "EpochStreamReport",
+    "ReplanConfig",
     "simulate_epochs",
     "frontier_job_times_dynamic",
     "FifoReport",
@@ -64,6 +86,7 @@ __all__ = [
     "StreamFullReport",
     "StreamStats",
     "fold_stream_stats",
+    "epoch_stream_stats",
     "simulate_stream",
     "ChurnProcess",
     "ChurnSchedule",

@@ -1,41 +1,49 @@
-"""The epoch scan's gang lane in torch: churn, rescue and heterogeneous speeds.
+"""The epoch scan's gang lane in torch: churn, rescue, speeds and adaptive policies.
 
 Port of the single-gang lane of ``repro.cluster.epoch_scan``.  It replays the
 dynamic semantics of the event-driven cluster engine -- worker fail/join
 churn, replica rescue, per-worker speed factors, FIFO multi-job gang
-dispatch and replica cancellation -- as a bounded step loop, batched over
+dispatch, replica cancellation, the windowed online replanner and reactive
+(speculative) backup replicas -- as a bounded step loop, batched over
 Monte-Carlo reps (and, for planning, over a whole candidate frontier).  Each
 step performs exactly one action:
 
   * *rescue*: dispatch the oldest pending rescue onto the earliest-freeing
     alive worker, or
-  * *commit + dispatch*: commit batch wins up to the next churn boundary and
-    gang-dispatch the next queued job, or
+  * *backup*: with speculation on, launch one backup replica at a heartbeat
+    epoch before the next completion, or
+  * *commit + dispatch*: commit batch wins up to the next churn boundary
+    (with speculation on, only the earliest completion-time group), feed the
+    replanner's window, and gang-dispatch the next queued job, or
   * *commit + boundary*: apply one fail/join event (replica kill, rescue
     queueing, the engine's sim-over churn truncation).
 
 Every lane is one row of ``(L, ...)`` tensors on one device; a step is a
-fixed sequence of eager torch operations on all of them.  The loop runs in
-chunks of :data:`_STEP_CHUNK` steps, and a lane whose ``done`` predicate
-holds at a chunk boundary leaves the batch with its state as it stands --
-the freezing granularity of the reference's batched ``while_loop``, which
-fixes when straggling replicas commit and so the order of the worker-second
-sums.
+fixed sequence of eager torch operations on all of them, with no host
+synchronisation.  The loop runs in chunks of :data:`_STEP_CHUNK` steps, and a
+lane whose ``done`` predicate holds at a chunk boundary leaves the batch with
+its state as it stands -- the freezing granularity of the reference's batched
+``while_loop``, which fixes when straggling replicas commit and so the order
+of the worker-second sums.
 
-Reproducibility: lane ``i`` draws every replica duration, rescue duration
-and (under sampled churn) its own fail/join timeline on the host from
-``numpy.random.default_rng(SeedSequence((seed, i)))``, at the reference's
-bucketed shapes (:func:`_shapes`), so both packages consume the same numbers
-and ``rep_chunk`` is bit-identical to one call.  In float64 every output is
-the reference's bit for bit except ``worker_seconds`` and
+Reproducibility: lane ``i`` draws every replica duration, rescue duration,
+backup duration and (under sampled churn) its own fail/join timeline on the
+host from ``numpy.random.default_rng(SeedSequence((seed, i)))``, at the
+reference's bucketed shapes (:func:`_shapes`), so both packages consume the
+same numbers and ``rep_chunk`` is bit-identical to one call.  In float64
+every output is the reference's bit for bit except ``worker_seconds`` and
 ``cancelled_seconds_saved``, sums over replica slots whose order neither XLA
-nor torch fixes.  Lane batches are not padded to powers of two: the
+nor torch fixes -- and except the replanner's refit: its logarithms and
+``lgamma`` differ from XLA's in the last bits, so it is held to the
+reference's *decisions* (which family, which B, when), and every time
+downstream of equal decisions is bitwise.  ``outputs="stream"`` folds the
+same lanes' per-job records into :class:`EpochStreamReport` on the device,
+in arrival order.  Lane batches are not padded to powers of two: the
 reference pads them for its compile cache, and padding lanes carry no result.
 
-Not ported yet, and refused by name at the entry points: the in-scan
-replanner (``replan``), speculation, the space-sharing lane,
-``outputs="stream"``, and ``devices > 1`` (the port runs every lane on one
-device).
+Not ported yet, and refused by name at the entry points: the space-sharing
+lane (``scheduler`` / ``workers_per_job`` / ``job_plans``) and
+``devices > 1`` (the port runs every lane on one device).
 """
 from __future__ import annotations
 
@@ -48,12 +56,15 @@ import numpy as np
 import torch
 
 from .._device import resolve_device, resolve_dtype
+from ..core.analysis import divisor_table, harmonic_tables
 from ..core.service_time import ServiceTime
-from .scenario import UNSET, Scenario, resolve_scenario
+from .scenario import UNSET, Scenario, Speculation, resolve_scenario
 from .workers import ChurnProcess, ChurnSchedule
 
 __all__ = [
+    "ReplanConfig",
     "EpochReport",
+    "EpochStreamReport",
     "simulate_epochs",
     "frontier_job_times_dynamic",
 ]
@@ -61,6 +72,35 @@ __all__ = [
 # steps run since import (or since a caller last reset it to 0), summed over
 # lane batches: each batch adds _STEP_CHUNK per chunk it runs
 steps_run = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplanConfig:
+    """The in-scan replanner's knobs: a static mirror of
+    :class:`~repro_torch.cluster.control.OnlineReplanner`'s.
+
+    ``to_controller`` builds the equivalent controller, so one config drives
+    both the scan and its function-level oracle.
+    """
+
+    window: int = 512
+    refit_every: int = 128
+    min_observations: int = 64
+    objective: str = "mean"
+    blend: float = 0.5
+
+    def to_controller(self, n_workers: int):
+        """Materialize this config as an :class:`~repro_torch.cluster.control.OnlineReplanner`."""
+        from .control import OnlineReplanner
+
+        return OnlineReplanner(
+            n_workers,
+            objective=self.objective,
+            window=self.window,
+            refit_every=self.refit_every,
+            min_observations=self.min_observations,
+            blend=self.blend,
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +170,37 @@ class EpochReport:
         }
 
 
+@dataclasses.dataclass(frozen=True)
+class EpochStreamReport:
+    """``Scenario.outputs="stream"`` outcome of :func:`simulate_epochs`.
+
+    Carries O(n_reps) streaming aggregates instead of ``(n_reps, n_jobs)``
+    per-job records: ``stats`` is a
+    :class:`~repro_torch.cluster.stream.StreamStats` whose response/compute
+    fields come from the fold on the device (its ``busy_sum`` / ``saved_sum``
+    are the lane's per-rep worker-seconds totals), plus the usual per-rep
+    counters.  ``n_unfinished`` counts jobs never completed (dead cluster);
+    they are left out of the statistics.  On float64 lanes the stats equal
+    :func:`~repro_torch.cluster.stream.epoch_stream_stats` of the equivalent
+    ``outputs="full"`` report bit for bit.
+    """
+
+    arrivals: np.ndarray  # (n_jobs,)
+    stats: object  # StreamStats (stream.py is imported lazily)
+    n_unfinished: np.ndarray  # (n_reps,)
+    worker_seconds: np.ndarray  # (n_reps,)
+    cancelled_seconds_saved: np.ndarray  # (n_reps,)
+    n_worker_failures: np.ndarray  # (n_reps,)
+    n_replicas_rescued: np.ndarray  # (n_reps,)
+    n_replans: np.ndarray  # (n_reps,)
+    n_speculative: np.ndarray = None  # (n_reps,)
+    churn_truncated: np.ndarray = None  # see EpochReport
+
+    def accounting(self) -> dict:
+        """Per-rep counters, keyed identically to ``EpochReport.accounting``."""
+        return EpochReport.accounting(self)
+
+
 # --------------------------------------------------------------------------
 # shape buckets (part of the draw contract: draws are made at these shapes)
 # --------------------------------------------------------------------------
@@ -160,8 +231,19 @@ class _RunnerCfg:
     size_dep: bool
     dtype: str
     # False drops the per-event epoch-times buffer and the per-job B/r
-    # records; the planning path reads starts/finishes only
+    # records; the planning path and the streaming fold read starts/finishes
     full_outputs: bool = True
+    replan: Optional[ReplanConfig] = None
+    # reactive backups: a third replica-slot range and event-granular commits
+    spec: Optional[Speculation] = None
+    # fold starts/finishes into EpochStreamReport accumulators on the device
+    stream: bool = False
+
+    @property
+    def n_slots(self) -> int:
+        """Replica slots: [0, n) gang replica of worker i, [n, 2n) rescue of
+        batch i - n, and with speculation [2n, 3n) the backup of batch i - 2n."""
+        return (3 if self.spec is not None else 2) * self.n
 
 
 # --------------------------------------------------------------------------
@@ -171,22 +253,26 @@ class _RunnerCfg:
 
 def _init_state(cfg: _RunnerCfg, b0: torch.Tensor, n_real: int, dt, dev) -> dict:
     n, L = cfg.n, b0.shape[0]
-    ns = 2 * n  # replica slots: [0, n) gang replica of worker i, [n, 2n) rescue of batch i - n
+    ns = cfg.n_slots
     inf = float("inf")
     i64 = torch.int64
+
+    def lanes(dtype, fill=0):
+        return torch.full((L,), fill, dtype=dtype, device=dev)
+
     # buffers written by gated scatters carry one sentinel column past their
     # end: a write switched off points there (the reference's dropped
     # out-of-bounds scatter) and every read slices it away
     alive = torch.zeros(L, n + 1, dtype=torch.bool, device=dev)
     alive[:, :n_real] = True
     st = {
-        "t_cursor": torch.zeros(L, dtype=dt, device=dev),
-        "e": torch.zeros(L, dtype=i64, device=dev),
+        "t_cursor": lanes(dt),
+        "e": lanes(i64),
         "alive": alive,
-        "q": torch.zeros(L, dtype=i64, device=dev),
-        "job_active": torch.zeros(L, dtype=torch.bool, device=dev),
-        "job_b": torch.ones(L, dtype=i64, device=dev),
-        "q_active": torch.zeros(L, dtype=i64, device=dev),
+        "q": lanes(i64),
+        "job_active": lanes(torch.bool, False),
+        "job_b": lanes(i64, 1),
+        "q_active": lanes(i64),
         "g_b": torch.zeros(L, n, dtype=i64, device=dev),
         "rb_w": torch.zeros(L, n + 1, dtype=i64, device=dev),
         "rp_live": torch.zeros(L, ns + 1, dtype=torch.bool, device=dev),
@@ -196,11 +282,12 @@ def _init_state(cfg: _RunnerCfg, b0: torch.Tensor, n_real: int, dt, dev) -> dict
         "batch_done_t": torch.full((L, n), -inf, dtype=dt, device=dev),
         "resc_pending": torch.zeros(L, n + 1, dtype=torch.bool, device=dev),
         "resc_t": torch.full((L, n), inf, dtype=dt, device=dev),
-        "resc_k": torch.zeros(L, dtype=i64, device=dev),
-        "busy": torch.zeros(L, dtype=dt, device=dev),
-        "saved": torch.zeros(L, dtype=dt, device=dev),
-        "n_fail": torch.zeros(L, dtype=i64, device=dev),
-        "n_resc": torch.zeros(L, dtype=i64, device=dev),
+        "resc_k": lanes(i64),
+        "busy": lanes(dt),
+        "saved": lanes(dt),
+        "n_fail": lanes(i64),
+        "n_resc": lanes(i64),
+        "n_replans": lanes(i64),
         "plan_b": b0.to(i64),
         "starts": torch.full((L, cfg.jobs_pad + 1), inf, dtype=dt, device=dev),
         "fins": torch.full((L, cfg.jobs_pad + 1), inf, dtype=dt, device=dev),
@@ -210,7 +297,194 @@ def _init_state(cfg: _RunnerCfg, b0: torch.Tensor, n_real: int, dt, dev) -> dict
     if cfg.full_outputs:
         st["br"] = torch.zeros(L, cfg.jobs_pad + 1, dtype=i64, device=dev)
         st["ep_times"] = torch.full((L, cfg.ev_pad + 1), inf, dtype=dt, device=dev)
+    if cfg.replan is not None:
+        w = cfg.replan.window
+        # the observation ring: task times and their censoring counts
+        st["obs_val"] = torch.zeros(L, w + 1, dtype=dt, device=dev)
+        st["obs_comp"] = torch.ones(L, w + 1, dtype=dt, device=dev)
+        st["obs_head"] = lanes(i64)
+        st["obs_count"] = lanes(i64)
+        st["since_refit"] = lanes(i64)
+    if cfg.spec is not None:
+        st["sb_w"] = torch.zeros(L, n + 1, dtype=i64, device=dev)
+        st["spec_obs"] = torch.full((L, n), inf, dtype=dt, device=dev)
+        st["spec_used"] = lanes(i64)
+        st["spec_k"] = lanes(i64)
+        st["spec_now"] = lanes(dt)
+        st["n_spec"] = lanes(i64)
     return st
+
+
+def _obs_push(cfg: _RunnerCfg, st: dict, vals, comps, times, valid) -> None:
+    """Push the valid observations into the ring in completion-time order:
+    they take ranks 0..nv-1 under a stable sort of their times and land at
+    head + rank; the rest go to the sentinel column."""
+    w = cfg.replan.window
+    valid = valid & (vals > 0.0) & torch.isfinite(vals)
+    nv = valid.sum(1)
+    order = torch.argsort(torch.where(valid, times, float("inf")), dim=1, stable=True)
+    rank = torch.argsort(order, dim=1, stable=True)
+    pos = torch.where(valid, (st["obs_head"][:, None] + rank) % w, w)
+    st["obs_val"].scatter_(1, pos, vals)
+    st["obs_comp"].scatter_(1, pos, comps)
+    st["obs_head"] = (st["obs_head"] + nv) % w
+    st["obs_count"] = (st["obs_count"] + nv).clamp(max=w)
+    st["since_refit"] += nv
+
+
+def _replan_pick(cfg: _RunnerCfg, st: dict, inp: dict, alive) -> tuple:
+    """Every lane's refit and re-pick of B (the reference's expressions).
+
+    Maximum-likelihood fits of Exp / SExp / Pareto on the window, picked by
+    log-likelihood (``core.planner.fit_service_time``), the min-of-c
+    censoring inversion (``control._inverse_min``), and the closed-form
+    frontier argmin over the divisors of the alive count (``core.analysis``
+    forms, ``lgamma`` for the Pareto moments).  Returns each lane's new B
+    (lanes with no alive worker keep theirs) and the family it fitted
+    (0 Exp, 1 SExp, 2 Pareto).
+    """
+    w = cfg.replan.window
+    inf, tiny = float("inf"), 1e-30
+    m = torch.arange(w, device=alive.device) < st["obs_count"][:, None]
+    x = st["obs_val"][:, :w]
+    dt = x.dtype
+    nobs = st["obs_count"].clamp(min=1).to(dt)
+    sx = torch.where(m, x, 0.0).sum(1)
+    mean = sx / nobs
+    xmin = torch.where(m, x, inf).amin(1)
+    slogx = torch.where(m, torch.log(x.clamp(min=tiny)), 0.0).sum(1)
+    mu_e = 1.0 / mean.clamp(min=tiny)
+    ll_e = nobs * torch.log(mu_e) - mu_e * sx
+    gap = mean - xmin
+    mu_s = 1.0 / gap.clamp(min=tiny)
+    ll_s = torch.where(gap > 0, nobs * torch.log(mu_s) - mu_s * (sx - nobs * xmin), -inf)
+    log_xmin = torch.log(xmin.clamp(min=tiny))
+    slogs = slogx - nobs * log_xmin
+    alpha = nobs / slogs.clamp(min=tiny)
+    ll_p = torch.where(
+        slogs > 0, nobs * torch.log(alpha) + nobs * alpha * log_xmin - (alpha + 1.0) * slogx, -inf
+    )
+    fam = torch.stack([ll_e, ll_s, ll_p], 1).argmax(1)[:, None]
+    c = (torch.where(m, st["obs_comp"][:, :w], 0.0).sum(1) / nobs).clamp(min=1.0)
+    mu_e, mu_s, alpha_c = (mu_e / c)[:, None], (mu_s / c)[:, None], (alpha / c)[:, None]
+    xmin = xmin[:, None]
+
+    n_alive = alive.sum(1)
+    cands = inp["div_tab"][n_alive]  # (L, D), zero-padded
+    c1 = cands.clamp(min=1)
+    b = c1.to(dt)
+    h1, h2 = inp["h1"][c1], inp["h2"][c1]
+    na = n_alive.to(dt)[:, None]
+    mean_e = h1 / mu_e
+    cov_e = torch.sqrt(h2) / h1
+    mean_s = na * xmin / b + h1 / mu_s
+    cov_s = torch.sqrt(h2) / (na * xmin * mu_s / b + h1)
+    xp = b / (na * alpha_c).clamp(min=tiny)
+    lg = torch.lgamma
+    lgm = torch.log((na * xmin / b).clamp(min=tiny)) + lg(b + 1.0)
+    lgm = lgm - lg(b + 1.0 - xp) + lg(1.0 - xp)
+    mean_p = torch.where(xp < 1.0, torch.exp(lgm), inf)
+    lgq = (
+        lg(1.0 - 2.0 * xp)
+        + 2.0 * lg(b + 1.0 - xp)
+        - lg(b + 1.0)
+        - lg(b + 1.0 - 2.0 * xp)
+        - 2.0 * lg(1.0 - xp)
+    )
+    cov_p = torch.where(2.0 * xp < 1.0, torch.sqrt((torch.exp(lgq) - 1.0).clamp(min=0.0)), inf)
+    vb = cands > 0
+    means = torch.where(vb, torch.where(fam == 0, mean_e, torch.where(fam == 1, mean_s, mean_p)),
+                        inf)
+    covs = torch.where(vb, torch.where(fam == 0, cov_e, torch.where(fam == 1, cov_s, cov_p)), inf)
+    objective = cfg.replan.objective
+    if objective == "mean":
+        score = means
+    elif objective == "cov":
+        score = covs
+    else:  # "blend" (Scenario.validate refuses any other)
+        finite = torch.isfinite(means) & torch.isfinite(covs)
+
+        def norm01(v):
+            lo = torch.where(finite, v, inf).amin(1, keepdim=True)
+            hi = torch.where(finite, v, -inf).amax(1, keepdim=True)
+            return torch.where(finite, (v - lo) / (hi - lo).clamp(min=1e-12), 0.0)
+
+        blend = inp["blend"]
+        score = torch.where(finite, blend * norm01(means) + (1.0 - blend) * norm01(covs), inf)
+    new_b = cands.gather(1, score.argmin(1, keepdim=True))[:, 0]
+    return torch.where(n_alive > 0, new_b.clamp(min=1), st["plan_b"]), fam[:, 0]
+
+
+def _spec_launch(cfg: _RunnerCfg, st: dict, inp: dict, rp_b, rp_w, win, can_r, t_next,
+                 batch_scale):
+    """The speculative backup trigger, and a launch where it fires (in place).
+
+    The running lower median of the job's completed sibling durations, each
+    unfinished batch's youngest live replica crossing at start + theta x
+    median, and the launch on the first heartbeat epoch strictly after both
+    the crossing and the last processed event -- ``SpeculativePolicy``'s
+    float expressions.  A launch happens only strictly before the next
+    replica-completion event ``t_evm`` (a batch win under cancellation, any
+    replica end otherwise), which the commit then uses to take one
+    completion-time group per step.  Returns ``(can_s, t_evm)``.
+    """
+    n, ns, spec = cfg.n, cfg.n_slots, cfg.spec
+    inf = float("inf")
+    row = st["row"]
+    L = row.shape[0]
+    bidx = wid = inp["bidx"]
+    live = st["rp_live"][:, :ns]
+    rp_start = st["rp_start"][:, :ns]
+    alive = st["alive"][:, :n]
+    obs = st["spec_obs"]
+    ofin = torch.isfinite(obs)
+    cnt = ofin.sum(1)
+    mid = ((cnt - 1) // 2).clamp(min=0)
+    med = torch.sort(torch.where(ofin, obs, inf), 1).values.gather(1, mid[:, None])[:, 0]
+    y_b = torch.full((L, n), -inf, dtype=obs.dtype, device=row.device).scatter_reduce_(
+        1, rp_b, torch.where(live, rp_start, -inf), "amax"
+    )
+    occ = torch.zeros(L, n + 1, dtype=torch.bool, device=row.device).scatter_(
+        1, torch.where(live, rp_w, n), True
+    )[:, :n]
+    free = alive & ~occ
+    elig = (
+        (st["job_active"] & (cnt >= spec.min_observations) & free.any(1)
+         & (st["spec_used"] < spec.max_backups))[:, None]
+        & ~st["batch_done"]
+        & torch.isfinite(y_b)  # the batch holds a live replica
+        & ~live[:, 2 * n:]  # one live backup per batch
+    )
+    now_s = torch.maximum(st["t_cursor"], st["spec_now"])
+    # a device scalar: CUDA divides by a host scalar as a multiply by its
+    # reciprocal, which would round differently from the CPU
+    iv = inp["interval"]
+    thm = (spec.theta * med)[:, None]
+    k = torch.maximum(torch.floor((y_b + thm) / iv), torch.floor(now_s / iv)[:, None]) + 1.0
+    t_spec = torch.where(elig, k * iv, inf).amin(1)
+    if cfg.cancel:
+        t_evm = torch.where(~st["batch_done"], win, inf).amin(1)
+    else:
+        t_evm = torch.where(live, st["rp_end"][:, :ns], inf).amin(1)
+    can_s = ~can_r & torch.isfinite(t_spec) & (t_spec < t_evm) & (t_spec < t_next)
+    # the check at the epoch itself (the engine's lagging(now - y, med)); a
+    # check that launches nothing still consumes the epoch
+    lag = elig & ((t_spec[:, None] - y_b) > thm)
+    b_s = torch.where(lag, bidx, n).argmin(1)
+    do_l = can_s & lag.any(1)
+    w_s = torch.where(free, wid, n).argmin(1)
+    sk = st["spec_k"].clamp(0, inp["tau_spec"].shape[1] - 1)
+    dur_s = inp["tau_spec"][row, sk, b_s] * batch_scale(st["job_b"]) / inp["speeds"][w_s]
+    i_sl = torch.where(do_l, 2 * n + b_s, ns)[:, None]
+    st["sb_w"].scatter_(1, torch.where(do_l, b_s, n)[:, None], w_s[:, None])
+    st["rp_start"].scatter_(1, i_sl, t_spec[:, None])
+    st["rp_end"].scatter_(1, i_sl, (t_spec + dur_s)[:, None])
+    st["rp_live"].scatter_(1, i_sl, True)
+    st["spec_used"] += do_l
+    st["n_spec"] += do_l
+    st["spec_k"] += do_l
+    st["spec_now"] = torch.where(can_s, t_spec, st["spec_now"])
+    return can_s, t_evm
 
 
 def _step(cfg: _RunnerCfg, st: dict, inp: dict) -> None:
@@ -218,10 +492,12 @@ def _step(cfg: _RunnerCfg, st: dict, inp: dict) -> None:
 
     The expressions, and the order in which each reads the state, are the
     reference's (``epoch_scan.py::_build_lane``), so every value but the two
-    worker-second sums is bitwise equal in float64.
+    worker-second sums is bitwise equal in float64 (given equal replanner
+    decisions).
     """
     n, jobs_pad, ev_pad, resc_cap = cfg.n, cfg.jobs_pad, cfg.ev_pad, cfg.resc_cap
-    ns = 2 * n
+    ns = cfg.n_slots
+    spec, replan = cfg.spec, cfg.replan
     inf = float("inf")
     row = st["row"]
     L = row.shape[0]
@@ -229,8 +505,13 @@ def _step(cfg: _RunnerCfg, st: dict, inp: dict) -> None:
     speeds, n_tasks = inp["speeds"], inp["n_tasks"]
     e = st["e"]
     t_next = inp["ev_t"][row, e]
-    rp_b = torch.cat([st["g_b"], bidx.expand(L, n)], 1)
-    rp_w = torch.cat([wid.expand(L, n), st["rb_w"][:, :n]], 1)
+    # replica slot -> (batch, worker): gang, rescue, then the backup bank
+    rp_b = [st["g_b"], bidx.expand(L, n)]
+    rp_w = [wid.expand(L, n), st["rb_w"][:, :n]]
+    if spec is not None:
+        rp_b.append(bidx.expand(L, n))
+        rp_w.append(st["sb_w"][:, :n])
+    rp_b, rp_w = torch.cat(rp_b, 1), torch.cat(rp_w, 1)
     live = st["rp_live"][:, :ns]
     rp_start = st["rp_start"][:, :ns]
     rp_end = st["rp_end"][:, :ns]
@@ -269,8 +550,16 @@ def _step(cfg: _RunnerCfg, st: dict, inp: dict) -> None:
     st["n_resc"] += can_r
     st["resc_k"] += can_r
 
-    # -- commit completions up to the next boundary (none on rescue steps)
+    # -- speculative backup trigger (reactive replication)
+    if spec is not None:
+        can_s, t_evm = _spec_launch(cfg, st, inp, rp_b, rp_w, win, can_r, t_next, batch_scale)
+
+    # -- commit completions up to the next boundary (none on rescue steps);
+    # with speculation on, only the earliest completion-time group, so later
+    # completions see the launches that precede them
     newly = ~st["batch_done"] & (win <= t_next[:, None]) & torch.isfinite(win) & ~can_r[:, None]
+    if spec is not None:
+        newly &= (win == t_evm[:, None]) & ~can_s[:, None]
     if cfg.cancel:
         win_r = win.gather(1, rp_b)
         done_r = live & newly.gather(1, rp_b)
@@ -279,9 +568,18 @@ def _step(cfg: _RunnerCfg, st: dict, inp: dict) -> None:
         t_new = torch.where(newly, win, -inf).amax(1)
     else:
         done_r = live & (rp_end <= t_next[:, None]) & ~can_r[:, None]
+        if spec is not None:
+            done_r &= (rp_end == t_evm[:, None]) & ~can_s[:, None]
         busy_add = torch.where(done_r, rp_end - rp_start, 0.0).sum(1)
         saved_add = None
         t_new = torch.where(done_r, rp_end, -inf).amax(1)
+    if spec is not None:
+        # the winning replica's wall-clock duration is the sibling
+        # observation the median runs over; ties keep the smallest start
+        is_w = live & newly.gather(1, rp_b) & (rp_end <= win.gather(1, rp_b))
+        w_st = torch.full((L, n + 1), inf, dtype=rp_start.dtype, device=row.device)
+        w_st = w_st.scatter_reduce_(1, torch.where(is_w, rp_b, n), rp_start, "amin")[:, :n]
+        st["spec_obs"] = torch.where(newly, win - w_st, st["spec_obs"])
     done2 = st["batch_done"] | newly
     done_t2 = torch.where(newly, win, st["batch_done_t"])
     all_done = done2.all(1)
@@ -300,6 +598,45 @@ def _step(cfg: _RunnerCfg, st: dict, inp: dict) -> None:
     st["fins"].scatter_(1, torch.where(completes, st["q_active"], jobs_pad)[:, None], fin[:, None])
     st["job_active"] &= ~settled
     resc_pending &= ~completes[:, None]
+
+    if replan is not None:
+        sc = batch_scale(st["job_b"])
+        sc = sc[:, None] if cfg.size_dep else sc
+        spd = speeds[rp_w]
+        raced = live | done_r  # the replicas live before this commit
+        if cfg.cancel:
+            # one observation per newly won batch: the winner's task time,
+            # censored by however many rivals it raced
+            cand = raced & (rp_end <= win.gather(1, rp_b))
+            slots = torch.arange(ns, device=row.device).expand(L, ns)
+            win_slot = torch.full((L, n + 1), ns, dtype=torch.int64, device=row.device)
+            win_slot = win_slot.scatter_reduce_(1, torch.where(cand, rp_b, n), slots, "amin")
+            ws = win_slot[:, :n].clamp(0, ns - 1)
+            vals = (win - rp_start.gather(1, ws)) * spd.gather(1, ws) / sc
+            comps = torch.zeros(L, n + 1, dtype=torch.int64, device=row.device).scatter_add_(
+                1, torch.where(raced, rp_b, n), torch.ones_like(rp_b)
+            )[:, :n].to(vals.dtype)
+            _obs_push(cfg, st, vals, comps, win, newly)
+        else:
+            # every replica that completes while its job is active is an
+            # uncensored observation (stragglers outliving their job drop)
+            fin_limit = torch.where(completes, fin, inf)
+            ovalid = done_r & (st["job_active"] | completes)[:, None] & (
+                rp_end <= fin_limit[:, None]
+            )
+            vals = (rp_end - rp_start) * spd / sc
+            _obs_push(cfg, st, vals, torch.ones_like(vals), rp_end, ovalid)
+        do_replan = (
+            completes
+            & (st["obs_count"] >= replan.min_observations)
+            & (st["since_refit"] >= replan.refit_every)
+        )
+        # computed for every lane on every step, as the reference's is: a
+        # host-side test of do_replan would synchronise on every step
+        new_b, _ = _replan_pick(cfg, st, inp, alive)
+        st["plan_b"] = torch.where(do_replan, new_b, st["plan_b"])
+        st["n_replans"] += do_replan
+        st["since_refit"] = torch.where(do_replan, 0, st["since_refit"])
 
     # -- gang-dispatch the next queued job (whole-cluster FIFO gangs)
     n_alive = alive.sum(1)
@@ -338,6 +675,10 @@ def _step(cfg: _RunnerCfg, st: dict, inp: dict) -> None:
     if cfg.full_outputs:
         st["br"].scatter_(1, i_q, (b << 16 | r)[:, None])
     st["q"] = q + can_d
+    if spec is not None:
+        # the policy's per-job state resets at dispatch
+        st["spec_obs"] = torch.where(can_d[:, None], inf, st["spec_obs"])
+        st["spec_used"] = torch.where(can_d, 0, st["spec_used"])
 
     # -- otherwise apply one fail/join event (the engine stops replaying
     # churn once every job is recorded: the sim_over gate)
@@ -345,6 +686,9 @@ def _step(cfg: _RunnerCfg, st: dict, inp: dict) -> None:
     w_raw = inp["ev_w"][row, e]
     up = inp["ev_up"][row, e]
     do_b = ~can_r & ~can_d
+    if spec is not None:
+        # a launch or a committed completion group consumed this step
+        do_b &= ~can_s & ~newly.any(1) & ~done_r.any(1)
     sim_over = (st["q"] >= inp["jobs_real"]) & ~st["job_active"]
     act = do_b & (w_raw >= 0) & torch.isfinite(t_ev) & ~sim_over
     w = w_raw.clamp(0, n - 1)
@@ -377,7 +721,7 @@ def _step(cfg: _RunnerCfg, st: dict, inp: dict) -> None:
 
 
 def _lane_outputs(cfg: _RunnerCfg, st: dict) -> dict:
-    ns = 2 * cfg.n
+    ns = cfg.n_slots
     # flush replicas still in flight: their full duration is committed worker
     # time, which keeps ws(cancel on) + saved == ws(cancel off)
     flush = torch.where(
@@ -390,7 +734,10 @@ def _lane_outputs(cfg: _RunnerCfg, st: dict) -> dict:
         "cancelled_seconds_saved": st["saved"],
         "n_worker_failures": st["n_fail"],
         "n_replicas_rescued": st["n_resc"],
+        "n_replans": st["n_replans"],
     }
+    if cfg.spec is not None:
+        out["n_speculative"] = st["n_spec"]
     if cfg.full_outputs:
         out["br"] = st["br"][:, : cfg.jobs_pad]
         out["epoch_times"] = st["ep_times"][:, : cfg.ev_pad]
@@ -431,6 +778,50 @@ def _run_lane_batch(cfg: _RunnerCfg, inp: dict, b0: torch.Tensor, n_real: int) -
             break
         st = {key: t[keep] for key, t in st.items()}
     return results
+
+
+def _stream_fold(out: dict, inp: dict) -> dict:
+    """Fold the lanes' per-job starts and finishes into streaming
+    accumulators on the device, in arrival order (``outputs="stream"``).
+
+    Jobs past the real count and jobs never finished (dead cluster) are left
+    out of the statistics; the latter are counted in ``n_unfinished``.  The
+    count, extremes, histogram and ``fin_max`` do not depend on order and
+    reduce in one pass; the three sums add job by job, left to right, as the
+    reference's scan and the host fold
+    (:func:`~repro_torch.cluster.stream.epoch_stream_stats`) do, so float64
+    lanes equal the host fold bit for bit on either device.
+    """
+    from .vectorized import STREAM_HIST_BINS, STREAM_HIST_EDGES
+
+    starts, fins = out.pop("starts"), out.pop("finishes")
+    L, jobs_pad = fins.shape
+    dt, dev = fins.dtype, fins.device
+    jobs_real = inp["jobs_real"]
+    real = torch.arange(jobs_pad, device=dev) < jobs_real
+    done = torch.isfinite(fins)
+    m = real & done
+    resp = fins - inp["arrivals"]
+    inf = float("inf")
+    out["count"] = m.sum(1, dtype=torch.int32)
+    out["resp_min"] = torch.where(m, resp, inf).amin(1)
+    out["resp_max"] = torch.where(m, resp, -inf).amax(1)
+    out["fin_max"] = torch.where(m, fins, -inf).amax(1)
+    out["n_unfinished"] = (real & ~done).sum(1, dtype=torch.int32)
+    edges = torch.tensor(STREAM_HIST_EDGES, dtype=dt, device=dev)
+    bins = torch.searchsorted(edges, torch.where(m, resp, 0.0), right=True)
+    out["hist"] = torch.zeros(L, STREAM_HIST_BINS, dtype=torch.int32, device=dev).scatter_add_(
+        1, bins, m.to(torch.int32)
+    )
+    # max(sq, 0) pins the square as a standalone IEEE multiply, as the
+    # reference's fold does
+    terms = torch.stack([resp, (resp * resp).clamp(min=0.0), fins - starts], 1)
+    terms = torch.where(m[:, None], terms, 0.0)
+    acc = torch.zeros(L, 3, dtype=dt, device=dev)
+    for j in range(jobs_real):
+        acc += terms[:, :, j]
+    out["resp_sum"], out["resp_sq"], out["comp_sum"] = acc.unbind(1)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -478,15 +869,18 @@ def _pack_schedule(schedule: Optional[ChurnSchedule], n_lanes: int, ev_pad: int,
 
 
 def _prepare_lanes(dist, n_workers, n_pad, lane_idx, n_real, jobs_pad, ev_pad, resc_cap,
-                   seed, churn, churn_schedule, pairs, dtype):
+                   seed, churn, churn_schedule, pairs, dtype, spec_cap=0):
     """Per-lane inputs of both entry points, as numpy arrays: service draws,
-    rescue draws, the churn event stream and each lane's churn horizon.
+    rescue draws, backup draws, the churn event stream and each lane's churn
+    horizon.
 
     Lane ``i`` draws from ``default_rng(SeedSequence((seed, i)))``, a pure
-    function of the global lane index.  Only the first ``n_real`` lanes
-    carry results; lanes past them get constant durations.  Rescue draws are
-    sampled only when churn events can create rescues -- tau is drawn first
-    per lane, so skipping them changes nothing.
+    function of the global lane index, in the order tau, rescue, backup,
+    churn.  Only the first ``n_real`` lanes carry results; lanes past them
+    get constant durations.  Rescue draws are sampled only when churn events
+    can create rescues, and backup draws (``spec_cap`` per lane) only with
+    speculation on -- tau is drawn first per lane, so skipping them changes
+    nothing.
     """
     n_lanes = len(lane_idx)
     seed = int(seed)
@@ -494,6 +888,7 @@ def _prepare_lanes(dist, n_workers, n_pad, lane_idx, n_real, jobs_pad, ev_pad, r
     need_resc = sample_churn or (churn_schedule is not None and len(churn_schedule))
     tau = np.ones((n_lanes, jobs_pad, n_pad), dtype)
     tau_resc = np.ones((n_lanes, resc_cap, n_pad), dtype)
+    tau_spec = np.ones((n_lanes, max(spec_cap, 1), n_pad), dtype)
     horizon = np.full(n_lanes, np.inf)
     if sample_churn:
         ev_t = np.full((n_lanes, ev_pad), np.inf, dtype)
@@ -504,16 +899,18 @@ def _prepare_lanes(dist, n_workers, n_pad, lane_idx, n_real, jobs_pad, ev_pad, r
         tau[i] = dist.sample_np(rng, (jobs_pad, n_pad))
         if need_resc:
             tau_resc[i] = dist.sample_np(rng, (resc_cap, n_pad))
+        if spec_cap:
+            tau_spec[i] = dist.sample_np(rng, (spec_cap, n_pad))
         if sample_churn:
             t, w, u, horizon[i] = _sample_churn_np(rng, churn, n_workers, pairs)
             k = min(len(t), ev_pad)
             ev_t[i, :k], ev_w[i, :k], ev_up[i, :k] = t[:k], w[:k], u[:k]
     if not sample_churn:
         ev_t, ev_w, ev_up = _pack_schedule(churn_schedule, n_lanes, ev_pad, dtype)
-    return tau, tau_resc, ev_t, ev_w, ev_up, horizon
+    return tau, tau_resc, tau_spec, ev_t, ev_w, ev_up, horizon
 
 
-def _shapes(n_workers, n_jobs, churn, churn_schedule, pairs):
+def _shapes(n_workers, n_jobs, churn, churn_schedule, pairs, speculation=None):
     """Padded worker, job, event and rescue counts, and the chunk budget."""
     n_pad = _bucket_workers(n_workers)
     jobs_pad = _pow2(n_jobs) if n_jobs < 32 else -(-n_jobs // 32) * 32
@@ -530,9 +927,34 @@ def _shapes(n_workers, n_jobs, churn, churn_schedule, pairs):
     # one step per job dispatch + one per churn event + a rescue allowance,
     # plus one trailing commit; overruns leave jobs at inf exactly like the
     # engine's max_events cap
-    budget = jobs_pad + ev_pad + resc_cap + 2
+    if speculation is not None:
+        # event-granular commits take one step per completion-time group (at
+        # most one per batch plus straggler and rescue retirements), plus one
+        # per backup launch and its (rare) 1-ulp re-arm
+        mb = speculation.max_backups
+        budget = jobs_pad * (n_pad + 1 + 2 * mb) + ev_pad + 2 * resc_cap + 2
+    else:
+        budget = jobs_pad + ev_pad + resc_cap + 2
     n_chunks = -(-budget // _STEP_CHUNK)
     return n_pad, jobs_pad, ev_pad, resc_cap, n_chunks
+
+
+def _replan_inputs(cfg: _RunnerCfg, n_workers: int, device) -> dict:
+    """The replanner's tables: the divisors of each alive count and the
+    harmonic numbers, padded to the bucketed worker count as the reference
+    pads them, and the blend weight."""
+    dt = resolve_dtype(cfg.dtype)
+    div_tab, (h1, h2) = divisor_table(n_workers), harmonic_tables(n_workers)
+    div_pad = np.zeros((cfg.n + 1, _pow2(div_tab.shape[1])), np.int64)
+    div_pad[: div_tab.shape[0], : div_tab.shape[1]] = div_tab
+    hp1, hp2 = np.zeros(cfg.n + 1), np.zeros(cfg.n + 1)
+    hp1[: len(h1)], hp2[: len(h2)] = h1, h2
+    return {
+        "div_tab": torch.tensor(div_pad, device=device),
+        "h1": torch.tensor(hp1, dtype=dt, device=device),
+        "h2": torch.tensor(hp2, dtype=dt, device=device),
+        "blend": torch.tensor(cfg.replan.blend, dtype=dt, device=device),
+    }
 
 
 def _run_lanes(dist, cfg, n_workers, lane_idx, b0, arrivals_pad, n_jobs_real, seed,
@@ -540,9 +962,10 @@ def _run_lanes(dist, cfg, n_workers, lane_idx, b0, arrivals_pad, n_jobs_real, se
     """Draw the lanes on the host, copy them to ``device`` once, run them."""
     np_dtype = np.dtype(cfg.dtype)
     dt = resolve_dtype(cfg.dtype)
-    tau, tau_resc, ev_t, ev_w, ev_up, horizon = _prepare_lanes(
+    spec_cap = cfg.jobs_pad * cfg.spec.max_backups if cfg.spec is not None else 0
+    tau, tau_resc, tau_spec, ev_t, ev_w, ev_up, horizon = _prepare_lanes(
         dist, n_workers, cfg.n, lane_idx, len(lane_idx), cfg.jobs_pad, cfg.ev_pad,
-        cfg.resc_cap, seed, churn, churn_schedule, pairs, np_dtype,
+        cfg.resc_cap, seed, churn, churn_schedule, pairs, np_dtype, spec_cap=spec_cap,
     )
 
     def put(a, dtype=None):
@@ -561,7 +984,14 @@ def _run_lanes(dist, cfg, n_workers, lane_idx, b0, arrivals_pad, n_jobs_real, se
         "jobs_real": int(n_jobs_real),
         "bidx": torch.arange(cfg.n, device=device),
     }
+    if cfg.spec is not None:
+        inp["tau_spec"] = put(tau_spec)
+        inp["interval"] = torch.tensor(cfg.spec.interval, dtype=dt, device=device)
+    if cfg.replan is not None:
+        inp.update(_replan_inputs(cfg, n_workers, device))
     out = _run_lane_batch(cfg, inp, put(b0, torch.int64), int(n_workers))
+    if cfg.stream:
+        out = _stream_fold(out, inp)
     res = {k: v.cpu().numpy() for k, v in out.items()}
     res["churn_horizon"] = horizon  # host-side, inf unless churn sampled
     return res
@@ -595,20 +1025,14 @@ def _check_arrival_span(arrivals, dtype):
         )
 
 
-def _reject_unported(sc: Scenario, where: str, *, stream_ok: bool) -> None:
+def _reject_unported(sc: Scenario, where: str) -> None:
     """Refuse the knobs whose lanes the port has not reached, by name."""
-    later = [
-        (sc.replan is not None, "replan (the in-scan replanner)", "4"),
-        (sc.speculation is not None, "speculation (the speculative backup bank)", "5"),
-        (sc.is_space, "space-sharing knobs (scheduler / workers_per_job / job_plans)", "6"),
-        (not stream_ok and sc.outputs == "stream", 'outputs="stream" (the streaming fold)', "7"),
-    ]
-    for hit, what, item in later:
-        if hit:
-            raise NotImplementedError(
-                f"{where}: {what} runs on a lane of the epoch scan that the port "
-                f"reaches in a later slice (ROADMAP.md §1, item 1.{item})"
-            )
+    if sc.is_space:
+        raise NotImplementedError(
+            f"{where}: space-sharing knobs (scheduler / workers_per_job / job_plans), "
+            'with outputs="full" or "stream", run on the epoch scan\'s space lane, which '
+            "the port reaches in a later slice (ROADMAP.md §1, item 1.6)"
+        )
     if sc.devices != 1:
         raise NotImplementedError(
             f"{where}: devices={sc.devices}: the port runs every lane on one "
@@ -701,7 +1125,7 @@ def simulate_epochs(
     outputs=UNSET,
     scenario: Optional[Scenario] = None,
     device=None,
-) -> EpochReport:
+) -> EpochReport | EpochStreamReport:
     """Replay the engine's gang semantics on the epoch scan, on ``device``.
 
     Same signature and result as the reference's ``simulate_epochs``, plus
@@ -713,10 +1137,22 @@ def simulate_epochs(
     the sampled-churn horizon; a rep whose timeline still outruns it raises a
     ``RuntimeWarning`` and is flagged in ``EpochReport.churn_truncated``.
 
+    ``replan=ReplanConfig(...)`` runs the windowed online replanner in the
+    lanes: completed task times feed a ring of ``window`` observations, and
+    every ``refit_every`` of them (past ``min_observations``) a job
+    completion refits the law and re-picks B for the next dispatch.
+    ``speculation=Speculation(...)`` launches reactive backup replicas: a
+    batch whose youngest live replica lags past ``theta x`` the running
+    median of its completed siblings earns one backup at the next heartbeat
+    epoch (at most ``max_backups`` per job, one live backup per batch).  The
+    two policies are mutually exclusive.  ``outputs="stream"`` folds the
+    per-job records on the device and returns an :class:`EpochStreamReport`
+    (O(n_reps) memory); on float64 lanes its stats equal
+    ``epoch_stream_stats`` of the ``outputs="full"`` report bit for bit.
+
     The scenario knobs are best passed as one ``scenario=Scenario(...)``;
     the loose keyword forms keep working behind a ``DeprecationWarning``.
-    ``replan``, ``speculation``, space sharing, ``outputs="stream"`` and
-    ``devices > 1`` raise :class:`NotImplementedError`.
+    Space sharing and ``devices > 1`` raise :class:`NotImplementedError`.
     """
     sc = resolve_scenario(
         scenario,
@@ -740,7 +1176,7 @@ def simulate_epochs(
         },
         where="simulate_epochs",
     )
-    _reject_unported(sc, "simulate_epochs", stream_ok=False)
+    _reject_unported(sc, "simulate_epochs")
     dist = dist if dist is not None else sc.dist
     n_workers = int(n_workers if n_workers is not None else sc.n_workers)
     n_batches = n_batches if n_batches is not None else sc.n_batches
@@ -764,11 +1200,14 @@ def simulate_epochs(
         sc.size_dependent, speeds, arrivals, n_jobs,
     )
     n_pad, jobs_pad, ev_pad, resc_cap, n_chunks = _shapes(
-        n_workers, n_jobs, churn, churn_schedule, pairs
+        n_workers, n_jobs, churn, churn_schedule, pairs, speculation=sc.speculation
     )
+    stream_mode = sc.outputs == "stream"
     cfg = _RunnerCfg(
         n_pad, jobs_pad, ev_pad, resc_cap, n_chunks,
         bool(sc.cancel_redundant), bool(sc.size_dependent), sc.dtype,
+        full_outputs=not stream_mode, replan=sc.replan, spec=sc.speculation,
+        stream=stream_mode,
     )
     arrivals_pad = np.concatenate([arrivals, np.full(jobs_pad - n_jobs, np.inf)])
     b0_val = 0 if n_batches is None else int(n_batches)
@@ -780,29 +1219,61 @@ def simulate_epochs(
         for lo, hi in _rep_slices(int(n_reps), sc.rep_chunk)
     ]
     out = {k: np.concatenate([c[k] for c in chunks], axis=0) for k in chunks[0]}
+    sampled = churn is not None and churn.fail_rate > 0.0
+    counters = dict(
+        worker_seconds=out["worker_seconds"].astype(np.float64),
+        cancelled_seconds_saved=out["cancelled_seconds_saved"].astype(np.float64),
+        n_worker_failures=out["n_worker_failures"].astype(np.int32),
+        n_replicas_rescued=out["n_replicas_rescued"].astype(np.int32),
+        n_replans=out["n_replans"].astype(np.int32),
+        n_speculative=(
+            out["n_speculative"].astype(np.int32) if "n_speculative" in out else None
+        ),
+    )
+    if stream_mode:
+        from .stream import StreamStats
+
+        n_unfinished = out["n_unfinished"]
+        truncated = None
+        if sampled:
+            # unfinished jobs have no finish stamp: count them as outrunning
+            # the horizon, exactly like the full path's inf finishes do
+            truncated = (out["fin_max"].astype(np.float64) > out["churn_horizon"]) | (
+                n_unfinished > 0
+            )
+            if truncated.any():
+                _warn_churn_truncated(truncated, pairs)
+        stats = StreamStats(
+            count=out["count"],
+            resp_sum=out["resp_sum"],
+            resp_sq=out["resp_sq"],
+            resp_min=out["resp_min"],
+            resp_max=out["resp_max"],
+            comp_sum=out["comp_sum"],
+            busy_sum=out["worker_seconds"],
+            saved_sum=out["cancelled_seconds_saved"],
+            hist=out["hist"],
+        )
+        return EpochStreamReport(arrivals=arrivals, stats=stats, n_unfinished=n_unfinished,
+                                 churn_truncated=truncated, **counters)
     br = out["br"][:, :n_jobs].astype(np.int32)
     finishes = out["finishes"].astype(np.float64)[:, :n_jobs]
     truncated = None
-    if churn is not None and churn.fail_rate > 0.0:
+    if sampled:
         # a rep whose timeline outran its sampled horizon ran its tail
         # churn-free (unfinished jobs at inf count as outrunning it)
         truncated = finishes.max(axis=1) > out["churn_horizon"]
         if truncated.any():
             _warn_churn_truncated(truncated, pairs)
-    n_fail = out["n_worker_failures"].astype(np.int32)
     return EpochReport(
         arrivals=arrivals,
         starts=out["starts"].astype(np.float64)[:, :n_jobs],
         finishes=finishes,
         n_batches_used=br >> 16,
         replication_used=br & 0xFFFF,
-        worker_seconds=out["worker_seconds"].astype(np.float64),
-        cancelled_seconds_saved=out["cancelled_seconds_saved"].astype(np.float64),
-        n_worker_failures=n_fail,
-        n_replicas_rescued=out["n_replicas_rescued"].astype(np.int32),
-        n_replans=np.zeros_like(n_fail),
         epoch_times=out["epoch_times"].astype(np.float64),
         churn_truncated=truncated,
+        **counters,
     )
 
 
@@ -832,7 +1303,7 @@ def frontier_job_times_dynamic(
     scenario: Optional[Scenario] = None,
     device=None,
 ) -> np.ndarray:
-    """Per-candidate job compute times under churn and heterogeneous speeds.
+    """Per-candidate job compute times under churn, speeds and adaptive policies.
 
     The dynamic sibling of :func:`repro_torch.cluster.vectorized.
     frontier_job_times` and the path behind ``plan_cluster`` on dynamic
@@ -845,7 +1316,8 @@ def frontier_job_times_dynamic(
     Lane (candidate ci, stream s) draws from ``SeedSequence((seed, ci * S +
     s))``, so ``rep_chunk`` (at most that many streams per candidate in one
     batch) is bit-identical to one call.  ``Scenario.outputs`` is accepted
-    and ignored, as in the reference.  ``replan``, ``speculation``, space
+    and ignored, as in the reference.  ``replan`` and ``speculation`` run
+    in every lane, each candidate B being the lane's starting plan.  Space
     sharing and ``devices > 1`` raise :class:`NotImplementedError`.
     """
     sc = resolve_scenario(
@@ -869,7 +1341,7 @@ def frontier_job_times_dynamic(
         },
         where="frontier_job_times_dynamic",
     )
-    _reject_unported(sc, "frontier_job_times_dynamic", stream_ok=True)
+    _reject_unported(sc, "frontier_job_times_dynamic")
     dist = dist if dist is not None else sc.dist
     n_workers = int(n_workers if n_workers is not None else sc.n_workers)
     if dist is None or candidates is None or n_reps is None:
@@ -896,12 +1368,13 @@ def frontier_job_times_dynamic(
         sc.size_dependent, speeds, None, n_jobs,
     )
     n_pad, jobs_pad, ev_pad, resc_cap, n_chunks = _shapes(
-        n_workers, n_jobs, churn, churn_schedule, pairs
+        n_workers, n_jobs, churn, churn_schedule, pairs, speculation=sc.speculation
     )
     cfg = _RunnerCfg(
         n_pad, jobs_pad, ev_pad, resc_cap, n_chunks,
         bool(sc.cancel_redundant), bool(sc.size_dependent), sc.dtype,
         full_outputs=False,  # planning reads starts/finishes only
+        replan=sc.replan, spec=sc.speculation,
     )
     arrivals_pad = np.concatenate([np.zeros(n_jobs), np.full(jobs_pad - n_jobs, np.inf)])
     chunks = []

@@ -6,9 +6,9 @@ accepts ``backend="torch"`` wherever the reference accepts ``"jax"``, and
 byte (``to_json`` writes it back identically) -- that JSON, with the
 distribution inside it, is the state the two packages hand each other.
 
-Decoding a ``replan`` field raises :class:`NotImplementedError`: its
-``ReplanConfig`` belongs to the epoch scan's in-scan replanner, which the
-port has not reached.  The legacy loose-keyword call forms keep working
+A ``replan`` field decodes to the port's
+:class:`~repro_torch.cluster.epoch_scan.ReplanConfig`, the knobs of the epoch
+scan's in-scan replanner.  The legacy loose-keyword call forms keep working
 behind :func:`resolve_scenario`, as in the reference: it rebuilds the
 equivalent ``Scenario`` and emits one :class:`DeprecationWarning` naming the
 entry point.
@@ -19,10 +19,13 @@ from __future__ import annotations
 import dataclasses
 import json
 import warnings
-from typing import Optional, Tuple, Union
+from typing import TYPE_CHECKING, Optional, Tuple, Union
 
 from .scheduler import SCHEDULERS, JobPlan, Scheduler
 from .workers import ChurnProcess, ChurnSchedule
+
+if TYPE_CHECKING:  # annotation only: epoch_scan imports this module
+    from .epoch_scan import ReplanConfig
 
 __all__ = [
     "FaultPlan",
@@ -299,7 +302,7 @@ class Scenario:
     # None auto-sizes it from the stream length (epoch_scan warns loudly if
     # the simulated timeline still outruns it)
     churn_pairs_per_worker: Optional[int] = None
-    replan: Optional[object] = None  # ReplanConfig of the epoch scan (not ported yet)
+    replan: Optional[ReplanConfig] = None
     speculation: Optional[Speculation] = None
     # task-level failure semantics (payload exception -> backoff retry ->
     # abandon); Python engine (replay) + live runtime
@@ -674,11 +677,9 @@ def _decode_field(name: str, v):
             times=tuple(v["times"]), wids=tuple(v["wids"]), ups=tuple(v["ups"])
         )
     if name == "replan":
-        raise NotImplementedError(
-            "Scenario.replan: ReplanConfig belongs to the epoch scan's in-scan "
-            "replanner, which the port reaches in a later slice (ROADMAP.md §1, "
-            "item 1.4)"
-        )
+        from .epoch_scan import ReplanConfig
+
+        return ReplanConfig(**v)
     if name == "speculation":
         return Speculation(**v)
     if name == "retry":

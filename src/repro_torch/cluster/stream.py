@@ -26,7 +26,8 @@ every accumulator is bitwise equal in float64 except ``busy_sum`` /
 ``saved_sum`` (and ``busy_j`` / ``planned_j`` / ``saved_j``), whose per-job
 slot sums the port adds left to right where XLA picks its own order.
 
-``epoch_stream_stats`` folds the epoch scan's reports and comes with it.
+:func:`epoch_stream_stats` is the host fold of the epoch scan's
+``outputs="full"`` reports, the reference of its ``outputs="stream"`` mode.
 """
 from __future__ import annotations
 
@@ -51,6 +52,7 @@ __all__ = [
     "StreamFullReport",
     "simulate_stream",
     "fold_stream_stats",
+    "epoch_stream_stats",
     "STREAM_QUANTILE_RTOL",
 ]
 
@@ -314,6 +316,54 @@ def fold_stream_stats(
         class_resp_sum=class_resp_sum,
         class_hist=class_hist,
         classes=tuple(classes) if classes is not None else None,
+    )
+
+
+def epoch_stream_stats(report) -> StreamStats:
+    """Host reference fold for the epoch scan's ``outputs="stream"`` mode.
+
+    Folds an ``outputs="full"`` :class:`~repro_torch.cluster.epoch_scan.EpochReport`
+    into the same accumulators the lanes' fold on the device carries -- same
+    arrival order, same masking of never-finished jobs, same operations.  On
+    float64 lanes the result equals ``simulate_epochs(..., outputs="stream").stats``
+    bit for bit on shared seeds.  ``busy_sum`` / ``saved_sum`` mirror the
+    report's per-rep worker-seconds totals, as in the device report.
+    """
+    arr = np.asarray(report.arrivals, dtype=np.float64)
+    st = np.asarray(report.starts, dtype=np.float64)
+    fin = np.asarray(report.finishes, dtype=np.float64)
+    s, n = fin.shape
+    edges = STREAM_HIST_EDGES
+    count = np.zeros(s, dtype=np.int32)
+    resp_sum = np.zeros(s)
+    resp_sq = np.zeros(s)
+    resp_min = np.full(s, np.inf)
+    resp_max = np.full(s, -np.inf)
+    comp_sum = np.zeros(s)
+    hist = np.zeros((s, STREAM_HIST_BINS), dtype=np.int32)
+    rows = np.arange(s)
+    for j in range(n):
+        f = fin[:, j]
+        m = np.isfinite(f)
+        resp = f - arr[j]
+        comp = f - st[:, j]
+        count += m
+        resp_sum += np.where(m, resp, 0.0)
+        resp_sq += np.where(m, resp * resp, 0.0)
+        resp_min = np.minimum(resp_min, np.where(m, resp, np.inf))
+        resp_max = np.maximum(resp_max, np.where(m, resp, -np.inf))
+        comp_sum += np.where(m, comp, 0.0)
+        hist[rows, np.searchsorted(edges, resp, side="right")] += m
+    return StreamStats(
+        count=count,
+        resp_sum=resp_sum,
+        resp_sq=resp_sq,
+        resp_min=resp_min,
+        resp_max=resp_max,
+        comp_sum=comp_sum,
+        busy_sum=np.asarray(report.worker_seconds, dtype=np.float64),
+        saved_sum=np.asarray(report.cancelled_seconds_saved, dtype=np.float64),
+        hist=hist,
     )
 
 

@@ -18,11 +18,13 @@ and :func:`plan_sweep` score the frontier by Monte-Carlo on the card through
 :meth:`~RedundancyPlanner.plan_slo` runs every (B, r, scheduler) candidate
 through the trace-scale stream (:func:`repro_torch.cluster.stream.
 simulate_stream`) and returns the same :class:`SLOPlan` as the reference.
-Dynamic gang scenarios (churn, heterogeneous speeds) score on the epoch scan
-(:func:`repro_torch.cluster.epoch_scan.frontier_job_times_dynamic`); the
-replanner, speculation, space sharing and the Python event engine come with
-later slices of the port.  Both entry points take the reference's loose
-scenario keywords behind its ``DeprecationWarning`` shim.
+Dynamic gang scenarios (churn, heterogeneous speeds, the in-scan replanner,
+speculative backups) score on the epoch scan
+(:func:`repro_torch.cluster.epoch_scan.frontier_job_times_dynamic`), and
+``plan_slo`` runs them through ``simulate_epochs``; space sharing and the
+Python event engine come with later slices of the port.  Both entry points
+take the reference's loose scenario keywords behind its
+``DeprecationWarning`` shim.
 """
 from __future__ import annotations
 
@@ -281,13 +283,14 @@ class RedundancyPlanner:
         frontier (:func:`repro_torch.cluster.vectorized.frontier_job_times`)
         when the cluster is static, or the epoch scan's gang lane
         (:func:`repro_torch.cluster.epoch_scan.frontier_job_times_dynamic`)
-        once ``speeds``, ``churn`` or ``churn_schedule`` is set -- then
-        samples come in serial streams of ``jobs_per_stream`` jobs sharing
-        one churn timeline.  ``rep_chunk`` bounds the reps of one pass (the
-        rows are bit-identical for every chunking); ``dtype`` applies to the
-        dynamic path only.  ``replan``, ``speculation``, space-sharing knobs
-        and ``backend="python"`` raise :class:`NotImplementedError` until
-        their slices of the port land.
+        once ``speeds``, ``churn``, ``churn_schedule``, ``replan`` (the
+        windowed online replanner running while candidates are scored) or
+        ``speculation`` (reactive backups) is set -- then samples come in
+        serial streams of ``jobs_per_stream`` jobs sharing one churn
+        timeline.  ``rep_chunk`` bounds the reps of one pass (the rows are
+        bit-identical for every chunking); ``dtype`` applies to the dynamic
+        path only.  Space-sharing knobs and ``backend="python"`` raise
+        :class:`NotImplementedError` until their slices of the port land.
 
         The scenario knobs are best passed as one ``scenario=Scenario(...)``
         (which may also carry ``dist``); the loose keyword forms keep working
@@ -332,11 +335,10 @@ class RedundancyPlanner:
         if backend != "torch":
             raise ValueError(f"unknown backend {backend!r} (expected 'torch')")
         sc.validate(n_workers=self.n_workers, backend="torch")
-        if sc.replan is not None or sc.speculation is not None or sc.is_space:
+        if sc.is_space:
             raise NotImplementedError(
-                "replanning, speculative and space-sharing scenarios run on lanes of "
-                "the epoch scan that the port reaches in later slices (ROADMAP.md §1, "
-                "items 1.4 to 1.6)"
+                "space-sharing scenarios run on the epoch scan's space lane, which the "
+                "port reaches in a later slice (ROADMAP.md §1, item 1.6)"
             )
         if sc.is_dynamic:
             from ..cluster.epoch_scan import frontier_job_times_dynamic
@@ -411,8 +413,12 @@ class RedundancyPlanner:
         widths (``pool_widths``, default every proper divisor of the worker
         budget) with B over each width's divisors -- the statically
         space-shared case where per-class SLOs bind.  Dynamic scenarios
-        (``speeds`` / ``churn``) run on the epoch scan, which the port has not
-        reached: they raise :class:`NotImplementedError`.
+        (``speeds`` / ``churn`` / ``replan`` / ``speculation``) run each B
+        candidate through the epoch scan (:func:`repro_torch.cluster.
+        epoch_scan.simulate_epochs`) and read exact response quantiles from
+        its per-job records; they take a single job class, pooled SLOs and
+        ``schedulers=("fifo_gang",)``, and the plan's ``source`` is
+        ``"epoch_scan"``.
 
         Returns an :class:`SLOPlan`: ``best`` is the cheapest feasible
         candidate in charged worker-seconds, or ``None`` with
@@ -487,14 +493,15 @@ class RedundancyPlanner:
                 )
         stream = poisson_stream(sources, rates.pop(), n_jobs, seed=seed)
         if sc.is_dynamic:
-            raise NotImplementedError(
-                "plan_slo on a dynamic scenario scores candidates on the epoch scan's "
-                "stream lane, which the port reaches in a later slice (ROADMAP.md §1, "
-                "item 1.7)"
+            evaluated = self._slo_epoch_candidates(
+                workload, sc, slos, stream, n_reps, seed, schedulers, device
             )
-        evaluated = self._slo_stream_candidates(
-            sc, slos, stream, n_reps, schedulers, pool_widths, slab, device
-        )
+            source = "epoch_scan"
+        else:
+            evaluated = self._slo_stream_candidates(
+                sc, slos, stream, n_reps, schedulers, pool_widths, slab, device
+            )
+            source = "stream"
         evaluated.sort(
             key=lambda c: (not c.feasible, c.cost_worker_seconds, c.mean_response)
         )
@@ -506,7 +513,7 @@ class RedundancyPlanner:
             feasible=best is not None,
             best=best,
             candidates=tuple(evaluated),
-            source="stream",
+            source=source,
         )
 
     def _slo_grid(self, schedulers, pool_widths):
@@ -560,6 +567,62 @@ class RedundancyPlanner:
                     feasible=all(a <= s.target_s for a, s in zip(achieved, slos)),
                     cost_worker_seconds=float(stats.busy_sum.mean()),
                     mean_response=float(stats.resp_sum.sum() / max(total, 1)),
+                    achieved=achieved,
+                )
+            )
+        return out
+
+    def _slo_epoch_candidates(
+        self, workload, sc, slos, stream, n_reps, seed, schedulers, device
+    ):
+        """Dynamic lane: exact response quantiles from the epoch scan."""
+        from ..cluster.epoch_scan import simulate_epochs
+
+        if len(stream.sources) != 1 or any(s.job_class is not None for s in slos):
+            raise ValueError(
+                "plan_slo: dynamic scenarios (speeds/churn/replan/speculation) "
+                "support a single job class with pooled SLOs (the epoch scan "
+                "has no per-class stream state)"
+            )
+        if tuple(schedulers) != ("fifo_gang",) and set(schedulers) != {
+            "fifo_gang", "packed", "balanced",
+        }:
+            raise ValueError(
+                "plan_slo: dynamic scenarios sweep B on fifo_gang only; pass "
+                "schedulers=('fifo_gang',)"
+            )
+        dist = workload[0]
+        if not isinstance(dist, ServiceTime):
+            dist = Empirical(samples=tuple(np.asarray(workload[0].task_times)))
+        out = []
+        for b in self.candidates:
+            rep = simulate_epochs(
+                dist,
+                self.n_workers,
+                b,
+                stream.arrivals,
+                n_reps,
+                seed=seed,
+                scenario=sc.replace(n_batches=None, n_workers=None, outputs="full"),
+                device=device,
+            )
+            resp = np.asarray(rep.finishes, np.float64) - stream.arrivals[None, :]
+            resp = resp[np.isfinite(resp)]
+            achieved = tuple(
+                float(np.quantile(resp, s.quantile)) if resp.size else float("inf")
+                for s in slos
+            )
+            out.append(
+                SLOCandidate(
+                    scheduler="fifo_gang",
+                    workers_per_job=None,
+                    n_batches=b,
+                    replication=self.n_workers // b,
+                    feasible=all(a <= s.target_s for a, s in zip(achieved, slos)),
+                    cost_worker_seconds=float(
+                        np.asarray(rep.worker_seconds, np.float64).mean()
+                    ),
+                    mean_response=float(resp.mean()) if resp.size else float("inf"),
                     achieved=achieved,
                 )
             )

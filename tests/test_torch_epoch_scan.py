@@ -14,7 +14,6 @@ for one small churned scenario, so a run without jax (the card's) can hold
 the port to the reference too.  Rewrite it, with the reference, by running
 ``PYTHONPATH=src python tests/test_torch_epoch_scan.py``.
 """
-import contextlib
 import dataclasses
 import json
 import pathlib
@@ -192,13 +191,14 @@ def test_prepare_lanes_shapes_and_churn_pairs_bitwise(x64, mode):
                                 *args(0), pairs[0], dtype)
         port = PE._prepare_lanes(pd, n, n_pad, lane_idx, 3, jobs_pad, ev_pad, resc_cap, 5,
                                  *args(1), pairs[1], dtype)
-        ref = (ref[0], ref[1]) + tuple(ref[3:])  # the reference also returns tau_spec
-        assert len(ref) == len(port) == 6
+        # (tau, tau_resc, tau_spec, ev_t, ev_w, ev_up, horizon); tau_spec is
+        # the constant placeholder without speculation
+        assert len(ref) == len(port) == 7
         for a, b in zip(ref, port):
             a, b = np.asarray(a), np.asarray(b)
             assert a.dtype == b.dtype and a.shape == b.shape
             np.testing.assert_array_equal(a, b)
-        assert (port[2][:3, 0] < np.inf).all() == (mode != "none")
+        assert (port[3][:3, 0] < np.inf).all() == (mode != "none")
 
 
 # --------------------------------------------------------------------------
@@ -343,47 +343,100 @@ def test_golden_frontier_rows_are_the_references_and_the_ports(x64):
 
 
 # --------------------------------------------------------------------------
-# what this slice does not run raises, by name, before any lane runs
+# every knob the gang lane takes runs and equals the reference; what the
+# port has not reached raises, by name, before any lane runs
 # --------------------------------------------------------------------------
 
 
 _UNPORTED = {
-    "replan": (dict(replan=RE.ReplanConfig(window=16)), "replan"),
-    "speculation": (dict(speculation=pc.Speculation()), "speculation"),
+    "replan": (dict(replan=dict(window=16, refit_every=4, min_observations=4)), None),
+    "speculation": (dict(speculation=dict(interval=0.25, theta=1.5)), None),
     "space": (dict(scheduler="packed", workers_per_job=2), "space-sharing"),
-    "stream": (dict(outputs="stream"), "outputs=\"stream\""),
+    "stream": (dict(outputs="stream"), None),
     "devices": (dict(devices=2), "devices=2"),
 }
+
+
+def _knob_scenarios(kw):
+    """The knob's scenario in both packages (float32 lanes: the reference's
+    replanner does not run under jax x64, see ROADMAP.md §3)."""
+    ref, port = dict(kw), dict(kw)
+    if "replan" in kw:
+        ref["replan"], port["replan"] = (RE.ReplanConfig(**kw["replan"]),
+                                        PE.ReplanConfig(**kw["replan"]))
+    if "speculation" in kw:
+        ref["speculation"], port["speculation"] = (rc.Speculation(**kw["speculation"]),
+                                                  pc.Speculation(**kw["speculation"]))
+    return rc.Scenario(**ref), pc.Scenario(**port)
+
+
+def _assert_close_f32(want, got, what):
+    """Equal shapes and dtypes, integers exactly, floats within rtol 1e-6."""
+    want, got = np.asarray(want), np.asarray(got)
+    assert want.dtype == got.dtype and want.shape == got.shape, what
+    if want.dtype.kind != "f":
+        np.testing.assert_array_equal(got, want, err_msg=what)
+        return
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want), err_msg=what)
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-6, atol=0, err_msg=what)
 
 
 @pytest.mark.parametrize("knob", sorted(_UNPORTED))
 @pytest.mark.parametrize("entry", ["simulate_epochs", "frontier_job_times_dynamic",
                                    "plan_cluster"])
 def test_unported_knobs_raise_naming_their_reason(entry, knob):
+    """The replanner, speculation and ``outputs="stream"`` now run on every
+    entry point and equal the reference (float32: integers exactly, times
+    within rtol 1e-6); space sharing and ``devices > 1`` still raise, naming
+    their ROADMAP item."""
     kw, reason = _UNPORTED[knob]
-    sc = pc.Scenario(**kw)
-    d = P.Exponential(1.0)
+    rs, ps = _knob_scenarios(kw)
+    rd, pd = R.Exponential(1.0), P.Exponential(1.0)
+    arrivals = np.arange(12) * 0.25
     calls = {
-        "simulate_epochs": lambda: PE.simulate_epochs(d, 4, 2, np.zeros(3), 2, scenario=sc,
-                                                      device="cpu"),
-        "frontier_job_times_dynamic": lambda: PE.frontier_job_times_dynamic(
-            d, 4, [1, 2], 8, scenario=sc, device="cpu"),
-        "plan_cluster": lambda: P.RedundancyPlanner(4).plan_cluster(d, n_reps=8, scenario=sc,
-                                                                    device="cpu"),
+        "simulate_epochs": lambda m, d, sc, **x: m.simulate_epochs(d, 4, 2, arrivals, 3,
+                                                                   scenario=sc, **x),
+        "frontier_job_times_dynamic": lambda m, d, sc, **x: m.frontier_job_times_dynamic(
+            d, 4, [1, 2], 16, scenario=sc, **x),
+        "plan_cluster": lambda m, d, sc, **x: m.RedundancyPlanner(4).plan_cluster(
+            d, n_reps=16, scenario=sc, **x),
     }
-    if entry == "frontier_job_times_dynamic" and knob == "stream":
-        # accepted and ignored, as in the reference: planning reads per-job times
-        assert calls[entry]().shape == (2, 8)
+    mods = {"plan_cluster": (R, P)}.get(entry, (RE, PE))
+    if entry == "plan_cluster" and knob == "stream":
+        # the static frontier ignores outputs; its torch draws are not the
+        # reference's, so it is held to the port's own call without the knob
+        got = calls[entry](mods[1], pd, ps, device="cpu")
+        assert got == calls[entry](mods[1], pd, pc.Scenario(), device="cpu")
         return
-    if entry == "plan_cluster" and knob in ("stream", "devices"):
-        # the static frontier: outputs is ignored, devices is a dynamic-path knob
-        ctx = (pytest.raises(ValueError, match="devices") if knob == "devices"
-               else contextlib.nullcontext())
-        with ctx:
-            calls[entry]()
+    if reason is None:
+        want = calls[entry](mods[0], rd, rs)
+        got = calls[entry](mods[1], pd, ps, device="cpu")
+        if entry == "plan_cluster":
+            assert got.source == "cluster_engine:torch"
+            assert _plan_fields(got) == _plan_fields(want)
+        elif entry == "frontier_job_times_dynamic":
+            _assert_close_f32(want, got, knob)
+        elif knob == "stream":
+            assert isinstance(got, PE.EpochStreamReport)
+            for f in dataclasses.fields(got.stats):
+                a = getattr(want.stats, f.name)
+                if a is not None:
+                    _assert_close_f32(a, getattr(got.stats, f.name), f.name)
+        else:
+            for f in EXACT + SUMS + ("n_speculative",):
+                if getattr(want, f) is not None:
+                    _assert_close_f32(getattr(want, f), getattr(got, f), f)
+            counter = {"replan": got.n_replans, "speculation": got.n_speculative}[knob]
+            assert counter.sum() > 0, knob
+        return
+    if entry == "plan_cluster" and knob == "devices":
+        # the static frontier: devices is a dynamic-path knob
+        with pytest.raises(ValueError, match="devices"):
+            calls[entry](mods[1], pd, ps, device="cpu")
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
-        calls[entry]()
+        calls[entry](mods[1], pd, ps, device="cpu")
     if entry != "plan_cluster":
         assert reason in str(err.value) and entry in str(err.value)
 

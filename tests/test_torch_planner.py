@@ -23,6 +23,7 @@ import numpy as np  # noqa: E402
 import repro.cluster as rc  # noqa: E402
 import repro.core as R  # noqa: E402
 import repro_torch.cluster as pc  # noqa: E402
+import repro_torch.cluster.epoch_scan as PE  # noqa: E402
 import repro_torch.core as P  # noqa: E402
 from repro.cluster.epoch_scan import ReplanConfig  # noqa: E402
 from repro.cluster.vectorized import frontier_job_times as ref_frontier  # noqa: E402
@@ -255,9 +256,10 @@ def test_scenario_validate_accepts_torch_backend():
     pc.Scenario(dist=P.Exponential(1.0)).validate(8, backend="torch")
     with pytest.raises(ValueError, match="retry"):
         pc.Scenario(retry=pc.Retry()).validate(8, backend="torch")
-    replan = rc.Scenario(replan=ReplanConfig()).to_json()
-    with pytest.raises(NotImplementedError, match="epoch scan"):
-        pc.Scenario.from_json(replan)
+    replan = rc.Scenario(replan=ReplanConfig(window=64, objective="blend")).to_json()
+    got = pc.Scenario.from_json(replan)
+    assert got.replan == PE.ReplanConfig(window=64, objective="blend")
+    assert got.to_json() == replan
 
 
 def test_entry_points_need_a_device_when_no_card(monkeypatch):
@@ -280,7 +282,8 @@ def test_entry_points_need_a_device_when_no_card(monkeypatch):
                               device="cpu"),
         lambda: P.RedundancyPlanner(4).plan_cluster(P.Exponential(1.0), backend="python"),
         lambda: P.RedundancyPlanner(4).plan_cluster(
-            scenario=pc.Scenario(dist=P.Exponential(1.0), speculation=pc.Speculation()),
+            scenario=pc.Scenario(dist=P.Exponential(1.0), scheduler="packed",
+                                 workers_per_job=2),
             device="cpu"),
         lambda: P.RedundancyPlanner(2).plan_slo(
             P.Exponential(1.0), pc.SLO(target_s=60.0, arrival_rate=0.05),
@@ -288,8 +291,14 @@ def test_entry_points_need_a_device_when_no_card(monkeypatch):
     ],
     ids=["space", "python-backend", "dynamic", "dynamic-slo"],
 )
-def test_later_slices_raise_not_implemented(call):
-    with pytest.raises(NotImplementedError):
+def test_later_slices_raise_not_implemented(call, request):
+    """Space sharing (``dynamic``: a space scenario on the planner) and the
+    Python backend still raise; a dynamic ``plan_slo`` now runs on the epoch
+    scan (its match against the reference is in tests/test_torch_slo.py)."""
+    if request.node.callspec.id == "dynamic-slo":
+        assert call().source == "epoch_scan"
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         call()
 
 
@@ -325,7 +334,7 @@ def test_port_never_imports_jax_or_the_reference():
     "module",
     ["repro_torch.cluster", "repro_torch.cluster.vectorized", "repro_torch.core.service_time",
      "repro_torch.kernels.cover", "repro_torch.cluster.stream", "repro_torch.core.coupon",
-     "repro_torch.cluster.epoch_scan"],
+     "repro_torch.cluster.epoch_scan", "repro_torch.cluster.control"],
 )
 def test_each_module_imports_first_in_a_fresh_process(module):
     """``cluster`` and ``core`` import each other at package level; whichever

@@ -88,16 +88,11 @@ def _call_plan_sweep(kw):
 )
 def test_every_entry_point_loose_kwarg_warns_once_naming_itself(name, call, kw):
     """The shim warns once, naming the entry point; nested delegation
-    (plan_sweep -> plan_cluster -> the frontier) does not warn again.  The
-    speculation bank is a later slice: the call then raises after the one
-    warning, naming its ROADMAP item."""
-    unported = "speculation" in kw
+    (plan_sweep -> plan_cluster -> the frontier) does not warn again, with
+    the speculation bank on as with it off."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        ctx = pytest.raises(NotImplementedError, match="ROADMAP.md") if unported else (
-            contextlib.nullcontext())
-        with ctx:
-            call(kw)
+        call(kw)
     shim = [
         w
         for w in caught

@@ -41,9 +41,9 @@ def _key(c):
     return (c.scheduler, c.workers_per_job, c.n_batches, c.replication, c.feasible)
 
 
-def _assert_same_plan(got, want):
+def _assert_same_plan(got, want, source="stream"):
     assert got.n_workers == want.n_workers and got.classes == want.classes
-    assert got.feasible == want.feasible and got.source == want.source == "stream"
+    assert got.feasible == want.feasible and got.source == want.source == source
     assert [dataclasses.asdict(s) for s in got.slos] == [dataclasses.asdict(s) for s in want.slos]
     assert [_key(c) for c in got.candidates] == [_key(c) for c in want.candidates]
     for g, w in zip(got.candidates, want.candidates):
@@ -195,12 +195,24 @@ def test_plan_slo_validation_errors_match_reference():
                 call()
 
 
-def test_plan_slo_dynamic_scenario_is_not_ported_yet():
-    sc = pc.Scenario(speeds=(1.0, 0.5), size_dependent=False)
-    with pytest.raises(NotImplementedError, match="epoch scan"):
-        P.RedundancyPlanner(2).plan_slo(
-            P.Exponential(mu=0.5), pc.SLO(quantile=0.9, target_s=60.0, arrival_rate=0.05),
-            scenario=sc, n_jobs=40, n_reps=2, seed=3, schedulers=("fifo_gang",), device="cpu")
+def test_plan_slo_dynamic_scenario_is_not_ported_yet(x64):
+    """Ported now: a dynamic scenario runs on the epoch scan.  Here with a
+    trace-job workload (sampled as an ``Empirical`` law per candidate) on a
+    heterogeneous cluster in float64: the reference's ``SLOPlan``
+    (candidates, order, feasibility and achieved quantiles equal, costs
+    within rtol 1e-12).  tests/test_torch_epoch_stream.py holds the
+    reference's own dynamic fixture."""
+    jobs = {"R": R.traces.synthetic_google_jobs(2020), "P": P.traces.synthetic_google_jobs(2020)}
+    kw = dict(n_jobs=40, n_reps=2, seed=3, schedulers=("fifo_gang",))
+    want = R.RedundancyPlanner(4).plan_slo(
+        jobs["R"][0], rc.SLO(quantile=0.9, target_s=40.0, arrival_rate=0.05),
+        scenario=rc.Scenario(speeds=(1.0, 0.5, 2.0, 1.5), size_dependent=False,
+                             dtype="float64"), **kw)
+    got = P.RedundancyPlanner(4).plan_slo(
+        jobs["P"][0], pc.SLO(quantile=0.9, target_s=40.0, arrival_rate=0.05),
+        scenario=pc.Scenario(speeds=(1.0, 0.5, 2.0, 1.5), size_dependent=False,
+                             dtype="float64"), device="cpu", **kw)
+    _assert_same_plan(got, want, source="epoch_scan")
 
 
 def test_plan_slo_needs_a_device_when_no_card(monkeypatch):
