@@ -87,6 +87,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports
    (median of 3 calls; ``plan_slo`` one call), steps, host ms per step,
    kernel launches per step, the card's idle share (``torch.profiler``) and
    peak device memory;
+5d. runs space sharing and the event engine (no kernel on the space lane):
+   the port's ``ClusterEngine`` on the host against the space lane on the
+   card in float64 on ``tests/test_space_sharing.py``'s crafted schedule
+   (six speeds, ``Empirical((1.3,))``, N = 6, 8 jobs, 2 workers a job;
+   ``fifo_gang``, ``packed``, ``balanced``, cancellation off and on; and the
+   heterogeneous-plan case), the whole trajectory and accounting equal;
+   ``tests/golden/epoch_scan_space.json`` (the JAX package's float64 runs)
+   bitwise but the two sums; space-shared planning on the churned cluster
+   (the churned-planning scenario, ``RedundancyPlanner(100, candidates=(1,
+   2, 4, 5, 10, 20))``, ``packed`` and ``balanced``, 20 workers a job,
+   48-job streams, Pareto(1, 1.8), 4096 reps, float32) with its wall
+   (median of 3), steps, launches per step, host ms per step, idle share and
+   peak memory beside the CPU's wall, and the same call at 64 reps in
+   float64 (frontier rows, and ``simulate_epochs``) bitwise equal to the CPU
+   but the two sums; ``bench_space_sharing``'s scheduling effect
+   (``simulate_fifo``, Pareto(1, 1.8), N = 16, B = 2, 24 jobs at t = 0, 256
+   reps, ``packed`` with 5 workers a job in float64, bitwise equal to the
+   CPU, against ``fifo_gang``: the mean-response ratio below 1) and its two
+   backends (N = 16, ``feasible_B(5)``, 2048 reps, 48-job streams,
+   ``packed``, Exp(1) and Pareto(1, 1.8): ``backend="python"``, the port's
+   engine on the host, against ``backend="torch"`` warm, best of 3; equal
+   B for Exp(1));
 6. runs ``simulate_fifo`` on the card the same way and checks its accounting
    invariant;
 7. runs the paper's batching schemes at full width: ``simulate_membership``
@@ -164,20 +186,33 @@ CHURN_N, CHURN_REPS, CHURN_PAIRS, CHURN_STREAM = 100, 4096, 2, 96
 CHURN_FAIL_RATE, CHURN_DOWNTIME = 0.02, 2.0
 # simulate_epochs on the card: B, Poisson arrivals at a mean gap, reps (the
 # churn horizon auto-sized from the stream, the entry point's default)
-EPOCH_B, EPOCH_JOBS, EPOCH_GAP, EPOCH_REPS = 50, 96, 3.0, 64
+EPOCH_B, EPOCH_JOBS, EPOCH_GAP, EPOCH_REPS = 50, 48, 3.0, 64
 GOLDEN_EPOCH = ROOT / "tests" / "golden" / "epoch_scan_frontier.json"
 # the dynamic policies on the churned-planning scenario: the in-scan
-# replanner with examples/elastic_failover.py's ReplanConfig, from B = N
+# replanner with examples/elastic_failover.py's ReplanConfig, from B = N;
+# the replanner, the fold and plan_slo sample one fail/join pair a worker,
+# which keeps the script in its time budget: a lane's steps follow its
+# churn events
 REPLAN_WINDOW, REPLAN_EVERY, REPLAN_MIN = 512, 128, 96
+DYN_PAIRS = 1
 # speculation as examples/speculative_backup.py runs it: N workers, jobs at
-# t = 0, reps, the Speculation knobs, Pareto(1, SPEC_ALPHA), cancelling
-SPEC_N, SPEC_JOBS, SPEC_REPS, SPEC_ALPHA = 10, 40, 200, 1.5
+# t = 0 (half the example's 40, for the script's time), reps, the
+# Speculation knobs, Pareto(1, SPEC_ALPHA), cancelling
+SPEC_N, SPEC_JOBS, SPEC_REPS, SPEC_ALPHA = 10, 20, 200, 1.5
 SPEC_INTERVAL, SPEC_THETA, SPEC_MIN_OBS = 0.4, 2.0, 3
 # plan_slo on the churned cluster: one Pareto(1, 1.8) class, a p99 target at
 # a Poisson rate that some but not all of the 9 candidates meet
 SLO_DYN_JOBS, SLO_DYN_REPS, SLO_DYN_RATE, SLO_DYN_TARGET = 200, 8, 0.3, 4.0
 GOLDEN_POLICIES = [ROOT / "tests" / "golden" / f"epoch_scan_{name}.json"
                    for name in ("replan", "speculation")]
+# space sharing: benchmarks/cluster_bench.py bench_space_sharing at its own
+# shape (N workers, workers a job, jobs at t = 0, reps of the response ratio,
+# reps and stream length of the two backends' frontier), then space-shared
+# planning on the churned cluster (workers a job, candidates)
+SPACE_N, SPACE_WPJ, SPACE_JOBS, SPACE_RATIO_REPS = 16, 5, 24, 256
+SPACE_REPS, SPACE_STREAM = 2048, 48
+SPACE_PLAN_WPJ, SPACE_PLAN_CANDS, SPACE_CHECK_REPS = 20, (1, 2, 4, 5, 10, 20), 64
+GOLDEN_SPACE = ROOT / "tests" / "golden" / "epoch_scan_space.json"
 # simulate_fifo's workload: N workers in B batches (r = N / B), FIFO_JOBS jobs
 FIFO_N, FIFO_B, FIFO_JOBS = 100, 10, 64
 # the paper's batching schemes at full width: N workers = tasks, B batches
@@ -889,12 +924,12 @@ def _churned_planning() -> dict:
         print(f"{name:15s}: frontier rows {rows.shape} bitwise equal to the CPU's "
               f"({cpu_s:.3f} s there), {np.isfinite(rows).mean():.6f} finite; same plan")
         # where a call's time goes: launches per step, the card's idle share
-        host: dict = {}
+        # (the card traced alone: reading a host trace back costs a minute)
         counts: dict = {}
         epoch_scan.steps_run = 0
         wall_ms, by_name = profile_device(
             lambda: planner.plan_cluster(dist, n_reps=CHURN_REPS, seed=SEED, scenario=sc),
-            host, counts)
+            counts=counts, cpu=False)
         steps = epoch_scan.steps_run
         busy_ms = sum(by_name.values()) / 1e3
         n_kernels = sum(counts.values())
@@ -904,9 +939,6 @@ def _churned_planning() -> dict:
               f"{n_kernels / steps:.2f} per step over {steps} steps")
         for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:4]:
             print(f"    {us / 1e3:9.4f} ms  {counts[kname]:7d}x  {kname[:80]}")
-        print("  host operators by own CPU time:")
-        for hname, us in sorted(host.items(), key=lambda kv: -kv[1])[:5]:
-            print(f"    {us / 1e3:9.4f} ms  {hname[:90]}")
         launches = {k: launches[k] + got[k] for k in launches}
 
     # rep_chunk: 1024 streams per pass covers all 43 in one; 16 splits them in three
@@ -1065,8 +1097,8 @@ def _dynamic_policies() -> dict:
     replan = ReplanConfig(window=REPLAN_WINDOW, refit_every=REPLAN_EVERY,
                           min_observations=REPLAN_MIN)
     phase(f"dynamic policies on the epoch scan: the replanner ({replan}) at N={CHURN_N} on "
-          f"the churned scenario, speculation at N={SPEC_N}, the streaming fold, plan_slo on "
-          "the churned cluster")
+          f"the churned scenario ({DYN_PAIRS} fail/join pair a worker), speculation at "
+          f"N={SPEC_N}, the streaming fold, plan_slo on the churned cluster")
     cover.launches = cover.draws_launches = cover.philox_launches = 0
     decisions = ("n_replans", "n_batches_used", "replication_used")
     times = ("starts", "finishes", "epoch_times", "n_worker_failures", "n_replicas_rescued")
@@ -1075,7 +1107,7 @@ def _dynamic_policies() -> dict:
     # -- the replanner in simulate_epochs, from B = N, float64
     arrivals = np.cumsum(np.random.default_rng(SEED).exponential(EPOCH_GAP, EPOCH_JOBS))
     r_sc = churn_scenario(cancel_redundant=True, size_dependent=False, dtype="float64",
-                          churn_pairs_per_worker=CHURN_PAIRS, replan=replan)
+                          churn_pairs_per_worker=DYN_PAIRS, replan=replan)
     law = Pareto(sigma=1.0, alpha=1.8)
     args = (law, CHURN_N, CHURN_N, arrivals, EPOCH_REPS)
     card = _measure(f"replanner simulate_epochs N={CHURN_N}, {EPOCH_JOBS} jobs, {EPOCH_REPS} "
@@ -1091,7 +1123,7 @@ def _dynamic_policies() -> dict:
           f"{sorted(set(card.final_n_batches.tolist()))}", flush=True)
 
     # -- the replanner while plan_cluster scores the frontier, float32
-    p_sc = churn_scenario(churn_pairs_per_worker=CHURN_PAIRS, jobs_per_stream=CHURN_STREAM,
+    p_sc = churn_scenario(churn_pairs_per_worker=DYN_PAIRS, jobs_per_stream=CHURN_STREAM,
                           replan=replan)
     planner = RedundancyPlanner(CHURN_N)
     plan = _measure(f"replanner plan_cluster N={CHURN_N}, {CHURN_REPS} reps, float32",
@@ -1158,7 +1190,7 @@ def _dynamic_policies() -> dict:
     # -- plan_slo on the churned cluster, float64
     slo = SLO(quantile=0.99, target_s=SLO_DYN_TARGET, arrival_rate=SLO_DYN_RATE)
     d_sc = churn_scenario(cancel_redundant=True, size_dependent=False, dtype="float64",
-                          churn_pairs_per_worker=CHURN_PAIRS)
+                          churn_pairs_per_worker=DYN_PAIRS)
     kw = dict(scenario=d_sc, n_jobs=SLO_DYN_JOBS, n_reps=SLO_DYN_REPS, seed=SEED,
               schedulers=("fifo_gang",))
     # one call (its 9 candidates are 9 simulate_epochs calls), and the
@@ -1224,6 +1256,196 @@ def _dynamic_policies() -> dict:
               "(bitwise but the sums, rtol 1e-12)", flush=True)
     got = {"draws": cover.draws_launches, "philox": cover.philox_launches}
     check(got == {"draws": 0, "philox": 0}, f"a cover kernel ran: {got}")
+    torch.cuda.empty_cache()
+    return got
+
+
+def phase_space_engine() -> dict:
+    import warnings
+
+    # the churned cluster's 2 pairs a worker end before most streams do, as in
+    # the churned-planning phase; the warnings are shown once
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        launches = _space_engine()
+    seen = sorted({str(w.message).split(":")[0] for w in caught
+                   if issubclass(w.category, RuntimeWarning)})
+    for text in seen:
+        print(f"RuntimeWarning (expected, by the scenario's design): {text}")
+    return launches
+
+
+def _space_engine() -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.cluster import (
+        ChurnProcess,
+        ChurnSchedule,
+        ClusterEngine,
+        Job,
+        JobPlan,
+        Scenario,
+    )
+    from repro_torch.cluster.epoch_scan import frontier_job_times_dynamic, simulate_epochs
+    from repro_torch.cluster.vectorized import simulate_fifo
+    from repro_torch.core import RedundancyPlanner, analysis
+    from repro_torch.core.service_time import Empirical, Exponential, Pareto
+    from repro_torch.kernels import cover
+    from test_torch_space_lane_cuda import engine_lane_mismatches
+
+    phase(f"space sharing and the event engine: engine against the space lane (f64), the "
+          f"golden, space-shared planning at N={CHURN_N} on the churned cluster, "
+          f"bench_space_sharing at N={SPACE_N}")
+    cover.launches = cover.draws_launches = cover.philox_launches = 0
+    sums = ("worker_seconds", "cancelled_seconds_saved")
+    fields = ("starts", "finishes", "n_batches_used", "replication_used", "epoch_times",
+              "n_worker_failures", "n_replicas_rescued")
+
+    # -- the engine on the host against the space lane on the card, float64
+    sched = ChurnSchedule(times=(0.7, 1.9, 3.35, 5.1, 7.77, 9.4), wids=(2, 5, 2, 0, 5, 0),
+                          ups=(False, False, True, False, True, True))
+    speeds = (1.0, 1.5, 0.7, 1.2, 0.9, 1.1)
+    const = Empirical((1.3,))
+    n_exact = 0
+    for policy in ("fifo_gang", "packed", "balanced"):
+        for cancel in (False, True):
+            er = ClusterEngine(6, seed=3, n_batches=2, cancel_redundant=cancel, speeds=speeds,
+                               churn_schedule=sched, scheduler=policy, workers_per_job=2).run(
+                [Job(job_id=i, dist=const, n_tasks=6) for i in range(8)])
+            vr = simulate_epochs(const, 6, 2, np.zeros(8), 1, seed=3, scenario=Scenario(
+                cancel_redundant=cancel, speeds=speeds, churn_schedule=sched, scheduler=policy,
+                workers_per_job=2, dtype="float64"))
+            bad = engine_lane_mismatches(er, vr)
+            check(not bad, f"{policy} cancel={cancel}: the lane differs from the engine in {bad}")
+            check(policy == "fifo_gang" or er.n_replicas_rescued > 0,
+                  f"{policy}: no rescue on the crafted schedule")
+            n_exact += 1
+    arr = np.array([0.0, 0.0, 0.8, 1.2, 2.9, 4.0, 5.5, 6.1, 8.0])
+    rng = np.random.default_rng(4)  # tests/strategies.py seeded_job_plans(6, seed=4)
+    plans = [JobPlan(workers=int(rng.integers(1, 7)), n_batches=int(rng.integers(1, 7)),
+                     cancel_redundant=bool(rng.integers(0, 2))) for _ in range(2)] + [None]
+    d17 = Empirical((1.7,))
+    for policy in ("packed", "balanced"):
+        er = ClusterEngine(6, seed=7, n_batches=3, speeds=speeds, churn_schedule=sched,
+                           scheduler=policy, workers_per_job=2).run(
+            [Job(job_id=i, dist=d17, n_tasks=6, arrival=float(arr[i]), plan=plans[i % 3])
+             for i in range(9)])
+        vr = simulate_epochs(d17, 6, 3, arr, 1, seed=7, scenario=Scenario(
+            speeds=speeds, churn_schedule=sched, scheduler=policy, workers_per_job=2,
+            job_plans=plans, dtype="float64"))
+        bad = engine_lane_mismatches(er, vr)
+        check(not bad, f"{policy} heterogeneous plans: the lane differs from the engine in {bad}")
+        check(len({r.n_batches for r in er.records}) >= 2, "the plans ran one B")
+        n_exact += 1
+    print(f"engine (host) against the space lane (card), float64: {n_exact} runs, every "
+          "trajectory, epoch time and counter equal", flush=True)
+
+    # -- the JAX package's float64 space runs
+    golden = json.loads(GOLDEN_SPACE.read_text())
+    for name, g in golden.items():
+        case = g["case"]
+        kw = dict(case["scenario"], speeds=tuple(case["speeds"]),
+                  churn=ChurnProcess(**case["churn"]))
+        if case["job_plans"] is not None:
+            kw["job_plans"] = [None if p is None else JobPlan(**p) for p in case["job_plans"]]
+        law = {"Pareto": Pareto, "Exponential": Exponential}[case["dist"]["kind"]](
+            **case["dist"]["fields"])
+        rep = simulate_epochs(law, case["n_workers"], case["n_batches"],
+                              np.asarray(case["arrivals"]), case["n_reps"], seed=case["seed"],
+                              scenario=Scenario(**kw))
+        for f in fields:
+            got = np.asarray(getattr(rep, f))
+            want = np.asarray(g[f], dtype=got.dtype)
+            bits = (lambda x: x.view(np.uint64)) if got.dtype == np.float64 else (lambda x: x)
+            check(np.array_equal(bits(got), bits(want)), f"{GOLDEN_SPACE.name} {name}: {f}")
+        for f in sums:
+            got, want = np.asarray(getattr(rep, f)), np.asarray(g[f])
+            check(bool((np.abs(got - want) <= 1e-12 * np.abs(want)).all()),
+                  f"{GOLDEN_SPACE.name} {name}: {f} beyond rtol 1e-12")
+    print(f"{GOLDEN_SPACE.relative_to(ROOT)}: the card's runs equal the JAX package's "
+          f"({len(golden)} cases, bitwise but the sums, rtol 1e-12)", flush=True)
+
+    # -- space-shared planning on the churned cluster, float32
+    law = Pareto(sigma=1.0, alpha=1.8)
+    planner = RedundancyPlanner(CHURN_N, candidates=SPACE_PLAN_CANDS)
+    n_streams = -(-CHURN_REPS // SPACE_STREAM)
+    for policy in ("packed", "balanced"):
+        sc = churn_scenario(churn_pairs_per_worker=CHURN_PAIRS, jobs_per_stream=SPACE_STREAM,
+                            scheduler=policy, workers_per_job=SPACE_PLAN_WPJ)
+        plan = _measure(f"space-shared plan_cluster {policy} N={CHURN_N}, {SPACE_PLAN_WPJ} "
+                        f"workers a job, {len(SPACE_PLAN_CANDS)} candidates x {n_streams} "
+                        f"streams of {SPACE_STREAM} jobs, {CHURN_REPS} reps, float32",
+                        lambda: planner.plan_cluster(law, n_reps=CHURN_REPS, seed=SEED,
+                                                     scenario=sc))
+        t0 = time.perf_counter()
+        plan_cpu = planner.plan_cluster(law, n_reps=CHURN_REPS, seed=SEED, scenario=sc,
+                                        device="cpu")
+        cpu_s = time.perf_counter() - t0
+        check(plan == plan_cpu, f"space-shared plan_cluster {policy}: plan differs card vs CPU")
+        check(all(math.isfinite(m) and m > 0 for m in plan.frontier_mean),
+              f"{policy}: a frontier mean is not finite and positive")
+        print(f"space-shared plan_cluster {policy}: B*={plan.n_batches}, E[T]="
+              f"{plan.predicted_mean:.6g}; the same plan on the CPU in {cpu_s:.4f} s",
+              flush=True)
+        # the same call at SPACE_CHECK_REPS reps in float64: card against CPU
+        sc64 = sc.replace(dtype="float64")
+        rows = frontier_job_times_dynamic(law, CHURN_N, SPACE_PLAN_CANDS, SPACE_CHECK_REPS,
+                                          seed=SEED, scenario=sc64)
+        cpu = frontier_job_times_dynamic(law, CHURN_N, SPACE_PLAN_CANDS, SPACE_CHECK_REPS,
+                                         seed=SEED, scenario=sc64, device="cpu")
+        check(np.array_equal(rows.view(np.uint64), cpu.view(np.uint64)),
+              f"{policy}: float64 frontier rows differ card vs CPU")
+        check(bool(np.isfinite(rows).any()),
+              f"{policy}: no job finished at {SPACE_CHECK_REPS} reps")
+        print(f"{policy} at {SPACE_CHECK_REPS} reps, float64: frontier rows {rows.shape} bitwise "
+              "equal to the CPU's", flush=True)
+
+    # -- bench_space_sharing: the scheduling effect
+    ratio_law, arr = Pareto(1.0, 1.8), np.zeros(SPACE_JOBS)
+    gang = simulate_fifo(ratio_law, SPACE_N, 2, arr, SPACE_RATIO_REPS, seed=0)
+    fifo_kw = dict(seed=0, scheduler="packed", workers_per_job=SPACE_WPJ, dtype="float64")
+    packed = simulate_fifo(ratio_law, SPACE_N, 2, arr, SPACE_RATIO_REPS, **fifo_kw)
+    packed_cpu = simulate_fifo(ratio_law, SPACE_N, 2, arr, SPACE_RATIO_REPS, device="cpu",
+                               **fifo_kw)
+    for f in ("starts", "finishes"):
+        check(np.array_equal(getattr(packed, f).view(np.uint64),
+                             getattr(packed_cpu, f).view(np.uint64)),
+              f"packed simulate_fifo {f} differs card vs CPU")
+    ratio = float(packed.response_times.mean() / gang.response_times.mean())
+    check(ratio < 1.0, f"packed/gang mean response ratio {ratio:.6f} is not below 1")
+    print(f"scheduling effect (simulate_fifo N={SPACE_N} B=2, {SPACE_JOBS} jobs at t=0, "
+          f"{SPACE_RATIO_REPS} reps): packed ({SPACE_WPJ} workers a job, float64, bitwise equal "
+          f"to the CPU) / fifo_gang mean response = {ratio:.6f}", flush=True)
+
+    # -- bench_space_sharing: the two backends on the space-shared frontier
+    cands = analysis.feasible_B(SPACE_WPJ)
+    b_planner = RedundancyPlanner(SPACE_N, candidates=cands)
+    b_sc = Scenario(scheduler="packed", workers_per_job=SPACE_WPJ, jobs_per_stream=SPACE_STREAM)
+    for name, b_law in (("Exp(1)", Exponential(1.0)), ("Pareto(1, 1.8)", Pareto(1.0, 1.8))):
+        kw = dict(n_reps=SPACE_REPS, seed=0, scenario=b_sc)
+        b_planner.plan_cluster(b_law, **kw)  # warm
+        warms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            p_torch = b_planner.plan_cluster(b_law, **kw)
+            torch.cuda.synchronize()
+            warms.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        p_py = b_planner.plan_cluster(b_law, backend="python", **kw)
+        t_py = time.perf_counter() - t0
+        check(p_py.source == "cluster_engine:python" and p_torch.source == "cluster_engine:torch",
+              "plan sources")
+        if name == "Exp(1)":
+            check(p_py.n_batches == p_torch.n_batches,
+                  f"Exp(1): B {p_py.n_batches} on the engine, {p_torch.n_batches} on the lane")
+        print(f"two backends, {name}, N={SPACE_N}, candidates {cands}, {SPACE_REPS} reps: "
+              f"python (engine, host) {t_py:.4f} s B={p_py.n_batches}; torch (space lane, card) "
+              f"{min(warms):.4f} s best of 3 ({max(warms):.4f} worst) B={p_torch.n_batches}; "
+              f"python / torch = {t_py / min(warms):.3f}", flush=True)
+    got = {"draws": cover.draws_launches, "philox": cover.philox_launches}
+    # the fifo_gang side of the scheduling effect is the only cover-kernel pass
+    check(got == {"draws": 1, "philox": 0}, f"cover kernels in the phase: {got}")
     torch.cuda.empty_cache()
     return got
 
@@ -1895,7 +2117,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    # the port, and tests/ for the engine-against-lane contract (jax-free)
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
     try:
         import repro_torch  # noqa: F401
     except ImportError as e:
@@ -1911,7 +2134,7 @@ def main() -> int:
         att_rec = phase_attention_vs_plain()
         plan_launches = phase_main_path()
         path_launches = [plan_launches, phase_churned_planning(), phase_dynamic_policies(),
-                         phase_fifo(),
+                         phase_space_engine(), phase_fifo(),
                          phase_schemes(), phase_stream(), phase_slo()]
         serve_launches = phase_serve()
         phase_decode_profile()

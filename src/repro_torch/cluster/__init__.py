@@ -4,29 +4,50 @@ Public surface ported so far:
   * scenario   -- the one frozen, validated spec shared by every entry point
   * scheduler  -- placement policies and per-job ``JobPlan`` overrides
   * workers    -- Worker/WorkerPool, ChurnProcess, ChurnSchedule
+  * events     -- event heap, simulation clock, named RNG streams
+  * master     -- the event-driven engine, a host numpy copy of the
+    reference's: ``Job`` / ``JobRecord`` / ``EngineReport``,
+    ``ClusterEngine`` (churn, rescue, cancellation, speeds, the
+    ``OnlineReplanner`` controller, speculation, ``Retry``, the space
+    schedulers with per-job ``JobPlan`` s), ``sample_job_times`` (by
+    default the frontier and the epoch scan on the card, or
+    ``backend="python"``: the engine on the host) and
+    ``jobs_from_traces``; the path behind ``plan_cluster(backend="python")``
   * vectorized -- batched torch replay of the static engine semantics:
     whole-frontier candidate scoring (``frontier_job_times``) and FIFO
-    queueing (``simulate_fifo``), the path behind ``plan_cluster`` /
-    ``plan_sweep``, and the stream slab
+    queueing (``simulate_fifo``, whose space knobs delegate to the epoch
+    scan's space lane), the path behind ``plan_cluster`` / ``plan_sweep``,
+    and the stream slab
   * stream     -- trace-scale streaming (``simulate_stream``) with on-device
     response statistics, the path behind ``plan_slo``
   * control    -- OnlineReplanner (sliding-window refit + replan) and
-    SpeculativePolicy, the oracles of the epoch scan's adaptive policies
-  * epoch_scan -- the epoch scan's gang lane: churn, replica rescue,
+    SpeculativePolicy, the engine's controllers and the oracles of the
+    epoch scan's adaptive policies
+  * epoch_scan -- the epoch scan: the gang lane (churn, replica rescue,
     heterogeneous speeds, FIFO gang dispatch, the in-scan replanner
-    (``ReplanConfig``) and speculative backups (``simulate_epochs``, with
-    ``outputs="stream"`` folding to an ``EpochStreamReport``), and
-    whole-frontier scoring of dynamic scenarios
-    (``frontier_job_times_dynamic``), the path behind a dynamic
-    ``plan_cluster`` and ``plan_slo``
+    ``ReplanConfig`` and speculative backups) and the space lane
+    (``packed`` / ``balanced`` / per-job plans on disjoint worker subsets,
+    rescue regrants), in ``simulate_epochs`` (with ``outputs="stream"``
+    folding to an ``EpochStreamReport``) and whole-frontier scoring of
+    dynamic or space-shared scenarios (``frontier_job_times_dynamic``), the
+    path behind a dynamic ``plan_cluster`` and ``plan_slo``
 
-The epoch scan's space lane, the DES engine and the live runtime come with
-later slices (``ROADMAP.md``).
+The live runtime comes with a later slice (``ROADMAP.md``).
 """
 # core first: its __init__ re-exports cluster.scenario, whose workers import
 # core.service_time, so entering through cluster would meet a half-built core
 from .. import core  # noqa: F401
-from . import control, epoch_scan, scenario, scheduler, stream, vectorized, workers
+from . import (
+    control,
+    epoch_scan,
+    events,
+    master,
+    scenario,
+    scheduler,
+    stream,
+    vectorized,
+    workers,
+)
 from .control import OnlineReplanner, SpeculativePolicy
 from .epoch_scan import (
     EpochReport,
@@ -34,6 +55,14 @@ from .epoch_scan import (
     ReplanConfig,
     frontier_job_times_dynamic,
     simulate_epochs,
+)
+from .master import (
+    ClusterEngine,
+    EngineReport,
+    Job,
+    JobRecord,
+    jobs_from_traces,
+    sample_job_times,
 )
 from .scenario import SLO, FaultPlan, Retry, Scenario, Speculation
 from .scheduler import JobPlan, Scheduler, make_scheduler
@@ -57,6 +86,8 @@ from .workers import ChurnProcess, ChurnSchedule, Worker, WorkerPool, sample_chu
 __all__ = [
     "control",
     "epoch_scan",
+    "events",
+    "master",
     "scenario",
     "scheduler",
     "stream",
@@ -72,6 +103,12 @@ __all__ = [
     "make_scheduler",
     "OnlineReplanner",
     "SpeculativePolicy",
+    "ClusterEngine",
+    "EngineReport",
+    "Job",
+    "JobRecord",
+    "jobs_from_traces",
+    "sample_job_times",
     "EpochReport",
     "EpochStreamReport",
     "ReplanConfig",

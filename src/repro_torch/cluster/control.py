@@ -10,8 +10,8 @@ The epoch scan's in-scan replanner
 (:class:`repro_torch.cluster.epoch_scan.ReplanConfig`) holds the same knobs,
 and ``ReplanConfig.to_controller`` builds the equivalent instance of this
 class: it is the function-level oracle of the scan's refit.  The event
-engine that feeds it live observations comes with a later slice of the port
-(``ROADMAP.md`` §1, item 2).
+engine (:class:`repro_torch.cluster.master.ClusterEngine`) feeds it live
+observations, as the reference's engine feeds the reference's.
 """
 from __future__ import annotations
 

@@ -1,12 +1,12 @@
-"""The epoch scan's gang lane in torch: churn, rescue, speeds and adaptive policies.
+"""The epoch scan in torch: churn, rescue, speeds, adaptive policies, space sharing.
 
-Port of the single-gang lane of ``repro.cluster.epoch_scan``.  It replays the
-dynamic semantics of the event-driven cluster engine -- worker fail/join
-churn, replica rescue, per-worker speed factors, FIFO multi-job gang
-dispatch, replica cancellation, the windowed online replanner and reactive
-(speculative) backup replicas -- as a bounded step loop, batched over
-Monte-Carlo reps (and, for planning, over a whole candidate frontier).  Each
-step performs exactly one action:
+Port of ``repro.cluster.epoch_scan``.  It replays the dynamic semantics of
+the event-driven cluster engine (:mod:`repro_torch.cluster.master`) --
+worker fail/join churn, replica rescue, per-worker speed factors, FIFO
+multi-job gang dispatch, replica cancellation, the windowed online replanner
+and reactive (speculative) backup replicas -- as a bounded step loop,
+batched over Monte-Carlo reps (and, for planning, over a whole candidate
+frontier).  On the gang lane each step performs exactly one action:
 
   * *rescue*: dispatch the oldest pending rescue onto the earliest-freeing
     alive worker, or
@@ -17,6 +17,13 @@ step performs exactly one action:
     replanner's window, and gang-dispatch the next queued job, or
   * *commit + boundary*: apply one fail/join event (replica kill, rescue
     queueing, the engine's sim-over churn truncation).
+
+The space lane (:func:`_space_step`; ``scheduler="packed"|"balanced"``,
+``workers_per_job``, ``job_plans``) runs concurrent jobs on disjoint worker
+subsets, each under its own (workers, B, cancellation) plan: every step
+commits the wins and retirements up to the next churn boundary, then takes
+one action -- a rescue (the job's own free workers first, else a regranted
+unallocated one), a first-fit dispatch, or one fail/join event.
 
 Every lane is one row of ``(L, ...)`` tensors on one device; a step is a
 fixed sequence of eager torch operations on all of them, with no host
@@ -40,10 +47,7 @@ downstream of equal decisions is bitwise.  ``outputs="stream"`` folds the
 same lanes' per-job records into :class:`EpochStreamReport` on the device,
 in arrival order.  Lane batches are not padded to powers of two: the
 reference pads them for its compile cache, and padding lanes carry no result.
-
-Not ported yet, and refused by name at the entry points: the space-sharing
-lane (``scheduler`` / ``workers_per_job`` / ``job_plans``) and
-``devices > 1`` (the port runs every lane on one device).
+``devices > 1`` is refused by name: the port runs every lane on one device.
 """
 from __future__ import annotations
 
@@ -59,6 +63,7 @@ from .._device import resolve_device, resolve_dtype
 from ..core.analysis import divisor_table, harmonic_tables
 from ..core.service_time import ServiceTime
 from .scenario import UNSET, Scenario, Speculation, resolve_scenario
+from .scheduler import is_space
 from .workers import ChurnProcess, ChurnSchedule
 
 __all__ = [
@@ -238,6 +243,9 @@ class _RunnerCfg:
     spec: Optional[Speculation] = None
     # fold starts/finishes into EpochStreamReport accumulators on the device
     stream: bool = False
+    # None runs the single-gang lane; a policy name runs the space lane
+    # (per-worker job assignment, per-job plan tables)
+    scheduler: Optional[str] = None
 
     @property
     def n_slots(self) -> int:
@@ -720,6 +728,305 @@ def _step(cfg: _RunnerCfg, st: dict, inp: dict) -> None:
     st["e"] = (e + do_b).clamp(max=ev_pad - 1)
 
 
+# --------------------------------------------------------------------------
+# the space lane: concurrent jobs on disjoint worker subsets
+# --------------------------------------------------------------------------
+
+
+def _init_space_state(cfg: _RunnerCfg, b0: torch.Tensor, n_real: int, dt, dev) -> dict:
+    """The space lane's state, under the reference's names
+    (``epoch_scan.py::_build_space_lane``): per worker the owning job
+    ``w_job`` (``jobs_pad`` = unallocated), the time it is next available
+    ``w_avail`` and its assigned load ``w_load``; per replica slot (gang
+    replica of worker i, then rescue replica of segment i) ``rp_*``; per
+    segment slot its owning job ``seg_job`` and rescue bookkeeping; per job
+    ``job_*``.  Buffers written by gated scatters carry a sentinel column,
+    as in :func:`_init_state`."""
+    n, J, L = cfg.n, cfg.jobs_pad, b0.shape[0]
+    inf = float("inf")
+    i64 = torch.int64
+
+    def lanes(dtype, fill=0):
+        return torch.full((L,), fill, dtype=dtype, device=dev)
+
+    def per(width, dtype, fill):
+        return torch.full((L, width), fill, dtype=dtype, device=dev)
+
+    up = torch.arange(n + 1, device=dev) < n_real
+    st = {
+        "t_epoch": lanes(dt),
+        "e": lanes(i64),
+        "alive": up.expand(L, n + 1).clone(),
+        "w_job": per(n + 1, i64, J),
+        "w_avail": torch.where(up, 0.0, inf).to(dt).expand(L, n + 1).clone(),
+        "w_load": per(n + 1, dt, 0.0),
+        "g_s": per(n, i64, n),
+        "rb_w": per(n + 1, i64, 0),
+        "rp_live": per(2 * n + 1, torch.bool, False),
+        "rp_start": per(2 * n + 1, dt, 0.0),
+        "rp_end": per(2 * n + 1, dt, inf),
+        "rp_cancel": per(2 * n + 1, torch.bool, False),
+        "seg_job": per(n, i64, J),
+        "resc_pending": per(n + 1, torch.bool, False),
+        "resc_t": per(n, dt, inf),
+        "resc_k": lanes(i64),
+        "busy": lanes(dt),
+        "saved": lanes(dt),
+        "n_fail": lanes(i64),
+        "n_resc": lanes(i64),
+        "n_done": lanes(i64),
+        "n_replans": lanes(i64),  # the space lane never replans
+        "dispatched": per(J + 1, torch.bool, False),
+        "recorded": per(J + 1, torch.bool, False),
+        "job_left": per(J + 1, i64, 0),
+        "job_b": per(J + 1, i64, 1),
+        "job_fin": per(J + 1, dt, -inf),
+        "starts": per(J + 1, dt, inf),
+        "fins": per(J + 1, dt, inf),
+        "b0": b0.to(i64),
+        "row": torch.arange(L, device=dev),
+    }
+    if cfg.full_outputs:
+        st["br"] = per(J + 1, i64, 0)
+        st["ep_times"] = per(cfg.ev_pad + 1, dt, inf)
+    return st
+
+
+def _space_step(cfg: _RunnerCfg, st: dict, inp: dict) -> None:
+    """One step of the space lane over every lane (in place): commit wins
+    and retirements up to the next churn boundary, then one action -- a
+    rescue, else a first-fit dispatch, else one fail/join event.
+
+    The expressions, and the order in which each reads the state, are the
+    reference's (``epoch_scan.py::_build_space_lane``): rescues serve the
+    earliest-serveable pending segment (oldest first on ties) from the
+    job's own free workers before regranting an unallocated one; a dispatch
+    takes the queued job with the earliest feasible time (its request-th
+    smallest availability among free unallocated workers, floored at its
+    arrival and the epoch start; ties by queue order) onto the policy's
+    workers (packed: lowest ids; balanced: least ``w_load``; fifo_gang: the
+    whole alive set).  Gated writes go to the sentinel columns.
+    """
+    n, J, ev_pad, resc_cap = cfg.n, cfg.jobs_pad, cfg.ev_pad, cfg.resc_cap
+    balanced = cfg.scheduler == "balanced"
+    inf = float("inf")
+    row = st["row"]
+    L, dev = row.shape[0], row.device
+    widx = inp["bidx"]
+    speeds, n_tasks = inp["speeds"], inp["n_tasks"]
+    dt = speeds.dtype
+
+    def bscale(b):
+        return n_tasks / b.to(dt) if cfg.size_dep else inp["one"]
+
+    e = st["e"]
+    t_next = inp["ev_t"][row, e]
+    tn = t_next[:, None]
+    rp_seg = torch.cat([st["g_s"], widx.expand(L, n)], 1)
+    rp_w = torch.cat([widx.expand(L, n), st["rb_w"][:, :n]], 1)
+    seg_of = rp_seg.clamp(0, n - 1)
+    live = st["rp_live"][:, : 2 * n]
+    rp_start = st["rp_start"][:, : 2 * n]
+    rp_end = st["rp_end"][:, : 2 * n]
+    rp_cancel = st["rp_cancel"][:, : 2 * n]
+    alive = st["alive"][:, :n]
+    w_avail = st["w_avail"][:, :n]
+    w_load = st["w_load"][:, :n]
+    resc_pending = st["resc_pending"][:, :n]
+    occupied = st["seg_job"] < J
+
+    # -- commit batch wins and replica retirements up to t_next
+    win = torch.full((L, n + 1), inf, dtype=dt, device=dev).scatter_reduce_(
+        1, rp_seg, torch.where(live, rp_end, inf), "amin"
+    )[:, :n]
+    newly = occupied & torch.isfinite(win) & (win <= tn)
+    on_win = live & newly.gather(1, seg_of) & (rp_seg < n)
+    win_r = win.gather(1, seg_of)
+    # cancellation: every replica of a winning segment stops at the win
+    kill_c = on_win & rp_cancel
+    st["busy"] += torch.where(kill_c, win_r - rp_start, 0.0).sum(1)
+    st["saved"] += torch.where(kill_c, rp_end - win_r, 0.0).sum(1)
+    st["w_avail"].scatter_(1, torch.where(kill_c, rp_w, n), win_r)
+    # non-cancel replicas retire individually at their own end
+    retire = live & ~rp_cancel & (rp_end <= tn)
+    st["busy"] += torch.where(retire, rp_end - rp_start, 0.0).sum(1)
+    live &= ~(kill_c | retire)
+    # non-cancel survivors of a winning segment detach: the batch is done but
+    # the straggler keeps burning to its end
+    g_s = st["g_s"]
+    gone = ~live[:, :n] | (newly.gather(1, g_s.clamp(0, n - 1)) & (g_s < n))
+    st["g_s"] = torch.where(gone, n, g_s)
+
+    # -- job bookkeeping: wins decrement the owner's open count
+    segj = st["seg_job"]
+    i_new = torch.where(newly, segj.clamp(0, J - 1), J)
+    st["job_left"].scatter_add_(1, i_new, torch.full_like(i_new, -1))
+    st["job_fin"].scatter_reduce_(1, i_new, win, "amax")
+    st["seg_job"] = torch.where(newly, J, segj)  # freed at the win
+    resc_pending &= ~newly
+    comp = st["dispatched"][:, :J] & (st["job_left"][:, :J] == 0) & ~st["recorded"][:, :J]
+    job_fin = st["job_fin"][:, :J]
+    st["fins"][:, :J] = torch.where(comp, job_fin, st["fins"][:, :J])
+    st["recorded"][:, :J] |= comp
+    st["n_done"] += comp.sum(1)
+    w_job = st["w_job"][:, :n]
+    wj = w_job.clamp(0, J - 1)
+    rel = (w_job < J) & comp.gather(1, wj)
+    w_avail.copy_(torch.where(rel, torch.maximum(w_avail, job_fin.gather(1, wj)), w_avail))
+    w_job.masked_fill_(rel, J)
+
+    # -- rescue: the earliest-serveable pending segment, oldest first on
+    # ties, onto the job's own free workers or a free unallocated one
+    pend = resc_pending
+    resc_t = st["resc_t"]
+    segjob = st["seg_job"].clamp(0, J - 1)
+    # a segment's earliest eligible worker: the earliest free one, or the
+    # earliest its own job holds (per job by a scatter-min; min is exact in
+    # any order, and this is O(L n) where a segment-by-worker grid is O(L n^2))
+    free_min = torch.where(alive & (w_job == J), w_avail, inf).amin(1, keepdim=True)
+    own_min = torch.full((L, J + 1), inf, dtype=dt, device=dev).scatter_reduce_(
+        1, w_job, torch.where(alive, w_avail, inf), "amin"
+    )
+    serve0 = torch.minimum(free_min, own_min.gather(1, segjob))
+    serve_t = torch.where(pend, torch.maximum(resc_t, serve0), inf)
+    serve_min = serve_t.amin(1)
+    m1 = serve_t == serve_min[:, None]
+    r_min = torch.where(m1, resc_t, inf).amin(1)
+    s_star = torch.where(m1 & (resc_t == r_min[:, None]), widx, n).argmin(1)
+    can_r = pend.any(1) & torch.isfinite(serve_min) & (serve_min <= t_next)
+    j_star = segjob.gather(1, s_star[:, None])[:, 0]
+    own = w_job == j_star[:, None]
+    cand = alive & (w_avail <= serve_min[:, None]) & (own | (w_job == J))
+    # space policies serve a rescue from the job's own free workers before
+    # regranting an unallocated one; the gang regime has no allocations
+    tier = torch.zeros_like(w_job) if cfg.scheduler == "fifo_gang" else torch.where(own, 0, 1)
+    key2 = w_load if balanced else widx.to(dt).expand(L, n)
+    mt = cand & (tier == torch.where(cand, tier, 2).amin(1, keepdim=True))
+    mk = mt & (key2 == torch.where(mt, key2, inf).amin(1, keepdim=True))
+    w_star = torch.where(mk, widx, n).argmin(1)
+    rk = st["resc_k"].clamp(0, resc_cap - 1)
+    jb = st["job_b"].gather(1, j_star[:, None])[:, 0].clamp(min=1)
+    dur_r = inp["tau_resc"][row, rk, s_star] * bscale(jb) / speeds[w_star]
+    i_w = torch.where(can_r, w_star, n)[:, None]
+    i_s = torch.where(can_r, s_star, n)[:, None]
+    i_slot = torch.where(can_r, n + s_star, 2 * n)[:, None]
+    end_r = (serve_min + dur_r)[:, None]
+    st["rb_w"].scatter_(1, i_s, w_star[:, None])
+    st["rp_start"].scatter_(1, i_slot, serve_min[:, None])
+    st["rp_end"].scatter_(1, i_slot, end_r)
+    st["rp_live"].scatter_(1, i_slot, True)
+    st["rp_cancel"].scatter_(1, i_slot, inp["cancel_tab"][j_star][:, None])
+    st["resc_pending"].scatter_(1, i_s, False)
+    st["w_job"].scatter_(1, i_w, j_star[:, None])
+    st["w_avail"].scatter_(1, i_w, end_r)
+    # speed-weighted load (duration / speed), the engine's _assign order
+    st["w_load"].scatter_add_(1, i_w, (dur_r / speeds[w_star])[:, None])
+    st["n_resc"] += can_r
+    st["resc_k"] += can_r
+
+    # -- dispatch: first fit over undispatched jobs by earliest feasible
+    # time, ties by queue order
+    n_alive = alive.sum(1)
+    na1 = n_alive.clamp(min=1)[:, None]
+    free_w2 = alive & (w_job == J)
+    sa = torch.sort(torch.where(free_w2, w_avail, inf), 1).values
+    dflt = inp["default_req"] if inp["default_req"] > 0 else n_alive[:, None]
+    req = torch.where(inp["req_tab"] > 0, inp["req_tab"], dflt)
+    req_eff = torch.minimum(req.clamp(min=1), na1)
+    kth = sa.gather(1, (req_eff - 1).clamp(0, n - 1))
+    segfree = st["seg_job"] == J
+    seg_rank = torch.cumsum(segfree, 1) - 1
+    n_segfree = segfree.sum(1)
+    b0 = st["b0"][:, None]
+    bq = torch.where(inp["b_tab"] > 0, inp["b_tab"], torch.where(b0 > 0, b0, req_eff))
+    bq = torch.minimum(bq.clamp(min=1), req_eff)
+    t_q = torch.maximum(inp["arrivals"], torch.maximum(kth, st["t_epoch"][:, None]))
+    ok = (
+        ~st["dispatched"][:, :J]
+        & (torch.arange(J, device=dev) < inp["jobs_real"])
+        & (n_alive > 0)[:, None]
+        & (bq <= n_segfree[:, None])
+    )
+    t_q = torch.where(ok, t_q, inf)
+    q_star = t_q.argmin(1)  # the first minimum: the lowest queue index
+    qs = q_star[:, None]
+    td = t_q.gather(1, qs)[:, 0]
+    can_d = ~can_r & torch.isfinite(td) & (td < t_next)
+    b_d = bq.gather(1, qs)[:, 0]
+    req_d = req_eff.gather(1, qs)[:, 0]
+    r_d = req_d // b_d
+    elig_d = free_w2 & (w_avail <= td[:, None])
+    keyd = torch.where(elig_d, w_load if balanced else widx.to(dt), inf)
+    rank = torch.argsort(torch.argsort(keyd, dim=1, stable=True), dim=1, stable=True)
+    sel_rep = can_d[:, None] & elig_d & (rank < (b_d * r_d)[:, None])
+    sel_alloc = can_d[:, None] & elig_d & (rank < req_d[:, None])
+    # the beta-th dispatched batch takes the beta-th free segment
+    seg_by_beta = torch.full((L, n + 1), n, dtype=torch.int64, device=dev).scatter_(
+        1, torch.where(segfree, seg_rank, n), widx.expand(L, n)
+    )[:, :n]
+    w_seg = seg_by_beta.gather(1, (rank % b_d.clamp(min=1)[:, None]).clamp(0, n - 1))
+    # draw index = policy rank: the engine draws in placement order
+    dur = inp["tau"][row, q_star].gather(1, rank.clamp(0, n - 1)) * bscale(b_d)[..., None] / speeds
+    end = td[:, None] + dur
+    st["g_s"] = torch.where(sel_rep, w_seg, st["g_s"])
+    live[:, :n] |= sel_rep
+    rp_start[:, :n] = torch.where(sel_rep, td[:, None], rp_start[:, :n])
+    rp_end[:, :n] = torch.where(sel_rep, end, rp_end[:, :n])
+    rp_cancel[:, :n] = torch.where(sel_rep, inp["cancel_tab"][q_star][:, None], rp_cancel[:, :n])
+    w_job.copy_(torch.where(sel_alloc, qs, w_job))
+    w_avail.copy_(torch.where(sel_rep, end, torch.where(sel_alloc, td[:, None], w_avail)))
+    w_load.copy_(w_load + torch.where(sel_rep, dur / speeds, 0.0))
+    st["seg_job"] = torch.where(
+        can_d[:, None] & segfree & (seg_rank < b_d[:, None]), qs, st["seg_job"]
+    )
+    i_q = torch.where(can_d, q_star, J)[:, None]
+    st["starts"].scatter_(1, i_q, td[:, None])
+    st["dispatched"].scatter_(1, i_q, True)
+    st["job_left"].scatter_(1, i_q, b_d[:, None])
+    st["job_b"].scatter_(1, i_q, b_d[:, None])
+    if cfg.full_outputs:
+        st["br"].scatter_(1, i_q, (b_d << 16 | r_d)[:, None])
+
+    # -- otherwise apply one fail/join event (sim-over gated)
+    do_b = ~can_r & ~can_d
+    sim_over = st["n_done"] >= inp["jobs_real"]
+    t_ev = t_next
+    w_raw = inp["ev_w"][row, e]
+    up = inp["ev_up"][row, e]
+    act = do_b & (w_raw >= 0) & torch.isfinite(t_ev) & ~sim_over
+    w = w_raw.clamp(0, n - 1)
+    was = alive.gather(1, w[:, None])[:, 0]
+    do_fail = act & ~up & was
+    do_join = act & up & ~was
+    flip = do_fail | do_join
+    i_flip = torch.where(flip, w, n)[:, None]
+    st["alive"].scatter_(1, i_flip, up[:, None])
+    kill = live & (rp_w == w[:, None]) & do_fail[:, None]
+    st["busy"] += torch.where(kill, t_ev[:, None] - rp_start, 0.0).sum(1)
+    live &= ~kill
+    # a segment that just lost its last live replica needs a rescue: one
+    # int64 segment count carries both indicators (kills in the low 32 bits,
+    # survivors above them; the reference packs them at 4096 in int32)
+    rp_seg3 = torch.cat([st["g_s"], widx.expand(L, n)], 1)
+    seg_cnt = torch.zeros(L, n + 1, dtype=torch.int64, device=dev).scatter_add_(
+        1, rp_seg3, kill.to(torch.int64) + (live.to(torch.int64) << 32)
+    )[:, :n]
+    lost = ((seg_cnt & 0xFFFFFFFF) > 0) & (seg_cnt < (1 << 32)) & (st["seg_job"] < J)
+    resc_pending |= lost
+    st["resc_t"] = torch.where(lost, t_ev[:, None], resc_t)
+    st["g_s"] = torch.where(do_fail[:, None] & (widx == w[:, None]), n, st["g_s"])
+    st["w_job"].scatter_(1, i_flip, J)
+    st["w_avail"].scatter_(1, torch.where(do_fail, w, n)[:, None], inf)
+    st["w_avail"].scatter_(1, torch.where(do_join, w, n)[:, None], t_ev[:, None])
+    st["n_fail"] += do_fail
+    st["t_epoch"] = torch.maximum(
+        st["t_epoch"], torch.where(do_b & torch.isfinite(t_ev), t_ev.clamp(min=0.0), -inf)
+    )
+    if cfg.full_outputs:
+        st["ep_times"].scatter_(1, torch.where(flip, e, ev_pad)[:, None], t_ev[:, None])
+    st["e"] = (e + do_b).clamp(max=ev_pad - 1)
+
+
 def _lane_outputs(cfg: _RunnerCfg, st: dict) -> dict:
     ns = cfg.n_slots
     # flush replicas still in flight: their full duration is committed worker
@@ -753,17 +1060,22 @@ def _run_lane_batch(cfg: _RunnerCfg, inp: dict, b0: torch.Tensor, n_real: int) -
     """
     global steps_run
     dt = inp["tau"].dtype
-    st = _init_state(cfg, b0, n_real, dt, b0.device)
+    space = cfg.scheduler is not None
+    st = (_init_space_state if space else _init_state)(cfg, b0, n_real, dt, b0.device)
+    step = _space_step if space else _step
     L = b0.shape[0]
     if L == 0:
         return _lane_outputs(cfg, st)
     results: dict = {}
     for chunk in range(cfg.n_chunks):
         for _ in range(_STEP_CHUNK):
-            _step(cfg, st, inp)
+            step(cfg, st, inp)
         steps_run += _STEP_CHUNK
         last = chunk == cfg.n_chunks - 1
-        done = (st["q"] >= inp["jobs_real"]) & ~st["job_active"]
+        if space:
+            done = st["n_done"] >= inp["jobs_real"]
+        else:
+            done = (st["q"] >= inp["jobs_real"]) & ~st["job_active"]
         leave = torch.ones_like(done) if last else done
         n_leave = int(leave.sum())
         if n_leave == 0:
@@ -957,9 +1269,52 @@ def _replan_inputs(cfg: _RunnerCfg, n_workers: int, device) -> dict:
     }
 
 
+def _space_tabs(scheduler, workers_per_job, job_plans, n_jobs, jobs_pad, n_workers,
+                cancel_default):
+    """Route a scenario to the space lane and build its per-job plan tables.
+
+    Returns ``(scheduler_name_or_None, tabs)``: ``None`` means the gang lane
+    (``fifo_gang`` with no per-job plans); otherwise the space lane runs with
+    ``tabs = (req_tab, b_tab, cancel_tab, default_req)``, zero meaning
+    "inherit the engine-wide default" like a
+    :class:`~repro_torch.cluster.scheduler.JobPlan`'s None field.
+    ``job_plans`` cycles over the jobs; ``fifo_gang`` ignores worker
+    requests, as the engine does.
+    """
+    if scheduler is None:
+        scheduler = "fifo_gang"
+    if not is_space(scheduler, workers_per_job, job_plans):
+        return None, None
+    req_tab = np.zeros(jobs_pad, np.int64)
+    b_tab = np.zeros(jobs_pad, np.int64)
+    cancel_tab = np.full(jobs_pad, bool(cancel_default))
+    if job_plans is not None:
+        plans = list(job_plans)
+        for q in range(n_jobs):
+            p = plans[q % len(plans)]
+            if p is None:
+                continue
+            if p.workers is not None:
+                req_tab[q] = min(int(p.workers), n_workers)
+            if p.n_batches is not None:
+                b_tab[q] = int(p.n_batches)
+            if p.cancel_redundant is not None:
+                cancel_tab[q] = bool(p.cancel_redundant)
+    if scheduler == "fifo_gang":
+        req_tab[:] = 0
+        default_req = 0
+    else:
+        default_req = int(workers_per_job) if workers_per_job is not None else 0
+    return scheduler, (req_tab, b_tab, cancel_tab, default_req)
+
+
 def _run_lanes(dist, cfg, n_workers, lane_idx, b0, arrivals_pad, n_jobs_real, seed,
-               speeds, churn, churn_schedule, pairs, n_tasks, device):
-    """Draw the lanes on the host, copy them to ``device`` once, run them."""
+               speeds, churn, churn_schedule, pairs, n_tasks, device, space_tabs=None):
+    """Draw the lanes on the host, copy them to ``device`` once, run them.
+
+    ``space_tabs`` carries the space lane's per-job plan tables
+    (:func:`_space_tabs`); the gang lane takes the replanner's tables
+    instead, when it replans."""
     np_dtype = np.dtype(cfg.dtype)
     dt = resolve_dtype(cfg.dtype)
     spec_cap = cfg.jobs_pad * cfg.spec.max_backups if cfg.spec is not None else 0
@@ -989,6 +1344,10 @@ def _run_lanes(dist, cfg, n_workers, lane_idx, b0, arrivals_pad, n_jobs_real, se
         inp["interval"] = torch.tensor(cfg.spec.interval, dtype=dt, device=device)
     if cfg.replan is not None:
         inp.update(_replan_inputs(cfg, n_workers, device))
+    if cfg.scheduler is not None:
+        req_tab, b_tab, cancel_tab, default_req = space_tabs
+        inp.update(req_tab=put(req_tab, torch.int64), b_tab=put(b_tab, torch.int64),
+                   cancel_tab=put(cancel_tab, torch.bool), default_req=int(default_req))
     out = _run_lane_batch(cfg, inp, put(b0, torch.int64), int(n_workers))
     if cfg.stream:
         out = _stream_fold(out, inp)
@@ -1026,13 +1385,7 @@ def _check_arrival_span(arrivals, dtype):
 
 
 def _reject_unported(sc: Scenario, where: str) -> None:
-    """Refuse the knobs whose lanes the port has not reached, by name."""
-    if sc.is_space:
-        raise NotImplementedError(
-            f"{where}: space-sharing knobs (scheduler / workers_per_job / job_plans), "
-            'with outputs="full" or "stream", run on the epoch scan\'s space lane, which '
-            "the port reaches in a later slice (ROADMAP.md §1, item 1.6)"
-        )
+    """Refuse ``devices > 1`` by name: the port runs every lane on one device."""
     if sc.devices != 1:
         raise NotImplementedError(
             f"{where}: devices={sc.devices}: the port runs every lane on one "
@@ -1126,7 +1479,7 @@ def simulate_epochs(
     scenario: Optional[Scenario] = None,
     device=None,
 ) -> EpochReport | EpochStreamReport:
-    """Replay the engine's gang semantics on the epoch scan, on ``device``.
+    """Replay the engine's semantics on the epoch scan, on ``device``.
 
     Same signature and result as the reference's ``simulate_epochs``, plus
     ``device`` (default: the CUDA card; ``"cpu"`` runs the same lanes on the
@@ -1150,9 +1503,18 @@ def simulate_epochs(
     (O(n_reps) memory); on float64 lanes its stats equal
     ``epoch_stream_stats`` of the ``outputs="full"`` report bit for bit.
 
+    ``scheduler`` / ``workers_per_job`` / ``job_plans`` run the space lane:
+    under ``"packed"`` or ``"balanced"`` jobs run concurrently on disjoint
+    worker subsets, each under its own
+    :class:`~repro_torch.cluster.scheduler.JobPlan` (``job_plans`` cycles
+    over the arrivals; unset fields inherit ``n_batches`` /
+    ``cancel_redundant`` / ``workers_per_job``); ``fifo_gang`` with per-job
+    plans runs the space lane in gang mode.  Neither adaptive policy runs
+    with space knobs (``Scenario.validate`` refuses them, as the reference's).
+
     The scenario knobs are best passed as one ``scenario=Scenario(...)``;
     the loose keyword forms keep working behind a ``DeprecationWarning``.
-    Space sharing and ``devices > 1`` raise :class:`NotImplementedError`.
+    ``devices > 1`` raises :class:`NotImplementedError`.
     """
     sc = resolve_scenario(
         scenario,
@@ -1202,12 +1564,14 @@ def simulate_epochs(
     n_pad, jobs_pad, ev_pad, resc_cap, n_chunks = _shapes(
         n_workers, n_jobs, churn, churn_schedule, pairs, speculation=sc.speculation
     )
+    sched, tabs = _space_tabs(sc.scheduler_name, sc.workers_per_job, sc.job_plans, n_jobs,
+                              jobs_pad, n_workers, sc.cancel_redundant)
     stream_mode = sc.outputs == "stream"
     cfg = _RunnerCfg(
         n_pad, jobs_pad, ev_pad, resc_cap, n_chunks,
         bool(sc.cancel_redundant), bool(sc.size_dependent), sc.dtype,
         full_outputs=not stream_mode, replan=sc.replan, spec=sc.speculation,
-        stream=stream_mode,
+        stream=stream_mode, scheduler=sched,
     )
     arrivals_pad = np.concatenate([arrivals, np.full(jobs_pad - n_jobs, np.inf)])
     b0_val = 0 if n_batches is None else int(n_batches)
@@ -1215,6 +1579,7 @@ def simulate_epochs(
         _run_lanes(
             dist, cfg, n_workers, np.arange(lo, hi), np.full(hi - lo, b0_val, np.int32),
             arrivals_pad, n_jobs, seed, speeds, churn, churn_schedule, pairs, n_tasks, dev,
+            space_tabs=tabs,
         )
         for lo, hi in _rep_slices(int(n_reps), sc.rep_chunk)
     ]
@@ -1318,7 +1683,10 @@ def frontier_job_times_dynamic(
     batch) is bit-identical to one call.  ``Scenario.outputs`` is accepted
     and ignored, as in the reference.  ``replan`` and ``speculation`` run
     in every lane, each candidate B being the lane's starting plan.  Space
-    sharing and ``devices > 1`` raise :class:`NotImplementedError`.
+    knobs score the candidates on the space lane, the candidate B filling the
+    plan of every job whose :class:`~repro_torch.cluster.scheduler.JobPlan`
+    leaves ``n_batches`` unset.
+    ``devices > 1`` raises :class:`NotImplementedError`.
     """
     sc = resolve_scenario(
         scenario,
@@ -1370,11 +1738,13 @@ def frontier_job_times_dynamic(
     n_pad, jobs_pad, ev_pad, resc_cap, n_chunks = _shapes(
         n_workers, n_jobs, churn, churn_schedule, pairs, speculation=sc.speculation
     )
+    sched, tabs = _space_tabs(sc.scheduler_name, sc.workers_per_job, sc.job_plans, n_jobs,
+                              jobs_pad, n_workers, sc.cancel_redundant)
     cfg = _RunnerCfg(
         n_pad, jobs_pad, ev_pad, resc_cap, n_chunks,
         bool(sc.cancel_redundant), bool(sc.size_dependent), sc.dtype,
         full_outputs=False,  # planning reads starts/finishes only
-        replan=sc.replan, spec=sc.speculation,
+        replan=sc.replan, spec=sc.speculation, scheduler=sched,
     )
     arrivals_pad = np.concatenate([np.zeros(n_jobs), np.full(jobs_pad - n_jobs, np.inf)])
     chunks = []
@@ -1386,7 +1756,7 @@ def frontier_job_times_dynamic(
         b0 = np.repeat(bs, hi - lo)
         out = _run_lanes(
             dist, cfg, n_workers, lane_idx, b0, arrivals_pad, n_jobs, seed,
-            speeds, churn, churn_schedule, pairs, n_tasks, dev,
+            speeds, churn, churn_schedule, pairs, n_tasks, dev, space_tabs=tabs,
         )
         fin = out["finishes"].astype(np.float64)
         start = out["starts"].astype(np.float64)

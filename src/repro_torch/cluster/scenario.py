@@ -549,6 +549,32 @@ class Scenario:
 
     # -- translations --------------------------------------------------------
 
+    def to_engine_kwargs(self, n_workers: Optional[int] = None) -> dict:
+        """Constructor kwargs for :class:`~repro_torch.cluster.master.ClusterEngine`.
+
+        ``replan`` becomes the equivalent
+        :class:`~repro_torch.cluster.control.OnlineReplanner` (the engine
+        drives a controller object, the epoch scan a static config).  The
+        caller adds ``seed``: seeds are per run, not per scenario.
+        """
+        n = n_workers if n_workers is not None else self.n_workers
+        if n is None:
+            raise ValueError("Scenario.n_workers: required to build engine kwargs")
+        controller = self.replan.to_controller(int(n)) if self.replan is not None else None
+        return {
+            "n_batches": self.n_batches,
+            "cancel_redundant": self.cancel_redundant,
+            "size_dependent": self.size_dependent,
+            "speeds": list(self.speeds) if self.speeds is not None else None,
+            "churn": self.churn,
+            "churn_schedule": self.churn_schedule,
+            "controller": controller,
+            "speculation": self.speculation,
+            "retry": self.retry,
+            "scheduler": self.scheduler,
+            "workers_per_job": self.workers_per_job,
+        }
+
     def to_scan_cfg(self) -> dict:
         """Keyword set for the epoch scan
         (:func:`~repro_torch.cluster.epoch_scan.simulate_epochs` /
@@ -572,6 +598,12 @@ class Scenario:
             "devices": self.devices,
             "outputs": self.outputs,
         }
+
+    def job_plan_for(self, i: int) -> Optional[JobPlan]:
+        """The i-th job's :class:`JobPlan` (``job_plans`` cycles over jobs)."""
+        if self.job_plans is None:
+            return None
+        return self.job_plans[i % len(self.job_plans)]
 
     def replace(self, **changes) -> "Scenario":
         """A modified copy: ``sc.replace(cancel_redundant=True)`` -- the

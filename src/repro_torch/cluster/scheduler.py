@@ -1,8 +1,9 @@
 """Space-sharing schedulers: pluggable job-to-worker placement policies.
 
-A copy of ``repro.cluster.scheduler`` (pure Python), which
-:mod:`repro_torch.cluster.scenario` needs.  The space-sharing lanes that run
-these policies come to the port with its epoch-scan slices.
+A copy of ``repro.cluster.scheduler`` (pure Python).  The event engine
+(:mod:`repro_torch.cluster.master`) runs these policies, and the epoch
+scan's space lane (:mod:`repro_torch.cluster.epoch_scan`) replays them on
+the device.
 
 The engine's original (and still default) regime is the whole-cluster FIFO
 gang: one job at a time, dispatched once every alive worker is free.  That is
@@ -162,9 +163,9 @@ def make_scheduler(spec: Union[str, Scheduler]) -> Scheduler:
 def is_space(scheduler, workers_per_job, job_plans) -> bool:
     """Whether any space-sharing knob is set (the shared routing predicate).
 
-    The jax backends use it to pick the space lane over the legacy
-    single-gang kernels; keeping it here, next to the policy registry, means
-    a future knob changes the routing in exactly one place.  Note
+    The array backends use it to pick the space lane over the gang lane;
+    keeping it here, next to the policy registry, means a future knob
+    changes the routing in exactly one place.  Note
     ``fifo_gang`` *with* per-job plans still counts as space routing -- the
     gang regime then runs on the space lane so per-job B/cancellation apply.
     """

@@ -31,8 +31,10 @@ The stream slab (:func:`_stream_slab`, behind
 sibling of the FIFO scan: G symmetric gang pools, an accumulator dict in
 place of per-job outputs, and host numpy draws (``TraceStream.sample_slab``)
 that both packages consume identically, so it is held to the reference
-exactly rather than in law.  Space sharing on the engine's space lane and
-churn come with later slices.
+exactly rather than in law.  ``simulate_fifo``'s space-sharing knobs
+delegate to the epoch scan's space lane
+(:func:`repro_torch.cluster.epoch_scan.simulate_epochs`), as the
+reference's do.
 """
 from __future__ import annotations
 
@@ -185,6 +187,7 @@ def simulate_fifo(
     scheduler: str = "fifo_gang",
     workers_per_job: int | None = None,
     job_plans=None,
+    dtype: str = "float32",
     device=None,
 ) -> FifoReport:
     """Whole-cluster FIFO gang queueing, batched over Monte-Carlo reps.
@@ -193,17 +196,51 @@ def simulate_fifo(
     each rep redraws every replica duration.  Statistically identical to the
     reference's ``simulate_fifo`` on the same workload (no churn,
     homogeneous speeds).  The device loop runs in float32 and absolute times
-    are rebuilt in float64 on the host.  Space-sharing knobs (``scheduler``
-    other than ``fifo_gang``, ``workers_per_job``, ``job_plans``) run on the
-    epoch scan's space lane, which the port has not reached: they raise
-    :class:`NotImplementedError`.
+    are rebuilt in float64 on the host.
+
+    Space-sharing knobs (``scheduler`` other than ``fifo_gang``,
+    ``workers_per_job``, ``job_plans``) delegate, as the reference's do, to
+    the epoch scan's space lane
+    (:func:`~repro_torch.cluster.epoch_scan.simulate_epochs` on a churn-free
+    timeline, host numpy draws, so float64 equals the reference bit for bit
+    but the two worker-second sums).  Its lanes carry absolute times in
+    ``dtype``; ``dtype`` applies to that path only.
     """
     from .scheduler import is_space
 
     if is_space(scheduler, workers_per_job, job_plans):
-        raise NotImplementedError(
-            "space-sharing knobs run on the epoch scan's space lane, which the port "
-            "reaches in a later slice (ROADMAP.md §1, item 1.6)"
+        from .epoch_scan import simulate_epochs
+        from .scenario import scenario_from_kwargs
+
+        rep = simulate_epochs(
+            dist,
+            n_workers,
+            n_batches,
+            arrivals,
+            n_reps,
+            seed=seed,
+            scenario=scenario_from_kwargs(
+                cancel_redundant=cancel_redundant,
+                size_dependent=size_dependent,
+                n_tasks=n_tasks,
+                scheduler=scheduler,
+                workers_per_job=workers_per_job,
+                job_plans=job_plans,
+                dtype=dtype,
+            ),
+            device=device,
+        )
+        return FifoReport(
+            arrivals=rep.arrivals,
+            starts=rep.starts,
+            finishes=rep.finishes,
+            worker_seconds=rep.worker_seconds,
+            cancelled_seconds_saved=rep.cancelled_seconds_saved,
+        )
+    if dtype != "float32":
+        raise ValueError(
+            "dtype applies to the space-sharing delegation only; the gang path "
+            "already rebuilds absolute times in float64"
         )
     arrivals = np.asarray(arrivals, dtype=np.float64)
     if arrivals.ndim != 1 or arrivals.size == 0:

@@ -1,8 +1,8 @@
 """Worker-side state: per-worker service draws, speeds, and churn processes.
 
 A numpy copy of ``repro.cluster.workers``, which
-:mod:`repro_torch.cluster.scenario` needs; equal seeds give identical churn
-schedules and draws in both packages.
+:mod:`repro_torch.cluster.scenario` and the event engine need; equal seeds
+give identical churn schedules and draws in both packages.
 
 A worker executes one batch replica at a time.  Its service time for a batch
 of ``s`` tasks is ``s * tau / speed`` under the paper's §VI size-dependent

@@ -289,8 +289,16 @@ class RedundancyPlanner:
         serial streams of ``jobs_per_stream`` jobs sharing one churn
         timeline.  ``rep_chunk`` bounds the reps of one pass (the rows are
         bit-identical for every chunking); ``dtype`` applies to the dynamic
-        path only.  Space-sharing knobs and ``backend="python"`` raise
-        :class:`NotImplementedError` until their slices of the port land.
+        path only.
+
+        ``scheduler`` / ``workers_per_job`` / ``job_plans`` score the
+        candidates under space sharing on the epoch scan's space lane: each
+        stream's jobs run concurrently on disjoint worker subsets, and jobs
+        whose :class:`~repro_torch.cluster.scheduler.JobPlan` leaves
+        ``n_batches`` unset take the candidate B.  ``backend="python"`` runs
+        the event engine (:mod:`repro_torch.cluster.master`, host numpy, as
+        the reference's) once per candidate with seed ``seed + i``, over the
+        same knobs; it takes no ``device`` and refuses one.
 
         The scenario knobs are best passed as one ``scenario=Scenario(...)``
         (which may also carry ``dist``); the loose keyword forms keep working
@@ -327,20 +335,20 @@ class RedundancyPlanner:
         dist = dist if dist is not None else sc.dist
         if dist is None:
             raise ValueError("plan_cluster needs dist (positionally or via scenario.dist)")
+        if backend not in ("torch", "python"):
+            raise ValueError(f"unknown backend {backend!r} (expected 'torch' or 'python')")
+        if backend == "python" and device is not None:
+            raise ValueError("backend='python' runs the engine on the host and takes no device")
+        sc.validate(n_workers=self.n_workers, backend=backend)
         if backend == "python":
-            raise NotImplementedError(
-                "backend='python' scores candidates on the DES engine, which the port "
-                "reaches in a later slice (ROADMAP.md §1, item 2)"
-            )
-        if backend != "torch":
-            raise ValueError(f"unknown backend {backend!r} (expected 'torch')")
-        sc.validate(n_workers=self.n_workers, backend="torch")
-        if sc.is_space:
-            raise NotImplementedError(
-                "space-sharing scenarios run on the epoch scan's space lane, which the "
-                "port reaches in a later slice (ROADMAP.md §1, item 1.6)"
-            )
-        if sc.is_dynamic:
+            from ..cluster.master import sample_job_times
+
+            rows = [
+                sample_job_times(dist, self.n_workers, b, n_reps, seed=seed + i, scenario=sc,
+                                 backend="python")
+                for i, b in enumerate(self.candidates)
+            ]
+        elif sc.is_dynamic or sc.is_space:
             from ..cluster.epoch_scan import frontier_job_times_dynamic
 
             rows = frontier_job_times_dynamic(

@@ -157,9 +157,20 @@ def test_epoch_stream_summary_tracks_full_f32():
 
 
 def test_stream_on_a_space_scenario_still_raises():
-    with pytest.raises(NotImplementedError, match=r"item 1\.6"):
-        PE.simulate_epochs(P.Exponential(1.0), 8, 4, np.zeros(4), 2, scheduler="packed",
-                           workers_per_job=4, outputs="stream", device="cpu")
+    """The space lane now takes ``outputs="stream"`` (it refused it before
+    the lane was ported): the streamed stats equal the reference's stream on
+    the same call, float32 (integers exactly, sums within rtol 1e-6)."""
+    kw = dict(scheduler="packed", workers_per_job=4, outputs="stream")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        got = PE.simulate_epochs(P.Exponential(1.0), 8, 4, np.zeros(4), 2, device="cpu", **kw)
+        want = RE.simulate_epochs(R.Exponential(1.0), 8, 4, np.zeros(4), 2, **kw)
+    assert isinstance(got, PE.EpochStreamReport)
+    assert int(got.stats.count.sum()) == 8
+    for f in _ACC_FIELDS:
+        a, b = getattr(want.stats, f), getattr(got.stats, f)
+        assert a.dtype == b.dtype, f
+        np.testing.assert_allclose(b, a, rtol=1e-6, atol=0, err_msg=f)
 
 
 # --------------------------------------------------------------------------

@@ -275,31 +275,57 @@ def test_entry_points_need_a_device_when_no_card(monkeypatch):
             call()
 
 
+def _fields(plan) -> dict:
+    """A plan's fields but its ``source`` (the packages' plan classes differ)."""
+    return {k: v for k, v in dataclasses.asdict(plan).items() if k != "source"}
+
+
 @pytest.mark.parametrize(
     "call",
     [
-        lambda: simulate_fifo(P.Exponential(1.0), 4, 2, [0.0], 5, scheduler="packed",
-                              device="cpu"),
-        lambda: P.RedundancyPlanner(4).plan_cluster(P.Exponential(1.0), backend="python"),
-        lambda: P.RedundancyPlanner(4).plan_cluster(
+        # (the reference's call, the port's call)
+        (lambda: ref_fifo(R.Exponential(1.0), 4, 2, [0.0], 5, scheduler="packed"),
+         lambda: simulate_fifo(P.Exponential(1.0), 4, 2, [0.0], 5, scheduler="packed",
+                               device="cpu")),
+        (lambda: R.RedundancyPlanner(4).plan_cluster(R.Exponential(1.0), backend="python"),
+         lambda: P.RedundancyPlanner(4).plan_cluster(P.Exponential(1.0), backend="python")),
+        (lambda: R.RedundancyPlanner(4).plan_cluster(
+            scenario=rc.Scenario(dist=R.Exponential(1.0), scheduler="packed",
+                                 workers_per_job=2)),
+         lambda: P.RedundancyPlanner(4).plan_cluster(
             scenario=pc.Scenario(dist=P.Exponential(1.0), scheduler="packed",
                                  workers_per_job=2),
-            device="cpu"),
-        lambda: P.RedundancyPlanner(2).plan_slo(
+            device="cpu")),
+        (None,
+         lambda: P.RedundancyPlanner(2).plan_slo(
             P.Exponential(1.0), pc.SLO(target_s=60.0, arrival_rate=0.05),
-            scenario=pc.Scenario(speeds=(1.0, 0.5)), n_jobs=20, device="cpu"),
+            scenario=pc.Scenario(speeds=(1.0, 0.5)), n_jobs=20, device="cpu")),
     ],
     ids=["space", "python-backend", "dynamic", "dynamic-slo"],
 )
 def test_later_slices_raise_not_implemented(call, request):
-    """Space sharing (``dynamic``: a space scenario on the planner) and the
-    Python backend still raise; a dynamic ``plan_slo`` now runs on the epoch
-    scan (its match against the reference is in tests/test_torch_slo.py)."""
-    if request.node.callspec.id == "dynamic-slo":
-        assert call().source == "epoch_scan"
+    """What earlier slices refused now runs and equals the reference: a
+    space-shared ``simulate_fifo`` (the space lane on host numpy draws,
+    float32: starts and finishes within rtol 1e-6), ``plan_cluster`` on the
+    event engine (``backend="python"``: the same plan) and a space scenario
+    on the planner (the space lane's frontier: the same plan); a dynamic
+    ``plan_slo`` runs on the epoch scan (its match against the reference is
+    in tests/test_torch_slo.py)."""
+    ref_call, port_call = call
+    got = port_call()
+    case = request.node.callspec.id
+    if case == "dynamic-slo":
+        assert got.source == "epoch_scan"
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        call()
+    want = ref_call()
+    if case == "space":
+        for f in ("starts", "finishes", "worker_seconds"):
+            a, b = np.asarray(getattr(want, f)), np.asarray(getattr(got, f))
+            assert a.shape == b.shape, f
+            np.testing.assert_allclose(b, a, rtol=1e-6, atol=0, err_msg=f)
+        return
+    assert got.source == want.source.replace("jax", "torch")
+    assert _fields(got) == _fields(want)
 
 
 def _imports(path: pathlib.Path):
@@ -312,6 +338,8 @@ def _imports(path: pathlib.Path):
 
 def test_port_never_imports_jax_or_the_reference():
     files = [ROOT / "chip_smoke.py", *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
+    # the engine's numpy copies are scanned like every other module
+    assert {"events.py", "master.py"} <= {f.name for f in files}
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -319,6 +347,7 @@ def test_port_never_imports_jax_or_the_reference():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
         "import repro_torch, repro_torch.core, repro_torch.cluster, repro_torch.kernels.cover\n"
+        "import repro_torch.cluster.events, repro_torch.cluster.master\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')"
         " and sys.modules[m] is not None))"
     )
@@ -334,7 +363,8 @@ def test_port_never_imports_jax_or_the_reference():
     "module",
     ["repro_torch.cluster", "repro_torch.cluster.vectorized", "repro_torch.core.service_time",
      "repro_torch.kernels.cover", "repro_torch.cluster.stream", "repro_torch.core.coupon",
-     "repro_torch.cluster.epoch_scan", "repro_torch.cluster.control"],
+     "repro_torch.cluster.epoch_scan", "repro_torch.cluster.control",
+     "repro_torch.cluster.events", "repro_torch.cluster.master"],
 )
 def test_each_module_imports_first_in_a_fresh_process(module):
     """``cluster`` and ``core`` import each other at package level; whichever
