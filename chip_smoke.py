@@ -155,6 +155,7 @@ a CUDA device or without the repo's sources beside the script.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -213,6 +214,14 @@ SPACE_N, SPACE_WPJ, SPACE_JOBS, SPACE_RATIO_REPS = 16, 5, 24, 256
 SPACE_REPS, SPACE_STREAM = 2048, 48
 SPACE_PLAN_WPJ, SPACE_PLAN_CANDS, SPACE_CHECK_REPS = 20, (1, 2, 4, 5, 10, 20), 64
 GOLDEN_SPACE = ROOT / "tests" / "golden" / "epoch_scan_space.json"
+# the live runtime: benchmarks/runtime_bench.py's full configuration
+# (_cfg(False)): thread workers, B batches, jobs of tasks at a nominal cost
+# each, a per-worker skew (1 + wid * skew), the torch payload on the card;
+# 6 jobs, not 8, keep the phase near its minute
+LIVE_N, LIVE_B, LIVE_TASKS, LIVE_JOBS, LIVE_COST, LIVE_SKEW = 8, 4, 16, 6, 0.25, 0.5
+# the subprocess kill: two workers on the card, B = 2; batch 1 is the victim's
+LIVE_PROC_COSTS = (0.5, 2.0)
+GOLDEN_RUNTIME = ROOT / "tests" / "golden" / "runtime_traces.json"
 # simulate_fifo's workload: N workers in B batches (r = N / B), FIFO_JOBS jobs
 FIFO_N, FIFO_B, FIFO_JOBS = 100, 10, 64
 # the paper's batching schemes at full width: N workers = tasks, B batches
@@ -1450,6 +1459,259 @@ def _space_engine() -> dict:
     return got
 
 
+@dataclasses.dataclass
+class _Deterministic:
+    """Constant service time: the engine's a-priori model of a known batch
+    cost (``benchmarks/runtime_bench.py``'s predictor)."""
+
+    value: float
+
+    def sample_np(self, rng, shape):
+        return self.value
+
+
+def _twin_exact(report, events, what: str) -> None:
+    """The trace fold, the port's engine replay and the live counters agree
+    exactly, and so do the job records."""
+    from test_torch_runtime_cuda import replay_mismatches
+
+    _, bad = replay_mismatches(report, events)
+    check(bad == [], f"{what}: {bad}")
+
+
+def _live_breakdown(events) -> str:
+    """Where a live run's time goes beyond the workload's own: each job's span
+    over its earliest cover at full skew (batch B - 1 on wid B - 1), each
+    finished replica's elapsed time over its planned duration (the worker's
+    start lag, the last step's overshoot, the finish frame's way back), and
+    the gap from one job's end to the next one's start."""
+    ideal = LIVE_COST * (LIVE_TASKS // LIVE_B) * (1 + (LIVE_B - 1) * LIVE_SKEW)
+    starts = {e["job"]: e["t"] for e in events if e["ev"] == "job_start"}
+    dones = {e["job"]: e["t"] for e in events if e["ev"] == "job_done"}
+    over = [dones[j] - starts[j] - ideal for j in sorted(dones) if j in starts]
+    gaps = [starts[j + 1] - dones[j] for j in sorted(dones) if j + 1 in starts]
+    open_, excess = {}, []
+    for e in events:
+        if e["ev"] == "dispatch":
+            open_[e["wid"]] = e
+        elif e["ev"] == "finish":
+            d = open_.pop(e["wid"])
+            excess.append(e["t"] - d["t"] - d["planned"])
+        elif e["ev"] in ("cancel", "fail", "flush", "task_fail"):
+            open_.pop(e["wid"], None)
+
+    def ms(xs):
+        return (f"mean {1e3 * statistics.fmean(xs):.2f} ms, max {1e3 * max(xs):.2f} ms"
+                if xs else "none")
+
+    return (f"job span over its {ideal} s cover: {ms(over)} ({len(over)} jobs); finished "
+            f"replica over its plan: {ms(excess)} ({len(excess)}); job end to next start: "
+            f"{ms(gaps)}")
+
+
+def _cmdline(pid: int) -> list:
+    with open(f"/proc/{pid}/cmdline", "rb") as f:
+        return f.read().decode().split("\0")
+
+
+def phase_live_runtime() -> dict:
+    """The live master-worker runtime with the torch payload on the card."""
+    import asyncio
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+
+    from repro_torch.cluster import ClusterEngine, Job, Scenario
+    from repro_torch.cluster.runtime import (
+        LiveJob,
+        Runtime,
+        RuntimeMaster,
+        read_journal,
+        replay_trace,
+        spawn_worker_subprocess,
+        spawn_worker_thread,
+    )
+    from repro_torch.cluster.runtime.worker import run_payload
+    from repro_torch.kernels import cover, flash_attention, rmsnorm
+    from test_torch_runtime_cuda import golden_mismatches
+
+    phase(f"live runtime on the card: {LIVE_N} thread workers, B={LIVE_B}, {LIVE_JOBS} jobs of "
+          f"{LIVE_TASKS} tasks at {LIVE_COST} s, skew {LIVE_SKEW}, payload torch; crash and "
+          f"recover; a subprocess kill; the reference's traces")
+    t_phase = time.perf_counter()
+    cover.launches = cover.draws_launches = cover.philox_launches = 0
+    rmsnorm.launches = flash_attention.launches = 0
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-live-"))
+    sc = Scenario(n_batches=LIVE_B, cancel_redundant=True)
+    jobs = [LiveJob(job_id=i, costs=(LIVE_COST,) * LIVE_TASKS, skew=LIVE_SKEW,
+                    name=f"bench-{i}", payload="torch") for i in range(LIVE_JOBS)]
+    try:
+        # -- the live run (journaled: it is also the recovery's uninterrupted run)
+        plain_journal = str(tmp / "plain.jsonl")
+        t0 = time.perf_counter()
+        report = Runtime(LIVE_N, sc, journal=plain_journal, device="cuda").run(
+            jobs, timeout_s=300.0)
+        live_wall = time.perf_counter() - t0
+        events = read_journal(plain_journal)
+        check(events == json.loads(json.dumps(list(report.trace))), "journal != live trace")
+        check(report.records[0].replication == LIVE_N // LIVE_B, "replication")
+        _twin_exact(report, events, "live run")
+        live_makespan = max(r.finish for r in report.records)
+        batch_cost = LIVE_COST * (LIVE_TASKS // LIVE_B)
+        predicted = ClusterEngine(LIVE_N, seed=0, n_batches=LIVE_B, cancel_redundant=True,
+                                  size_dependent=False).run(
+            [Job(job_id=j.job_id, dist=_Deterministic(batch_cost), n_tasks=LIVE_TASKS)
+             for j in jobs])
+        predicted_makespan = max(r.finish for r in predicted.records)
+        print(f"live run: live_makespan_s {live_makespan!r}, predicted_makespan_s "
+              f"{predicted_makespan!r}, live_over_predicted "
+              f"{live_makespan / predicted_makespan!r}; wall {live_wall:.4f} s; "
+              f"{len(events)} trace events; twin exact; accounting {report.accounting()}",
+              flush=True)
+        print(f"  {_live_breakdown(events)}", flush=True)
+
+        # -- one job of it under the profiler: the card's busy share, steps
+        one: list = []
+        counts: dict = {}
+        wall_ms, by_name = profile_device(
+            lambda: one.append(Runtime(LIVE_N, sc, device="cuda").run(jobs[:1], timeout_s=120.0)),
+            counts=counts, cpu=False)
+        _twin_exact(one[0], one[0].trace, "profiled run")
+        busy_ms = sum(by_name.values()) / 1e3
+        copies = sum(n for name, n in counts.items() if "DtoH" in name)
+        steps = copies - LIVE_N  # one synchronising copy a step; each worker's warm-up step
+        ws = one[0].worker_seconds
+        share = f"{busy_ms / wall_ms:.1%}" if busy_ms > 0 else "not measured"
+        alone = asyncio.run(run_payload("torch", (LIVE_COST,), 1.0, "cuda"))
+        print(f"profiled one-job run (thread start and registration included): wall "
+              f"{wall_ms:.1f} ms, card busy {busy_ms:.2f} ms, busy share {share}; "
+              f"{sum(counts.values())} kernels and copies, {steps} payload steps over "
+              f"{ws!r} worker-seconds: {steps * LIVE_COST / ws:.1f} steps per {LIVE_COST} s "
+              f"task; one task alone on the card: {alone} steps "
+              f"({LIVE_COST * 1e3 / alone:.4f} ms a step)", flush=True)
+
+        # -- crash at half the plain makespan, recover from the journal, resume
+        crash_journal = str(tmp / "crash.jsonl")
+
+        async def join_threads(threads):
+            loop = asyncio.get_running_loop()
+            for t in threads:
+                await loop.run_in_executor(None, t.join, 10.0)
+            check(not any(t.is_alive() for t in threads), "a worker thread outlived its run")
+
+        async def crashed_run():
+            master = RuntimeMaster(LIVE_N, sc, journal=crash_journal)
+            port = await master.start()
+            threads = [spawn_worker_thread(master.host, port, "cuda") for _ in range(LIVE_N)]
+            await master.wait_for_workers(60.0)
+            run_task = asyncio.ensure_future(master.run(list(jobs), timeout_s=300.0))
+            await asyncio.sleep(0.5 * live_makespan)
+            check(not run_task.done(), "the workload beat the crash timer")
+            run_task.cancel()
+            try:
+                await run_task
+            except asyncio.CancelledError:
+                pass
+            alive = [w.wid for w in master.workers if w.alive]
+            n_before = len(master.recorder.events)
+            await master.crash()
+            await join_threads(threads)
+            master = RuntimeMaster.recover(crash_journal)
+            port = await master.start()
+            threads = [spawn_worker_thread(master.host, port, "cuda") for _ in range(LIVE_N)]
+            try:
+                rec = await master.resume(timeout_s=300.0)
+            finally:
+                await master.close()
+                await join_threads(threads)
+            return rec, alive, n_before
+
+        t0 = time.perf_counter()
+        recovered, alive, n_before = asyncio.run(crashed_run())
+        recovered_wall = time.perf_counter() - t0
+        events = read_journal(crash_journal)
+        check(events == json.loads(json.dumps(list(recovered.trace))), "journal != trace")
+        _twin_exact(recovered, events, "crash and recover")
+        seam = events[n_before: n_before + len(alive) + 1]
+        check([(e["ev"], e.get("wid"), e.get("cause")) for e in seam]
+              == [("fail", w, "crash") for w in alive] + [("recover", None, None)],
+              f"the crash seam: {seam}")
+        check(bool(alive), "the crash struck no live worker")
+        check(all(r.finish < math.inf for r in recovered.records)
+              and len(recovered.records) == LIVE_JOBS, "a job did not complete after recovery")
+        recovered_makespan = max(r.finish for r in recovered.records)
+        print(f"crash at {0.5 * live_makespan:.4f} s, recovered: recovered_makespan_s "
+              f"{recovered_makespan!r}, recovery_overhead "
+              f"{recovered_makespan / live_makespan!r}; wall {recovered_wall:.4f} s; "
+              f"{len(alive)} crash fails and the recover seam; journal replays exactly",
+              flush=True)
+        print(f"  {_live_breakdown(events)}", flush=True)
+
+        # -- SIGKILL a subprocess worker mid-torch-task on the card
+        async def proc_kill():
+            master = RuntimeMaster(2, Scenario(n_batches=2), heartbeat_s=0.05,
+                                   heartbeat_timeout_s=5.0)
+            port = await master.start()
+            procs = [spawn_worker_subprocess(master.host, port, "cuda") for _ in range(2)]
+            try:
+                t_start = time.perf_counter()
+                await master.wait_for_workers(120.0)
+                start_s = time.perf_counter() - t_start
+                argvs = [_cmdline(w.pid) for w in master.workers]
+                run_task = asyncio.ensure_future(master.run(
+                    [LiveJob(job_id=0, costs=LIVE_PROC_COSTS, payload="torch")], timeout_s=120.0))
+                victim = None
+                for _ in range(2000):
+                    victim = next((e["wid"] for e in master.recorder.events
+                                   if e["ev"] == "dispatch" and e["batch"] == 1), None)
+                    if victim is not None and (master.workers[victim].progress or 0.0) > 0.0:
+                        break
+                    await asyncio.sleep(0.01)
+                check(victim is not None and master.workers[victim].progress > 0.0,
+                      "the victim never reported progress on its torch task")
+                os.kill(master.workers[victim].pid, signal.SIGKILL)
+                rep = await run_task
+            finally:
+                await master.close()
+                for p in procs:
+                    try:
+                        p.wait(timeout=10.0)
+                    except subprocess.TimeoutExpired:
+                        p.kill()
+                        p.wait(timeout=10.0)
+            return rep, victim, argvs, start_s
+
+        killed, victim, argvs, start_s = asyncio.run(proc_kill())
+        check(all(a[1:3] == ["-m", "repro_torch.cluster.runtime"] and "cuda" in a
+                  for a in argvs), f"the spawned workers are not the port's: {argvs}")
+        fails = [e for e in killed.trace if e["ev"] == "fail"]
+        check([(e["wid"], e["cause"]) for e in fails] == [(victim, "eof")], f"fails {fails}")
+        check((killed.n_worker_failures, killed.n_replicas_rescued) == (1, 1), "no rescue")
+        check(killed.records[0].finish < math.inf, "the killed run did not complete")
+        _twin_exact(killed, killed.trace, "subprocess kill")
+        print(f"subprocess kill: 2 workers on the card registered in {start_s:.2f} s; wid "
+              f"{victim} SIGKILLed mid-task, batch 1 rescued, finish "
+              f"{killed.records[0].finish!r} s; twin exact", flush=True)
+
+        # -- the reference's traces through the port's engine
+        bad = golden_mismatches(replay_trace, GOLDEN_RUNTIME)
+        check(bad == [], f"golden runtime traces: {bad}")
+        n_golden = len(json.loads(GOLDEN_RUNTIME.read_text())["traces"])
+        print(f"{GOLDEN_RUNTIME.relative_to(ROOT)}: {n_golden} reference traces replay exactly "
+              "through the port's engine", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = {"draws": cover.draws_launches, "philox": cover.philox_launches}
+    check(got == {"draws": 0, "philox": 0} and rmsnorm.launches == 0
+          and flash_attention.launches == 0, f"a kernel ran in the live phase: {got}")
+    print(f"live runtime phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return got
+
+
 def phase_fifo() -> dict:
     import numpy as np
     import torch
@@ -2134,7 +2396,7 @@ def main() -> int:
         att_rec = phase_attention_vs_plain()
         plan_launches = phase_main_path()
         path_launches = [plan_launches, phase_churned_planning(), phase_dynamic_policies(),
-                         phase_space_engine(), phase_fifo(),
+                         phase_space_engine(), phase_live_runtime(), phase_fifo(),
                          phase_schemes(), phase_stream(), phase_slo()]
         serve_launches = phase_serve()
         phase_decode_profile()

@@ -7,11 +7,14 @@ the caller passes ``device="cpu"``; on a CUDA tensor the masked earliest-cover
 reduction, RMSNorm and flash attention run as hand-written kernels
 (:mod:`repro_torch.kernels`).
 
-Ported so far (the static planning loop): ``core.service_time``,
+Ported so far: the static planning loop (``core.service_time``,
 ``core.analysis``, ``core.traces``, ``core.simulator``, ``core.planner``
 (``plan`` / ``plan_empirical`` / ``plan_auto`` / ``plan_cluster`` /
 ``plan_sweep``), ``cluster.scenario`` / ``scheduler`` / ``workers`` and the
-static path of ``cluster.vectorized``; and the dense-decoder serving path:
+static path of ``cluster.vectorized``); the dynamic lanes
+(``cluster.epoch_scan``, ``cluster.stream``, ``cluster.control``); the event
+engine (``cluster.events``, ``cluster.master``) and the live master-worker
+runtime on it (``cluster.runtime``); and the dense-decoder serving path:
 ``configs``, ``models`` (``dense`` family: ``layers``, ``transformer``,
 ``common``, ``convert``), ``runtime.serve`` and ``launch.serve``.
 ``ROADMAP.md`` queues the rest.

@@ -32,7 +32,11 @@ Public surface ported so far:
     dynamic or space-shared scenarios (``frontier_job_times_dynamic``), the
     path behind a dynamic ``plan_cluster`` and ``plan_slo``
 
-The live runtime comes with a later slice (``ROADMAP.md``).
+The live runtime (:mod:`repro_torch.cluster.runtime`: an asyncio master,
+socket workers with a ``torch`` payload on their device, fault injection, a
+write-ahead journal and crash recovery, traces replayed through
+``ClusterEngine``) is not imported here, as the reference's is not;
+``import repro_torch.cluster.runtime`` explicitly.
 """
 # core first: its __init__ re-exports cluster.scenario, whose workers import
 # core.service_time, so entering through cluster would meet a half-built core

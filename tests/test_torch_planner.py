@@ -338,8 +338,13 @@ def _imports(path: pathlib.Path):
 
 def test_port_never_imports_jax_or_the_reference():
     files = [ROOT / "chip_smoke.py", *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
-    # the engine's numpy copies are scanned like every other module
+    # the engine's numpy copies and the live runtime are scanned like every
+    # other module
     assert {"events.py", "master.py"} <= {f.name for f in files}
+    runtime_dir = ROOT / "src" / "repro_torch" / "cluster" / "runtime"
+    runtime = {f.name for f in files if f.parent == runtime_dir}
+    assert runtime == {"__init__.py", "__main__.py", "chaos.py", "master.py", "protocol.py",
+                       "trace.py", "worker.py"}
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -348,6 +353,7 @@ def test_port_never_imports_jax_or_the_reference():
         "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
         "import repro_torch, repro_torch.core, repro_torch.cluster, repro_torch.kernels.cover\n"
         "import repro_torch.cluster.events, repro_torch.cluster.master\n"
+        "import repro_torch.cluster.runtime, repro_torch.cluster.runtime.worker\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')"
         " and sys.modules[m] is not None))"
     )
@@ -364,7 +370,8 @@ def test_port_never_imports_jax_or_the_reference():
     ["repro_torch.cluster", "repro_torch.cluster.vectorized", "repro_torch.core.service_time",
      "repro_torch.kernels.cover", "repro_torch.cluster.stream", "repro_torch.core.coupon",
      "repro_torch.cluster.epoch_scan", "repro_torch.cluster.control",
-     "repro_torch.cluster.events", "repro_torch.cluster.master"],
+     "repro_torch.cluster.events", "repro_torch.cluster.master",
+     "repro_torch.cluster.runtime", "repro_torch.cluster.runtime.trace"],
 )
 def test_each_module_imports_first_in_a_fresh_process(module):
     """``cluster`` and ``core`` import each other at package level; whichever
