@@ -26,19 +26,33 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports
    version and the unfused pass it replaces (``dist.sample`` + kernel A);
 4. holds the RMSNorm and flash-attention kernels to their plain versions
    within ``tests/test_kernels.py``'s ``TOL`` (float32 2e-5, bfloat16 3e-2)
-   at the serving path's shapes -- RMSNorm (1024, 1536) and (1, 1536), plain
-   and ``plus_one``; attention prefill (1, 1024, 12, 128) over 2 KV heads,
-   causal, against the served 1056-slot cache whose last 32 slots are -1,
-   and against 1024 keys at arange positions (also through the
-   Pallas-signature entry); decode Sq = 1 against a 1056-slot cache holding
-   -1 slots; a gemma-shaped head_dim 256 case and a sliding-window case --
-   checks which of the three attention kernels each case launched (split-KV
-   for decode, wgmma for a bf16 prefill, the CUDA-core kernel for a float32
-   prefill), and times the served prefill and decode of each kernel beside
-   its bound, its plain version and one PyTorch library call
-   (``torch.nn.functional.rms_norm``, ``scaled_dot_product_attention``, which
-   the port never calls), warm and with the L2 cache flushed before each
-   call, and the decode kernel at three split counts;
+   and within ``ROW_RTOL`` of |want| plus the RMS of the output row (bfloat16
+   2**-6, float32 2e-5), which a result with 64 keys dropped fails (checked
+   in every attention case), at the serving path's shapes -- RMSNorm (1024,
+   1536) and (1, 1536), plain and ``plus_one``; attention prefill (1, 1024,
+   12, 128) over 2 KV heads, causal, against the served 1056-slot cache
+   whose last 32 slots are -1, and against 1024 keys at arange positions
+   (also through the Pallas-signature entry); decode Sq = 1 against a
+   1056-slot cache holding -1 slots; a gemma-shaped head_dim 256 case and a
+   sliding-window case; and each served zoo family's attention as its
+   served path calls it (prefill over 1024 keys, the last decode step
+   against the 1040-slot ring): qwen3-moe 64 / 4 heads of 128 (16 query
+   rows a KV head on split-KV), qwen2-vl 28 / 4, recurrentgemma 10 / 1 at
+   head_dim 256 with window 2048, hubert-xlarge 16 / 16 at head_dim 80,
+   non-causal -- checks which of the three attention kernels each case
+   launched (split-KV for decode, wgmma for a bf16 prefill, the CUDA-core
+   kernel for a float32 prefill), and times the served prefill (1024 keys
+   at arange positions: a prefill attends over the prompt's own k/v),
+   decode and hubert's prefill of each kernel beside its bound, its plain
+   version and one PyTorch library call (``torch.nn.functional.rms_norm``,
+   ``scaled_dot_product_attention``, which the port never calls), warm and
+   with the L2 cache flushed before each call, the decode kernel at three
+   split counts, and each other zoo case's kernel beside its bound;
+4b. holds RMSNorm to its plain version (``TOL`` and ``ROW_RTOL``) at every
+   width the zoo serves, d in (5120, 4096, 3584, 2560) over 1024 rows and
+   one, bf16 and float32, plain and ``plus_one``, and times it at mamba2's
+   d_inner 5120 (the kernel's scalar path) beside its bound, its plain
+   version and ``F.rms_norm``;
 5. runs the planning path, ``plan_sweep`` over Exp, SExp, Pareto(1.5) and the
    §VII heavy-tail trace job ``job6`` across budgets N in {100, 720} with
    32768 reps, with the launch counters set to 0 just before and read just
@@ -147,7 +161,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports
 12. checks the KV cache at full width: in float32 compute with TF32 off,
    prefill 8 tokens and decode 4, each step's logits against the
    teacher-forced ``forward`` within 2e-3;
-13. prints the kernels line, then, last, the one-line JSON result.
+13. serves the rest of the zoo through ``launch.serve.serve`` at full
+   published width, bf16 weights, 2 requests, prompt 1024, 16 tokens, batch
+   1: qwen3-moe-235b-a22b cut to 6 of 94 layers, qwen2-vl-7b (embeddings
+   and M-RoPE ids), recurrentgemma-2b and mamba2-2.7b whole; the counters
+   set to 0 just before each and read just after (per forward: 13 / 57 / 53
+   / 129 RMSNorm and 6 / 28 / 8 / 0 attention launches, decode on split-KV,
+   prefill on wgmma, 2 kernel-A launches for the planner); runs
+   hubert-xlarge's 48-layer forward over 1024 frame embeddings (48 wgmma
+   launches); prints each request's prefill ms and decode ms per token, the
+   peak device memory and the card's name and power limit beside them;
+   then profiles one decode step of each after a 1024-token prefill (the
+   card's busy time, idle share and top kernels);
+14. checks each of those families at full width in float32 (TF32 off) at a
+   cut depth (2 layers; recurrentgemma one (R, R, A) group and its (R, R)
+   tail; MoE with a capacity that drops nothing): prefill 8 tokens and
+   decode 4 against the teacher-forced ``forward`` within 2e-3, and
+   hubert's forward against the same forward through the plain attention;
+   then the MoE smoke models on the card against the CPU (equal top-k
+   expert ids, logits within 1e-4);
+15. prints the kernels line, then, last, the one-line JSON result.
 
 Any failed phase exits non-zero and prints no result; so does a run without
 a CUDA device or without the repo's sources beside the script.
@@ -236,8 +269,27 @@ SLO_RATE, SLO_TARGETS = 0.02, {"job1": 25.0, "job6": 120.0}
 # the serving cell: qwen2-1.5b at full width and depth, batch 1
 SERVE_ARCH = "qwen2-1.5b"
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN, SERVE_WORKERS = 4, 1024, 32, 8
+# the model zoo: every other serving family at its published width, batch 1;
+# qwen3-moe cut to 6 of its 94 layers (bf16 weights, 4.98 GB a layer), the rest whole
+ZOO_SERVED = (("qwen3-moe-235b-a22b", 6), ("qwen2-vl-7b", None), ("recurrentgemma-2b", None),
+              ("mamba2-2.7b", None))
+ZOO_ENCODER = "hubert-xlarge"
+ZOO_REQUESTS, ZOO_GEN = 2, 16
+ZOO_D_INNER = 5120  # mamba2-2.7b's gated RMSNorm width
+# every RMSNorm width the zoo serves: mamba2's d_inner, then the d_model of
+# qwen3-moe, qwen2-vl, and recurrentgemma (plus_one) and mamba2
+ZOO_NORM_WIDTHS = (ZOO_D_INNER, 4096, 3584, 2560)
+# the float32 check's depth: 2 layers; recurrentgemma one (R, R, A) group and its (R, R) tail
+ZOO_F32_DEPTH = {"qwen3-moe-235b-a22b": 2, "qwen2-vl-7b": 2, "recurrentgemma-2b": 5,
+                 "mamba2-2.7b": 2, "hubert-xlarge": 2}
 # tests/test_kernels.py's TOL (atol = rtol) by dtype name
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# attention and RMSNorm are also held element by element to a bound scaled by
+# |want| plus the RMS of its output row (over the last axis): attention outputs
+# averaged over 1024 keys are about 0.05, where TOL's 1 + |want| would pass a
+# kernel that drops a 64-key tile; the attention phase checks that this bound
+# fails such a result.  bf16: 4 units in the last place of bf16's 8-bit significand
+ROW_RTOL = {"float32": 2e-5, "bfloat16": 2.0**-6}
 # kernel B against its plain version, relative, for the laws with a log1p or a
 # pow (libdevice's and torch's may differ by a few ulp; the min/max carries
 # the chosen draw's error through unchanged); an empirical law is bitwise
@@ -255,6 +307,7 @@ def check(ok: bool, what: str) -> None:
 
 
 T0 = time.perf_counter()
+CARD = "not read"  # nvidia-smi's "name, power.limit", set by phase_card
 
 
 def phase(name: str):
@@ -298,6 +351,18 @@ def close_to(got, want, dtype_name: str) -> tuple[bool, float]:
     return ok, float(err.max()) if err.numel() else 0.0
 
 
+def close_by_row(got, want, dtype_name: str) -> tuple[bool, float]:
+    """``|got - want| <= ROW_RTOL * (|want| + rms(want's row))`` everywhere,
+    and the largest ``|got - want| / (|want| + rms(want's row))``."""
+    import torch
+
+    g, w = got.float(), want.float()
+    scale = w.abs() + w.square().mean(-1, keepdim=True).sqrt()
+    err = (g - w).abs()
+    ok = bool(torch.isfinite(g).all()) and bool((err <= ROW_RTOL[dtype_name] * scale).all())
+    return ok, float((err / scale.clamp_min(1e-30)).max())
+
+
 def profile_device(fn, host: dict | None = None, counts: dict | None = None,
                    cpu: bool = True) -> tuple[float, dict]:
     """Host-clock ms of ``fn()`` up to a synchronise, and the microseconds the
@@ -339,10 +404,15 @@ def device_ms_per_call(fn, iters: int = 20) -> float:
     """The card's busy time per call of ``fn`` (kernels and copies, from a
     ``torch.profiler`` trace of ``iters`` calls after a warm-up): the
     kernel's own time, free of the host's launch overhead that CUDA events
-    around back-to-back calls also see when each call is short."""
+    around back-to-back calls also see when each call is short.  A trace
+    that shows no device time is taken again, and after three the phase fails."""
     fn()
-    _, by_name = profile_device(lambda: [fn() for _ in range(iters)])
-    return sum(by_name.values()) / 1e3 / iters
+    for _ in range(3):
+        _, by_name = profile_device(lambda: [fn() for _ in range(iters)])
+        busy_us = sum(by_name.values())
+        if busy_us > 0:
+            return busy_us / 1e3 / iters
+    check(False, f"three profiler traces of {iters} calls showed no device time")
 
 
 def kernel_ms_cold(fn, name_part: str, iters: int = 20) -> float:
@@ -392,7 +462,9 @@ def phase_card() -> None:
         capture_output=True, text=True, timeout=60,
     )
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
-    print(out.stdout.strip().splitlines()[0], flush=True)
+    global CARD
+    CARD = out.stdout.strip().splitlines()[0]
+    print(CARD, flush=True)
 
 
 def phase_build() -> None:
@@ -2019,7 +2091,7 @@ def phase_rmsnorm_vs_plain() -> dict:
     from repro_torch._device import time_on_card
     from repro_torch.kernels import rmsnorm
 
-    phase("RMSNorm kernel vs plain version (TOL, on the card)")
+    phase("RMSNorm kernel vs plain version (TOL and ROW_RTOL, on the card)")
     rows, d = SERVE_PROMPT, 1536  # a qwen2-1.5b prefill: 1024 tokens of d_model 1536
     max_err, record = 0.0, None
     for dtype in (torch.bfloat16, torch.float32):
@@ -2029,11 +2101,14 @@ def phase_rmsnorm_vs_plain() -> dict:
             for w_dtype in (dtype, torch.float32):  # the final norm keeps a float32 weight
                 w = _randn(torch, (d,), w_dtype, SEED + 1, 0.1)
                 for plus_one in (False, True):
-                    ok, err = close_to(rmsnorm.rms_norm_fused(x, w, plus_one=plus_one),
-                                       rmsnorm.rms_norm_ref(x, w, plus_one=plus_one), name)
+                    got = rmsnorm.rms_norm_fused(x, w, plus_one=plus_one)
+                    want = rmsnorm.rms_norm_ref(x, w, plus_one=plus_one)
+                    what = f"rmsnorm {name} {shape} w {w_dtype} plus_one={plus_one}"
+                    ok, err = close_to(got, want, name)
                     max_err = max(max_err, err)
-                    check(ok, f"rmsnorm {name} {shape} w {w_dtype} plus_one={plus_one}: "
-                              f"max |err| {err} beyond TOL {TOL[name]}")
+                    check(ok, f"{what}: max |err| {err} beyond TOL {TOL[name]}")
+                    ok, row = close_by_row(got, want, name)
+                    check(ok, f"{what}: beyond ROW_RTOL ({row})")
         x = _randn(torch, (rows, d), dtype, SEED)
         w = _randn(torch, (d,), dtype, SEED + 1, 0.1)
         ms = device_ms_per_call(lambda: rmsnorm.rms_norm_fused(x, w), iters=50)
@@ -2068,7 +2143,8 @@ def phase_rmsnorm_vs_plain() -> dict:
 
 
 def _visible_pairs(torch, q_pos, kv_pos, causal, window) -> int:
-    mask = kv_pos[:, None, :] >= 0
+    # (B, Sq, Sk): without a causal or window term the mask must still span the queries
+    mask = (kv_pos[:, None, :] >= 0).expand(q_pos.shape[0], q_pos.shape[1], kv_pos.shape[1])
     if causal:
         mask = mask & (kv_pos[:, None, :] <= q_pos[:, :, None])
     if window is not None:
@@ -2119,14 +2195,38 @@ def _attention_path(flash, before) -> str:
     return ran[0] if len(ran) == 1 else f"{ran}"
 
 
+def _zoo_attention_cases() -> list:
+    """Each served zoo family's attention as its served path calls it, in
+    phase_attention_vs_plain's case form: the prefill over the prompt's own
+    keys, and the last decode step against the full ring of prompt + gen slots
+    (the window's, where shorter)."""
+    from repro_torch.models import transformer
+
+    n_ctx = SERVE_PROMPT + ZOO_GEN
+    cases = []
+    for arch in [a for a, _ in ZOO_SERVED] + [ZOO_ENCODER]:
+        cfg = _zoo_config(arch)
+        if cfg.family == "ssm":  # no attention
+            continue
+        lay = transformer._layout(cfg)
+        head = (lay.h_pad, lay.k_pad, cfg.head_dim)
+        cases.append((f"{arch} prefill", *head, SERVE_PROMPT, SERVE_PROMPT, cfg.is_causal,
+                      cfg.window, None))
+        if cfg.is_causal:  # the encoder does not decode
+            slots = min(n_ctx, cfg.window) if cfg.window else n_ctx
+            cases.append((f"{arch} decode", *head, 1, slots, True, cfg.window, (slots, n_ctx)))
+    return cases
+
+
 def phase_attention_vs_plain() -> dict:
     import torch
 
     from repro_torch._device import time_on_card
     from repro_torch.kernels import flash_attention as flash
 
-    phase("flash-attention kernels vs plain version (TOL, on the card)")
-    max_err, record = 0.0, {}
+    phase("flash-attention kernels vs plain version (TOL and ROW_RTOL, on the card), the "
+          "model zoo's shapes included")
+    max_err, record = 0.0, {"zoo": {}}
     w_cache = SERVE_PROMPT + SERVE_GEN
     # (label, H, KH, hd, Sq, Sk, causal, window, kv positions): None = arange
     # prompt; ("prompt", n) = a prompt of n tokens in the first n of Sk slots,
@@ -2139,9 +2239,11 @@ def phase_attention_vs_plain() -> dict:
         ("gemma hd 256 decode", 16, 16, 256, 1, 300, True, None, (300, 280)),
         ("window 128", 8, 2, 128, 512, 512, True, 128, None),
         ("window 128 decode, wrapped ring", 8, 2, 128, 1, 128, True, 128, (128, 700)),
-    ]
+    ] + _zoo_attention_cases()
+    timed = ("qwen2 prefill, arange", "qwen2 decode", f"{ZOO_ENCODER} prefill")
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).removeprefix("torch.")
+        worst_row = 0.0
         for label, h, kh, hd, sq, sk, causal, window, ring in cases:
             q = _randn(torch, (1, sq, h, hd), dtype, SEED + 2)
             k = _randn(torch, (1, sk, kh, hd), dtype, SEED + 3)
@@ -2158,19 +2260,36 @@ def phase_attention_vs_plain() -> dict:
                 q_pos = torch.full((1, 1), t, dtype=torch.int32, device="cuda")
             want = flash.attention_ref(q, k, v, q_pos, kv_pos, causal, window)
             before = (flash.splitkv_launches, flash.wgmma_launches, flash.simt_launches)
-            ok, err = close_to(flash.attention(q, k, v, q_pos, kv_pos, causal, window), want, name)
+            got = flash.attention(q, k, v, q_pos, kv_pos, causal, window)
             path = _attention_path(flash, before)
+            ok, err = close_to(got, want, name)
             max_err = max(max_err, err)
             check(ok, f"attention {name} {label}: max |err| {err} beyond TOL {TOL[name]}")
+            ok, row = close_by_row(got, want, name)
+            worst_row = max(worst_row, row)
+            check(ok, f"attention {name} {label}: |err| / (|want| + row RMS) reaches {row}, "
+                      f"beyond ROW_RTOL {ROW_RTOL[name]}")
+            # the bound's power: the plain result with one 64-slot tile hidden,
+            # in the middle of the keys, fails it
+            mid = sk // 2 // 64 * 64
+            hidden = kv_pos.clone()
+            hidden[:, mid: mid + 64] = -1
+            dropped = flash.attention_ref(q, k, v, q_pos, hidden, causal, window)
+            check(not close_by_row(dropped, want, name)[0],
+                  f"attention {name} {label}: ROW_RTOL passes a result with 64 keys dropped")
             want_path = "splitkv" if sq == 1 else ("wgmma" if dtype == torch.bfloat16 else "simt")
             check(path == want_path, f"attention {name} {label} ran {path}, not {want_path}")
             if ring is None:  # the Pallas-signature entry, (B, H, S, hd) through its strides
                 got = flash.flash_attention_fwd(*(t_.transpose(1, 2) for t_ in (q, k, v)),
-                                                causal=causal, window=window)
-                ok, err = close_to(got.transpose(1, 2), want, name)
+                                                causal=causal, window=window).transpose(1, 2)
+                ok, err = close_to(got, want, name)
                 max_err = max(max_err, err)
                 check(ok, f"flash_attention_fwd {name} {label}: max |err| {err} beyond TOL")
-            if label in ("qwen2 prefill", "qwen2 decode"):
+                ok, row = close_by_row(got, want, name)
+                worst_row = max(worst_row, row)
+                check(ok, f"flash_attention_fwd {name} {label}: beyond ROW_RTOL ({row})")
+            shapes = f"q {tuple(q.shape)} kv {tuple(k.shape)}"
+            if label in timed:
                 ms = device_ms_per_call(
                     lambda: flash.attention(q, k, v, q_pos, kv_pos, causal, window), iters=20)
                 call_ms = time_on_card(
@@ -2181,15 +2300,15 @@ def phase_attention_vs_plain() -> dict:
                 # prompt (the unwritten tail lies past every query), the
                 # positions' mask for decode
                 mask = None if sq > 1 else flash._visible(q_pos, kv_pos, causal, window)
-                lib_ms = _sdpa_ms(torch, q, k, v, causal=sq > 1, iters=20, mask=mask)
+                lib_ms = _sdpa_ms(torch, q, k, v, causal=causal and sq > 1, iters=20, mask=mask)
                 bnd, by = _attention_bound(torch, q, k, q_pos, kv_pos, causal, window)
                 cold_ms = kernel_ms_cold(
                     lambda: flash.attention(q, k, v, q_pos, kv_pos, causal, window), path)
-                print(f"{name}: {label} q {tuple(q.shape)} kv {tuple(k.shape)} within TOL on "
-                      f"{path}; device time per call: kernel {ms:.5f} ms ({cold_ms:.5f} ms "
-                      f"with L2 flushed before each call), plain {plain_ms:.5f} ms, SDPA "
-                      f"{lib_ms:.5f} ms; bound {bnd:.5f} ms ({by}), kernel at {bnd / ms:.2%} of "
-                      f"bound; back-to-back wrapper calls {call_ms:.5f} ms", flush=True)
+                print(f"{name}: {label} {shapes} within TOL on {path}; device time per call: "
+                      f"kernel {ms:.5f} ms ({cold_ms:.5f} ms with L2 flushed before each call), "
+                      f"plain {plain_ms:.5f} ms, SDPA {lib_ms:.5f} ms; bound {bnd:.5f} ms "
+                      f"({by}), kernel at {bnd / ms:.2%} of bound; back-to-back wrapper calls "
+                      f"{call_ms:.5f} ms  [{CARD}]", flush=True)
                 if sq == 1 and dtype == torch.bfloat16:
                     # the split count: slots a split at least (16 is the wrapper's)
                     sweep = []
@@ -2203,14 +2322,26 @@ def phase_attention_vs_plain() -> dict:
                     flash.SPLITKV_MIN_KEYS = 16
                     print(f"{name}: {label} by split count (132 SMs): {'; '.join(sweep)}")
                 if dtype == torch.bfloat16:
-                    record["prefill" if sq > 1 else "decode"] = {
-                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-                        "library_ms": lib_ms}
+                    rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                           "library_ms": lib_ms}
+                    if label.startswith(ZOO_ENCODER):
+                        record["zoo"]["hubert prefill"] = dict(rec, shape=list(q.shape))
+                    else:
+                        record["prefill" if sq > 1 else "decode"] = rec
+            elif dtype == torch.bfloat16 and label.startswith(tuple(a for a, _ in ZOO_SERVED)):
+                ms = device_ms_per_call(
+                    lambda: flash.attention(q, k, v, q_pos, kv_pos, causal, window), iters=20)
+                bnd, by = _attention_bound(torch, q, k, q_pos, kv_pos, causal, window)
+                print(f"{name}: {label} {shapes} within TOL on {path}; device time per call: "
+                      f"kernel {ms:.5f} ms; bound {bnd:.5f} ms ({by}), kernel at "
+                      f"{bnd / ms:.2%} of bound  [{CARD}]", flush=True)
             else:
-                print(f"{name}: {label} q {tuple(q.shape)} kv {tuple(k.shape)} within TOL on "
-                      f"{path}")
+                print(f"{name}: {label} {shapes} within TOL on {path}")
+            del q, k, v, want, got, dropped
+        print(f"{name}: every case within ROW_RTOL {ROW_RTOL[name]}: the largest |err| / "
+              f"(|want| + row RMS) {worst_row:.3e}; a 64-key tile dropped fails it in every case")
         torch.cuda.empty_cache()
-    out = dict(record["prefill"], decode=record["decode"])
+    out = dict(record["prefill"], decode=record["decode"], zoo=record["zoo"])
     out["max_abs_err"] = max_err
     return out
 
@@ -2245,10 +2376,7 @@ def phase_serve() -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     tee = _Tee(sys.stdout)
-    cover.launches = rmsnorm.launches = flash_attention.launches = 0
-    cover.draws_launches = cover.philox_launches = 0
-    flash_attention.splitkv_launches = flash_attention.wgmma_launches = 0
-    flash_attention.simt_launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
         rc = serve.main(argv)
@@ -2370,6 +2498,341 @@ def phase_cache_check() -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# the model zoo: every serving family at full published width
+# --------------------------------------------------------------------------
+
+
+def _zoo_per_forward(cfg) -> tuple[int, int]:
+    """(RMSNorm, attention) kernel launches of one forward of ``cfg``."""
+    if cfg.family == "ssm":  # norm1 and the gated norm over d_inner a layer, the final norm
+        return 2 * cfg.n_layers + 1, 0
+    rms = 0 if cfg.norm_type == "layer" else 2 * cfg.n_layers + 1
+    if cfg.family == "hybrid":
+        pat = cfg.block_pattern
+        n_attn = (cfg.n_layers // len(pat)) * pat.count("attn") \
+            + pat[: cfg.n_layers % len(pat)].count("attn")
+        return rms, n_attn
+    return rms, cfg.n_layers
+
+
+def _zoo_config(arch: str, depth=None, **overrides):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch, **overrides)
+    return dataclasses.replace(cfg, n_layers=depth) if depth else cfg
+
+
+def _reset_counts() -> None:
+    from repro_torch.kernels import cover, flash_attention, rmsnorm
+
+    cover.launches = rmsnorm.launches = flash_attention.launches = 0
+    cover.draws_launches = cover.philox_launches = 0
+    flash_attention.splitkv_launches = flash_attention.wgmma_launches = 0
+    flash_attention.simt_launches = 0
+
+
+def _counts() -> dict:
+    from repro_torch.kernels import cover, flash_attention, rmsnorm
+
+    return {"rmsnorm": rmsnorm.launches, "flash_attention": flash_attention.launches,
+            "masked_cover": cover.launches, "splitkv": flash_attention.splitkv_launches,
+            "wgmma": flash_attention.wgmma_launches, "simt": flash_attention.simt_launches,
+            "draws": cover.draws_launches, "philox": cover.philox_launches}
+
+
+def _free() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_zoo_rmsnorm() -> dict:
+    """RMSNorm at every width the zoo serves, prefill and decode rows, against
+    its plain version within TOL and ROW_RTOL; timed at mamba2's d_inner 5120,
+    the width that takes the kernel's scalar path."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rmsnorm
+
+    phase(f"model zoo RMSNorm vs plain version at d {ZOO_NORM_WIDTHS} (TOL and ROW_RTOL, on "
+          "the card)")
+    out = {"max_abs_err": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        worst_row = 0.0
+        for d in ZOO_NORM_WIDTHS:
+            for rows in (SERVE_PROMPT, 1):  # a prefill and a decode step
+                x = _randn(torch, (rows, d), dtype, SEED + 7)
+                for w_dtype in (dtype, torch.float32):  # the final norm keeps a float32 weight
+                    w = _randn(torch, (d,), w_dtype, SEED + 8, 0.1)
+                    for plus_one in (False, True):
+                        got = rmsnorm.rms_norm_fused(x, w, plus_one=plus_one)
+                        want = rmsnorm.rms_norm_ref(x, w, plus_one=plus_one)
+                        what = f"rmsnorm {name} ({rows}, {d}) w {w_dtype} plus_one={plus_one}"
+                        ok, err = close_to(got, want, name)
+                        out["max_abs_err"] = max(out["max_abs_err"], err)
+                        check(ok, f"{what}: max |err| {err} beyond TOL {TOL[name]}")
+                        ok, row = close_by_row(got, want, name)
+                        worst_row = max(worst_row, row)
+                        check(ok, f"{what}: beyond ROW_RTOL ({row})")
+                if dtype != torch.bfloat16 or d != ZOO_D_INNER:
+                    continue
+                w = _randn(torch, (d,), dtype, SEED + 8, 0.1)
+                ms = device_ms_per_call(lambda: rmsnorm.rms_norm_fused(x, w), iters=50)
+                plain_ms = device_ms_per_call(lambda: rmsnorm.rms_norm_ref(x, w), iters=50)
+                lib_ms = device_ms_per_call(lambda: F.rms_norm(x, (d,), w, eps=1e-6),
+                                            iters=50) if hasattr(F, "rms_norm") else None
+                bnd, by = bound_ms(2 * x.numel() * x.element_size() + w.numel() * w.element_size(),
+                                   4 * x.numel(), CARD_F32_FLOP_PER_S)
+                lib = f"{lib_ms:.5f} ms" if lib_ms is not None else "not available"
+                print(f"rmsnorm {name} ({rows}, {d}) device time per call: kernel {ms:.5f} ms, "
+                      f"plain {plain_ms:.5f} ms, F.rms_norm {lib}; bound {bnd:.5f} ms ({by}), "
+                      f"kernel at {bnd / ms:.1%} of bound  [{CARD}]", flush=True)
+                out["prefill" if rows > 1 else "decode"] = {
+                    "shape": [rows, d], "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+                    "bound_by": by, "library_ms": lib_ms}
+        print(f"{name}: every width, row count, weight dtype and plus_one within TOL and "
+              f"ROW_RTOL {ROW_RTOL[name]}: the largest |err| / (|want| + row RMS) {worst_row:.3e}")
+    _free()
+    return out
+
+
+def phase_model_zoo() -> dict:
+    """Serve each decoder family through ``launch.serve.serve`` at full width and
+    run hubert-xlarge's forward, the launch counts checked family by family."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model, transformer
+
+    phase(f"model zoo: launch.serve.serve at full width, {ZOO_REQUESTS} requests, prompt "
+          f"{SERVE_PROMPT}, gen {ZOO_GEN}, batch 1, bf16 weights; hubert-xlarge forward over "
+          f"{SERVE_PROMPT} frames")
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(_counts(), 0)
+    for arch, depth in ZOO_SERVED:
+        cfg = _zoo_config(arch, depth, param_dtype="bfloat16")
+        rms_f, att_f = _zoo_per_forward(cfg)
+        forwards = ZOO_REQUESTS * (1 + ZOO_GEN)
+        want = {"rmsnorm": rms_f * forwards, "flash_attention": att_f * forwards,
+                "masked_cover": 2, "splitkv": att_f * ZOO_REQUESTS * ZOO_GEN,
+                "wgmma": att_f * ZOO_REQUESTS, "simt": 0, "draws": 2, "philox": 0}
+        cut = f"{depth} of {_zoo_config(arch).n_layers} layers" if depth else \
+            f"{cfg.n_layers} layers"
+        print(f"-- {arch} ({cut}, d_model {cfg.d_model}): {rms_f} RMSNorm and {att_f} attention "
+              f"launches a forward", flush=True)
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _reset_counts()
+        records = serve.serve(cfg, requests=ZOO_REQUESTS, prompt_len=SERVE_PROMPT, gen=ZOO_GEN,
+                              workers=SERVE_WORKERS, seed=SEED)
+        got = _counts()
+        wall = time.perf_counter() - t0
+        check(got == want, f"{arch}: launches {got}, expected {want}")
+        check(len(records) == ZOO_REQUESTS, f"{arch}: {len(records)} requests served")
+        for key in total:
+            total[key] += got[key]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for r, (tot, pre, dec) in enumerate(records):
+            print(f"{arch} request {r}: prefill {pre * 1e3:.3f} ms, decode {dec * 1e3:.3f} "
+                  f"ms/token, total {tot * 1e3:.3f} ms  [{CARD}]")
+        print(f"{arch}: launches as expected {got}; peak device memory {peak:.3f} GB; "
+              f"serve in {wall:.3f} s (weights made included)  [{CARD}]", flush=True)
+
+    cfg = _zoo_config(ZOO_ENCODER, param_dtype="bfloat16")
+    rms_f, att_f = _zoo_per_forward(cfg)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = model.for_serving(model.init(torch.Generator(device="cuda").manual_seed(SEED)))
+    embeds = _randn(torch, (1, SERVE_PROMPT, cfg.d_model), torch.bfloat16, SEED + 12)
+    with torch.inference_mode():
+        transformer.forward(params, cfg, embeds=embeds)  # warm
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        logits, _, _ = transformer.forward(params, cfg, embeds=embeds)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = _counts()
+    want = dict.fromkeys(got, 0)
+    want.update(rmsnorm=rms_f, flash_attention=att_f, wgmma=att_f)
+    check(got == want, f"{ZOO_ENCODER}: launches {got}, expected {want}")
+    check(logits.shape == (1, SERVE_PROMPT, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{ZOO_ENCODER}: logits {tuple(logits.shape)} not finite")
+    for key in total:
+        total[key] += got[key]
+    print(f"{ZOO_ENCODER} ({cfg.n_layers} layers, d_model {cfg.d_model}, 16 heads of 80, "
+          f"non-causal): forward over {SERVE_PROMPT} frames {ms:.3f} ms (host clock to a "
+          f"synchronise, warm); launches {got}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB  [{CARD}]", flush=True)
+    del params, model, logits, embeds
+    _free()
+    print(f"model zoo serving phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
+def phase_zoo_decode_profile() -> None:
+    """One profiled decode step of each served zoo family after a 1024-token
+    prefill: the card's busy time and idle share, and where the device time goes."""
+    import torch
+
+    from repro_torch.models import build_model
+
+    phase("model zoo: one profiled decode step of each served family (bf16, after a "
+          f"{SERVE_PROMPT}-token prefill)")
+    for arch, depth in ZOO_SERVED:
+        cfg = _zoo_config(arch, depth, param_dtype="bfloat16")
+        _free()
+        model = build_model(cfg)
+        params = model.for_serving(model.init(torch.Generator(device="cuda").manual_seed(SEED)))
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+        tokens = torch.randint(0, cfg.vocab_size, (1, SERVE_PROMPT), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        with torch.inference_mode():
+            logits, cache, t = model.prefill(params, {"tokens": tokens}, SERVE_PROMPT + 8)
+            tok = logits[:, : cfg.vocab_size].argmax(-1)[:, None].int()
+            for _ in range(2):  # warm
+                logits, cache, t = model.decode_step(params, cache, tok, t)
+            counts: dict = {}
+            wall_ms, by_name = profile_device(lambda: model.decode_step(params, cache, tok, t),
+                                              counts=counts, cpu=False)
+        busy_ms = sum(by_name.values()) / 1e3
+        idle = f"{1.0 - busy_ms / wall_ms:.1%}" if busy_ms > 0 else "not measured"
+        print(f"{arch}: decode step profiled {wall_ms:.3f} ms, card busy {busy_ms:.3f} ms in "
+              f"{sum(counts.values())} kernels and copies, idle share {idle}  [{CARD}]")
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+            print(f"    {us / 1e3:9.4f} ms  {counts[name]:4d} launches  {name[:90]}")
+        sys.stdout.flush()
+        del params, model, cache, logits
+    _free()
+
+
+def phase_zoo_f32() -> None:
+    """Each family at full width, cut depth, float32 with TF32 off: prefill and
+    decode against the teacher-forced forward; hubert's forward against the
+    same forward through the plain attention."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.models import build_model, hybrid, mamba, transformer
+
+    n_pre, n_dec = 8, 4
+    phase(f"model zoo at full width in float32: prefill {n_pre} + decode {n_dec} against "
+          "teacher forcing (2e-3)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch, _ in ZOO_SERVED:
+        depth = ZOO_F32_DEPTH[arch]
+        kw = dict(param_dtype="float32", compute_dtype="float32")
+        base = _zoo_config(arch)
+        if base.is_moe:  # nothing dropped: capacity covers every assignment
+            kw["capacity_factor"] = base.n_experts / base.n_experts_per_tok
+        cfg = _zoo_config(arch, depth, **kw)
+        _free()
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+        tokens = torch.randint(0, cfg.vocab_size, (1, n_pre + n_dec), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        with torch.inference_mode():
+            if cfg.family == "hybrid":
+                full, _ = hybrid.forward(params, cfg, tokens)
+            elif cfg.family == "ssm":
+                full, _ = mamba.forward(params, cfg, tokens)
+            else:
+                kw_in = {}
+                if cfg.family == "vlm":  # text: t = h = w = the position
+                    kw_in["mrope_positions"] = torch.arange(
+                        n_pre + n_dec, dtype=torch.int32, device="cuda")[None, :, None].expand(
+                        1, -1, 3).contiguous()
+                full, _, _ = transformer.forward(params, cfg, tokens=tokens, **kw_in)
+            if cfg.family == "vlm":  # as serving sends it: embeddings and M-RoPE ids
+                batch = {"embeds": params["embed"][tokens[:, :n_pre].long()],
+                         "mrope_positions": kw_in["mrope_positions"][:, :n_pre].contiguous()}
+            else:
+                batch = {"tokens": tokens[:, :n_pre]}
+            logits, cache, t = model.prefill(params, batch, n_pre + n_dec)
+            steps = [(logits, full[:, n_pre - 1])]
+            for i in range(n_dec):
+                logits, cache, t = model.decode_step(
+                    params, cache, tokens[:, n_pre + i: n_pre + i + 1], t)
+                steps.append((logits, full[:, n_pre + i]))
+            worst = 0.0
+            for i, (got, want) in enumerate(steps):
+                err = (got - want).abs()
+                worst = max(worst, float(err.max()))
+                check(bool(torch.isfinite(got).all())
+                      and bool((err <= 2e-3 + 2e-3 * want.abs()).all()),
+                      f"{arch} f32 step {i}: logits differ from teacher forcing by "
+                      f"{float(err.max())}")
+        print(f"{arch} ({depth} layers, d_model {cfg.d_model}, float32): prefill and {n_dec} "
+              f"decode steps match the teacher-forced forward, max |err| {worst:.3e} over "
+              f"{cfg.padded_vocab} logits a step", flush=True)
+        del params, model, cache, full, logits, steps
+    # hubert: the kernels' forward against the same forward through the plain attention
+    cfg = _zoo_config(ZOO_ENCODER, ZOO_F32_DEPTH[ZOO_ENCODER], param_dtype="float32",
+                      compute_dtype="float32")
+    _free()
+    params = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(SEED))
+    embeds = _randn(torch, (1, SERVE_PROMPT, cfg.d_model), torch.float32, SEED + 14)
+    with torch.inference_mode():
+        got, _, _ = transformer.forward(params, cfg, embeds=embeds)
+        kernel = transformer.flash_attention
+        transformer.flash_attention = lambda q, k, v, qp, kp, causal=True, window=None: \
+            flash.attention_ref(q, k, v, qp, kp, causal, window)
+        try:
+            want, _, _ = transformer.forward(params, cfg, embeds=embeds)
+        finally:
+            transformer.flash_attention = kernel
+    err = (got - want).abs()
+    check(bool(torch.isfinite(got).all()) and bool((err <= 2e-3 + 2e-3 * want.abs()).all()),
+          f"{ZOO_ENCODER} f32 forward differs from its plain-attention forward by "
+          f"{float(err.max())}")
+    print(f"{ZOO_ENCODER} ({cfg.n_layers} layers, float32) forward over {SERVE_PROMPT} frames "
+          f"matches the same forward through the plain attention: max |err| "
+          f"{float(err.max()):.3e}", flush=True)
+    del params, got, want
+    _free()
+
+
+def phase_zoo_moe_card_vs_cpu() -> None:
+    """The MoE smoke models on the card against the CPU: equal top-k expert ids,
+    logits within the model tests' 1e-4."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, moe, transformer
+
+    phase("MoE smoke models: the card against the CPU (top-k ids equal, logits 1e-4)")
+    for arch in ("dbrx-132b", "qwen3-moe-235b-a22b"):
+        base = get_config(arch, smoke=True)
+        cfg = get_config(arch, smoke=True, param_dtype="float32", compute_dtype="float32",
+                         capacity_factor=base.n_experts / base.n_experts_per_tok)
+        params = build_model(cfg).init(torch.Generator().manual_seed(SEED))
+        tokens = torch.randint(0, cfg.vocab_size, (2, 11), dtype=torch.int32,
+                               generator=torch.Generator().manual_seed(SEED + 1))
+        x = params["embed"][tokens.long()]
+        router = params["layers"][0]["moe"]["router"]
+        ids, _ = moe._route(x @ router, cfg.n_experts_per_tok)
+        ids_c, _ = moe._route(x.cuda() @ router.cuda(), cfg.n_experts_per_tok)
+        check(torch.equal(ids_c.cpu(), ids), f"{arch}: top-k ids differ card vs CPU")
+        want, _, want_aux = transformer.forward(params, cfg, tokens=tokens)
+        got, _, aux = transformer.forward(params.cuda(), cfg, tokens=tokens.cuda())
+        err = float((got.cpu() - want).abs().max())
+        check(err <= 1e-4 + 1e-4 * float(want.abs().max()),
+              f"{arch}: logits card vs CPU differ by {err}")
+        print(f"{arch} smoke: top-k ids equal card vs CPU; logits max |err| {err:.3e}; aux "
+              f"{float(aux):.6f} card, {float(want_aux):.6f} CPU", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -2394,6 +2857,7 @@ def main() -> int:
         philox_rec = phase_philox_vs_plain()
         rms_rec = phase_rmsnorm_vs_plain()
         att_rec = phase_attention_vs_plain()
+        zoo_rms_rec = phase_zoo_rmsnorm()
         plan_launches = phase_main_path()
         path_launches = [plan_launches, phase_churned_planning(), phase_dynamic_policies(),
                          phase_space_engine(), phase_live_runtime(), phase_fifo(),
@@ -2401,17 +2865,28 @@ def main() -> int:
         serve_launches = phase_serve()
         phase_decode_profile()
         phase_cache_check()
+        t_zoo = time.perf_counter()
+        zoo_launches = phase_model_zoo()
+        phase_zoo_decode_profile()
+        phase_zoo_f32()
+        phase_zoo_moe_card_vs_cpu()
+        print(f"\nmodel zoo: {time.perf_counter() - t_zoo:.1f} s; the whole script "
+              f"{time.perf_counter() - T0:.1f} s so far", flush=True)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     rows = [
         # name, record, launches on the main paths, replaces
         ("masked_cover", cover_rec,
-         sum(sum(d.values()) for d in path_launches) + serve_launches["masked_cover"],
+         sum(sum(d.values()) for d in path_launches) + serve_launches["masked_cover"]
+         + zoo_launches["masked_cover"],
          "cover.cu", "src/repro/kernels/cover.py:47"),
-        ("rmsnorm", rms_rec, serve_launches["rmsnorm"],
+        ("rmsnorm", dict(rms_rec, max_abs_err=max(rms_rec["max_abs_err"],
+                                                  zoo_rms_rec["max_abs_err"])),
+         serve_launches["rmsnorm"] + zoo_launches["rmsnorm"],
          "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:31"),
-        ("flash_attention", att_rec, serve_launches["flash_attention"],
+        ("flash_attention", att_rec,
+         serve_launches["flash_attention"] + zoo_launches["flash_attention"],
          "flash_attention.cu", "src/repro/kernels/flash_attention.py:104"),
     ]
     kernels = [{
@@ -2432,13 +2907,22 @@ def main() -> int:
     # kernel the served path launched (split-KV for decode, wgmma for prefill)
     kernels[1]["decode"] = rms_rec["decode"]
     kernels[2]["decode"] = att_rec["decode"]
-    kernels[2]["launches_by_kernel"] = serve_launches["flash_attention_by_kernel"]
+    kernels[2]["launches_by_kernel"] = {
+        k: serve_launches["flash_attention_by_kernel"][k] + zoo_launches[k]
+        for k in ("splitkv", "wgmma", "simt")}
+    # the model zoo's new shapes: RMSNorm at d_inner 5120, attention at hd 80
+    kernels[1]["zoo"] = {k: zoo_rms_rec[k] for k in ("prefill", "decode")}
+    kernels[2]["zoo"] = att_rec["zoo"]
+    kernels[1]["launches_by_path"] = {"serve": serve_launches["rmsnorm"],
+                                      "zoo": zoo_launches["rmsnorm"]}
+    kernels[2]["launches_by_path"] = {"serve": serve_launches["flash_attention"],
+                                      "zoo": zoo_launches["flash_attention"]}
     # cover: kernel A (draws in) above, kernel B (Philox sample-and-cover,
     # every frontier pass of the planning path) beside it
     kernels[0]["philox"] = philox_rec
     kernels[0]["launches_by_kernel"] = {
         k: sum(d[k] for d in path_launches) + serve_launches["masked_cover_by_kernel"][k]
-        for k in ("draws", "philox")}
+        + zoo_launches[k] for k in ("draws", "philox")}
     print()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -4,9 +4,10 @@ Port of ``repro.models``.  ``Model`` holds the same callables as the
 reference's; ``init`` takes a ``torch.Generator`` (its device is where the
 weights land) in place of a ``jax.random`` key.  The reference's
 ``input_specs`` / ``cache_specs`` / ``param_specs`` are ``jax.eval_shape``
-stand-ins for its dry run and have no counterpart here.  Only the ``dense``
-family is ported; the others raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.
+stand-ins for its dry run and have no counterpart here.  Every family is
+ported: ``dense``, ``moe``, ``vlm`` and ``encoder`` through
+:mod:`.transformer`, ``hybrid`` through :mod:`.hybrid` and ``ssm`` through
+:mod:`.mamba`.
 """
 from __future__ import annotations
 
@@ -14,17 +15,9 @@ import dataclasses
 from typing import Callable
 
 from ..configs.base import ArchConfig
-from . import transformer
+from . import hybrid, mamba, transformer
 
 __all__ = ["Model", "build_model"]
-
-_NOT_YET = {
-    "moe": "models/moe.py",
-    "vlm": "the M-RoPE inputs of the vlm family",
-    "encoder": "the encoder family",
-    "hybrid": "models/rglru.py and models/hybrid.py",
-    "ssm": "models/mamba.py and models/ssm.py",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,14 +31,16 @@ class Model:
     for_serving: Callable  # (params) -> the compute-dtype copy serving keeps
 
 
-def _transformer_model(cfg: ArchConfig) -> Model:
+def _model(cfg: ArchConfig, module) -> Model:
+    """The Model of one family's module (the reference's ``_transformer_model``,
+    ``_hybrid_model`` and ``_mamba_model`` differ only in it)."""
     return Model(
         cfg=cfg,
-        init=lambda generator: transformer.init_params(generator, cfg),
-        train_loss=lambda p, b: transformer.train_loss(p, cfg, b),
-        prefill=lambda p, b, max_len: transformer.prefill(p, cfg, b, max_len),
-        decode_step=lambda p, c, tok, t: transformer.decode_step(p, cfg, c, tok, t),
-        init_cache=lambda b, max_len: transformer.init_cache(
+        init=lambda generator: module.init_params(generator, cfg),
+        train_loss=lambda p, b: module.train_loss(p, cfg, b),
+        prefill=lambda p, b, max_len: module.prefill(p, cfg, b, max_len),
+        decode_step=lambda p, c, tok, t: module.decode_step(p, cfg, c, tok, t),
+        init_cache=lambda b, max_len: module.init_cache(
             cfg, _batch_size(b), max_len, device=_batch_device(b)
         ),
         for_serving=lambda p: transformer.cast_for_serving(p, cfg),
@@ -68,11 +63,10 @@ def _batch_device(batch):
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    if cfg.family == "dense":
-        return _transformer_model(cfg)
-    if cfg.family in _NOT_YET:
-        raise NotImplementedError(
-            f"the {cfg.family} family of {cfg.name} is not ported yet: it waits for "
-            f"{_NOT_YET[cfg.family]} (ROADMAP.md queue 1, item 6)"
-        )
+    if cfg.family in ("dense", "moe", "vlm", "encoder"):
+        return _model(cfg, transformer)
+    if cfg.family == "hybrid":
+        return _model(cfg, hybrid)
+    if cfg.family == "ssm":
+        return _model(cfg, mamba)
     raise ValueError(f"unknown family {cfg.family!r}")

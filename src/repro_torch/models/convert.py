@@ -1,11 +1,13 @@
 """Carry the reference's weights into the port.
 
 :func:`params_from_jax` takes the reference's parameter pytree as numpy
-arrays -- ``jax.tree.map(np.asarray, params)`` on the caller's side, with the
-layers stacked on a leading axis when ``cfg.scan_layers`` -- and returns the
-port's :class:`~repro_torch.models.common.Params`, one entry of
-``params["layers"]`` per layer.  The port never imports jax: the caller does
-the conversion to numpy.
+arrays -- ``jax.tree.map(np.asarray, params)`` on the caller's side -- and
+returns the port's :class:`~repro_torch.models.common.Params` with one entry
+per layer in each per-layer list.  The reference stacks layers on a leading
+axis by family: the transformer's ``"layers"`` when ``cfg.scan_layers``,
+the hybrid's ``"groups"`` always (its ``"tail"`` is a list), Mamba-2's
+``"layers"`` always.  The port never imports jax: the caller does the
+conversion to numpy.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 from .._device import resolve_device
 from ..configs.base import ArchConfig
 from .common import Params
+from .hybrid import _pattern_layers
 
 __all__ = ["params_from_jax"]
 
@@ -40,14 +43,21 @@ def _layer(tree: Mapping[str, Any], i: int):
     return {k: _layer(v, i) if isinstance(v, Mapping) else v[i] for k, v in tree.items()}
 
 
+def _unstack(tree: Mapping[str, Any], n: int) -> list:
+    return [_layer(tree, i) for i in range(n)]
+
+
 def params_from_jax(np_params: Mapping[str, Any], cfg: ArchConfig, device=None) -> Params:
     """The port's parameters from the reference's pytree of numpy arrays."""
     dev = resolve_device(device)
     tree = dict(np_params)
-    layers = tree["layers"]
-    if cfg.scan_layers:
-        layers = [_layer(layers, i) for i in range(cfg.n_layers)]
-    elif len(layers) != cfg.n_layers:
-        raise ValueError(f"expected {cfg.n_layers} layers, got {len(layers)}")
-    tree["layers"] = list(layers)
+    if cfg.family == "hybrid":
+        tree["groups"] = _unstack(tree["groups"], _pattern_layers(cfg)[1])
+        tree["tail"] = list(tree["tail"])
+    elif cfg.family == "ssm" or cfg.scan_layers:
+        tree["layers"] = _unstack(tree["layers"], cfg.n_layers)
+    elif len(tree["layers"]) != cfg.n_layers:
+        raise ValueError(f"expected {cfg.n_layers} layers, got {len(tree['layers'])}")
+    else:
+        tree["layers"] = list(tree["layers"])
     return Params(_tree(tree, dev))

@@ -1,6 +1,6 @@
-"""Dense decoder transformer: init, forward, KV cache, prefill and decode.
+"""Decoder / encoder / MoE / VLM transformer: init, forward, KV cache, prefill, decode.
 
-Port of the dense path of ``repro.models.transformer``.  The reference runs
+Port of ``repro.models.transformer``.  The reference runs
 its layers under ``lax.scan`` over stacked weights; here ``params["layers"]``
 is an ``nn.ModuleList`` and a Python loop walks it.  Weights keep the
 reference's names and ``(d_in, d_out)`` layout and apply as ``x @ W``.
@@ -14,12 +14,19 @@ layer.  Prefill and decode write it IN PLACE (``index_copy_`` into the ring
 buffer at ``pos % W``), where the reference returns updated copies; the
 functions still return the cache, so callers read as the reference's do.
 
+A prefill (S > 1 tokens on a fresh cache) attends over the prompt's own k/v
+at their positions and writes the ring as before.  This repairs a fault of
+the reference's ``attention_apply``: it attends every prompt query over the
+ring alone, so with a window shorter than the prompt a query older than the
+ring's W positions sees no key and averages V uniformly (``ROADMAP.md`` §3).
+Where S <= W the two agree; decode is unchanged.
+
 Tensor-parallel head layout (``HeadLayout``): with ``pad_heads_to = 0``, as
 on one card, it degenerates to plain GQA (``repeat = 1``, no head mask).
 Not ported yet, each raising ``NotImplementedError`` that names its
 ``ROADMAP.md`` item: the sequence-sharded decode cache
-(``decode_kv_seq_sharded``, multi-chip), MoE blocks (``models/moe.py``) and
-``train_loss`` (the training path).
+(``decode_kv_seq_sharded``, multi-chip: item 3.7) and ``train_loss`` (the
+training path: item 3.6).
 """
 from __future__ import annotations
 
@@ -43,12 +50,12 @@ from .layers import (
     mlp,
     rms_norm,
 )
+from .moe import init_moe, moe_ffn
 
 Cache = List[Dict[str, torch.Tensor]]
 
-_MOE = "MoE blocks wait for the port of models/moe.py (ROADMAP.md queue 1, item 6)"
 _SEQ_SHARDED = ("the sequence-sharded decode cache is multi-chip: it waits for distributed/ "
-                "on torch.distributed (ROADMAP.md queue 1, item 6)")
+                "on torch.distributed (ROADMAP.md open items, 3.7)")
 
 
 # --------------------------------------------------------------------------
@@ -138,6 +145,9 @@ def attention_apply(
     cache: Optional[Dict[str, torch.Tensor]] = None,  # {"k","v": (B,W,K_pad,hd), "pos": (W,)}
     window: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """One attention layer.  With a cache, S > 1 tokens are a prefill on a
+    fresh cache: they attend over their own k/v only, so a warm cache must be
+    continued one token a call (decode), which attends over the ring."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     q = x @ p["wq"]
@@ -160,7 +170,8 @@ def attention_apply(
     k = repeat_kv(k, layout.repeat)
     v = repeat_kv(v, layout.repeat)
 
-    new_cache = None
+    # no cache, or a prefill on a fresh one: the prompt's own k/v
+    new_cache, k_att, v_att, kv_pos = None, k, v, positions
     if cache is not None:
         # ring-buffer write of the last W positions (decode: the one new
         # token at t % W), IN PLACE into the caller's cache tensors
@@ -172,11 +183,9 @@ def attention_apply(
         cache["v"].index_copy_(1, slots, v[:, s - keep :])
         cache["pos"].index_copy_(0, slots, pos_tail.int())
         new_cache = cache
-        k_att, v_att = cache["k"], cache["v"]
-        kv_pos = cache["pos"][None, :].expand(b, w)
-    else:
-        k_att, v_att = k, v
-        kv_pos = positions
+        if s == 1:  # decode: attend over the ring
+            k_att, v_att = cache["k"], cache["v"]
+            kv_pos = cache["pos"][None, :].expand(b, w)
 
     o = flash_attention(q, k_att, v_att, positions, kv_pos, causal=cfg.is_causal, window=window)
     if layout.h_pad != layout.n_heads:
@@ -186,7 +195,7 @@ def attention_apply(
 
 
 # --------------------------------------------------------------------------
-# transformer block (attention + FFN) for the dense family
+# transformer block (attention + FFN/MoE) for dense / moe / vlm / encoder
 # --------------------------------------------------------------------------
 
 
@@ -207,13 +216,13 @@ def init_norm(cfg: ArchConfig, d: int, dtype, name: str, device) -> dict:
 
 
 def init_block(generator: torch.Generator, cfg: ArchConfig, layout: HeadLayout, dtype) -> dict:
-    if cfg.is_moe:
-        raise NotImplementedError(_MOE)
     dev = generator.device
     p: Dict[str, Any] = {"attn": init_attention(generator, cfg, layout, dtype)}
     p.update(init_norm(cfg, cfg.d_model, dtype, "norm1", dev))
     p.update(init_norm(cfg, cfg.d_model, dtype, "norm2", dev))
-    if cfg.gated_mlp:
+    if cfg.is_moe:
+        p["moe"] = init_moe(generator, cfg.d_model, cfg.d_ff, cfg.n_experts, dtype)
+    elif cfg.gated_mlp:
         p["mlp"] = init_gated_mlp(generator, cfg.d_model, cfg.d_ff, dtype)
     else:
         p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff, dtype, bias=cfg.mlp_bias)
@@ -229,19 +238,19 @@ def block_apply(
     mrope_positions=None,
     cache=None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], torch.Tensor]:
-    if cfg.is_moe:
-        raise NotImplementedError(_MOE)
     h, new_cache = attention_apply(
         p["attn"], cfg, layout, _norm(p, cfg, x, "norm1"), positions, mrope_positions,
         cache, cfg.window,
     )
     x = x + h
     y_in = _norm(p, cfg, x, "norm2")
-    if cfg.gated_mlp:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.is_moe:
+        y, aux = moe_ffn(p["moe"], y_in, cfg.n_experts_per_tok, cfg.capacity_factor, cfg.act)
+    elif cfg.gated_mlp:
         y = gated_mlp(p["mlp"], y_in, cfg.act)
     else:
         y = mlp(p["mlp"], y_in, cfg.act)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + y, new_cache, aux
 
 
@@ -278,11 +287,14 @@ def cast_for_serving(params: Params, cfg: ArchConfig) -> Params:
     call (``cast_for_compute``), and casts the gathered embedding rows and the
     unembedding matrix to the compute dtype on every call; casting once gives
     the same values.  The final norm's weight keeps its storage dtype, as in
-    the reference.
+    the reference.  The hybrid and Mamba-2 models share it: their per-layer
+    lists are ``"groups"`` and ``"tail"``, and ``"layers"``.
     """
     dt = cfg.dtype("compute")
     tree: Dict[str, Any] = {name: params[name] for name in params.keys()}
-    tree["layers"] = [cast_for_compute(lp, dt) for lp in params["layers"]]
+    for name in ("layers", "groups", "tail"):
+        if name in params:
+            tree[name] = [cast_for_compute(lp, dt) for lp in params[name]]
     for name in ("embed", "lm_head"):
         if name in params:
             tree[name] = params[name].detach().to(dt)
@@ -341,18 +353,20 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None) -> Cache:
     if cfg.decode_kv_seq_sharded and not cfg.window:
         raise NotImplementedError(_SEQ_SHARDED)
     dev = resolve_device(device)
+    return [kv_cache(cfg, batch, max_len, dev) for _ in range(cfg.n_layers)]
+
+
+def kv_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> Dict[str, torch.Tensor]:
+    """One attention layer's zeroed ring buffer (the hybrid's attention layers too)."""
     layout = _layout(cfg)
     w = min(max_len, cfg.window) if cfg.window else max_len
     dtype = cfg.dtype("compute")
     shape = (batch, w, layout.k_pad, cfg.head_dim)
-    return [
-        {
-            "k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev),
-            "pos": torch.full((w,), -1, dtype=torch.int32, device=dev),
-        }
-        for _ in range(cfg.n_layers)
-    ]
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((w,), -1, dtype=torch.int32, device=device),
+    }
 
 
 # --------------------------------------------------------------------------
@@ -362,7 +376,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None) -> Cache:
 
 def train_loss(params, cfg: ArchConfig, batch):
     raise NotImplementedError(
-        "train_loss waits for the training path (ROADMAP.md queue 1, item 6: "
+        "train_loss waits for the training path (ROADMAP.md open items, 3.6: "
         "cross_entropy_loss, optim/, data/pipeline.py, runtime/train.py)"
     )
 

@@ -78,20 +78,42 @@ def test_forward_prefill_decode_match_reference(arch):
 
 def test_windowed_ring_buffer_matches_reference():
     # a window shorter than the prompt: prefill keeps the last W positions and
-    # decode wraps the ring (the recurrentgemma field on a dense model)
+    # decode wraps the ring (the recurrentgemma field on a dense model).  The
+    # reference's prefill attends every prompt query over the ring alone, which
+    # is wrong for prompt 7 > window 5 (ROADMAP.md section 3); the port attends
+    # over the prompt's own k/v and equals the reference's cache-free forward.
+    # The reference's decode reads k/v its faulty prefill wrote into the ring
+    # of layer 2 (positions 2..5) until decode has overwritten them: from step
+    # W - 2 = 3 on, its decode is right and the port equals it again.
     jcfg, jparams, cfg, params, tokens = _pair("qwen2-1.5b", window=5)
+    w = cfg.window
+    full, _, _ = jax_transformer.forward(jparams, jcfg, tokens=jnp.asarray(tokens))
+    full = np.asarray(full)
     jmodel, model = jax_build_model(jcfg), build_model(cfg)
     max_len = S_PRE + S_DEC
     jl, jcache, jt = jmodel.prefill(jparams, {"tokens": jnp.asarray(tokens[:, :S_PRE])}, max_len)
     tl, cache, t = model.prefill(params, {"tokens": _t(tokens[:, :S_PRE])}, max_len)
-    assert cache[0]["k"].shape[1] == 5
-    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    assert cache[0]["k"].shape[1] == w < S_PRE
+    np.testing.assert_allclose(tl.numpy(), full[:, S_PRE - 1], **TOL)
+    assert np.abs(np.asarray(jl) - full[:, S_PRE - 1]).max() > 1e-2, \
+        "the reference's windowed prefill fault is gone: revisit ROADMAP.md section 3"
     for i in range(S_DEC):
         tok = tokens[:, S_PRE + i: S_PRE + i + 1]
         jl, jcache, jt = jmodel.decode_step(jparams, jcache, jnp.asarray(tok), jt)
         tl, cache, t = model.decode_step(params, cache, _t(tok), t)
-        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), err_msg=f"step {i}", **TOL)
+        np.testing.assert_allclose(tl.numpy(), full[:, S_PRE + i], err_msg=f"step {i}", **TOL)
+        if i >= w - 2:
+            np.testing.assert_allclose(tl.numpy(), np.asarray(jl), err_msg=f"step {i}", **TOL)
     np.testing.assert_array_equal(cache[1]["pos"].numpy(), np.asarray(jcache["pos"][1]))
+
+
+def test_windowed_prefill_within_window_equals_reference_prefill():
+    # prompt 7 <= window 8: the ring holds the whole prompt and both agree
+    jcfg, jparams, cfg, params, tokens = _pair("qwen2-1.5b", window=8)
+    jl, _, _ = jax_build_model(jcfg).prefill(
+        jparams, {"tokens": jnp.asarray(tokens[:, :S_PRE])}, S_PRE + S_DEC)
+    tl, _, _ = build_model(cfg).prefill(params, {"tokens": _t(tokens[:, :S_PRE])}, S_PRE + S_DEC)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -161,22 +183,158 @@ def test_config_registry_matches_reference(arch):
     assert got.dtype("compute") == torch.bfloat16 and got.dtype("param") == torch.float32
 
 
+def _family_forward(arch, params, jparams, cfg, jcfg, inputs):
+    """Both packages' cache-free forward of one family on ``inputs`` (numpy)."""
+    from repro.models import hybrid as jax_hybrid
+    from repro.models import mamba as jax_mamba
+    from repro_torch.models import hybrid, mamba
+
+    if cfg.family == "hybrid":
+        return hybrid.forward(params, cfg, _t(inputs))[0], jax_hybrid.forward(
+            jparams, jcfg, jnp.asarray(inputs))[0]
+    if cfg.family == "ssm":
+        return mamba.forward(params, cfg, _t(inputs))[0], jax_mamba.forward(
+            jparams, jcfg, jnp.asarray(inputs))[0]
+    key = "embeds" if cfg.family == "encoder" else "tokens"
+    got = transformer.forward(params, cfg, **{key: _t(inputs)})[0]
+    return got, jax_transformer.forward(jparams, jcfg, **{key: jnp.asarray(inputs)})[0]
+
+
+# the five families refused before the MoE, VLM, encoder, hybrid and SSM port
 @pytest.mark.parametrize("arch", ["dbrx-132b", "mamba2-2.7b", "recurrentgemma-2b",
                                   "qwen2-vl-7b", "hubert-xlarge"])
-def test_unported_families_raise(arch):
+def test_every_family_builds_and_matches_reference(arch):
+    jcfg, jparams, cfg, params, tokens = _pair(arch)
+    model = build_model(cfg)
+    assert model.cfg is cfg
+    own = model.init(torch.Generator().manual_seed(0))
+    assert common.count_params(own) == common.count_params(params) \
+        == jax_common.count_params(jparams)
+    if cfg.family == "encoder":
+        inputs = np.random.default_rng(2).standard_normal(
+            (B, S_PRE, cfg.d_model)).astype(np.float32)
+    else:
+        inputs = tokens
+    got, want = _family_forward(arch, params, jparams, cfg, jcfg, inputs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("arch", JAX_ARCH_IDS)
+def test_build_model_takes_every_configuration(arch):
+    for smoke in (True, False):  # the full configs build their Model (no weights made)
+        model = build_model(configs.get_config(arch, smoke=smoke))
+        assert model.cfg.name.startswith(arch)
+    cfg = configs.get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(configs.get_config(arch, smoke=True))
+        build_model(cfg).train_loss(None, {})
 
 
 def test_unported_paths_raise():
     cfg = configs.get_config("qwen2-1.5b", smoke=True, decode_kv_seq_sharded=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md open items, 3.7"):
         transformer.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md open items, 3.6"):
         transformer.train_loss(None, cfg, {})
+    # MoE blocks are ported: a smoke MoE model initialises
     moe = configs.get_config("dbrx-132b", smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_params(torch.Generator().manual_seed(0), moe)
+    params = transformer.init_params(torch.Generator().manual_seed(0), moe)
+    assert params["layers"][0]["moe"]["router"].dtype == torch.float32
+
+
+def _mrope_grid(b, s, n_text, grid_w):
+    """M-RoPE ids of ``n_text`` text tokens then an image of ``grid_w``-wide rows:
+    text ids equal on t/h/w; the image's t fixed, h its row, w its column."""
+    pos = np.zeros((b, s, 3), dtype=np.int32)
+    pos[:, :n_text] = np.arange(n_text)[None, :, None]
+    img = np.arange(s - n_text)
+    pos[:, n_text:, 0] = n_text
+    pos[:, n_text:, 1] = n_text + img // grid_w
+    pos[:, n_text:, 2] = n_text + img % grid_w
+    return pos
+
+
+def test_vlm_mrope_image_grid_matches_reference():
+    # an image grid after text, so the t, h and w sections rotate by different ids
+    jcfg, jparams, cfg, params, tokens = _pair("qwen2-vl-7b")
+    s = S_PRE + S_DEC
+    pos = _mrope_grid(B, s, 3, 4)
+    assert (pos[:, 3:, 0] != pos[:, 3:, 1]).any() and (pos[:, 3:, 1] != pos[:, 3:, 2]).any()
+    embeds = np.random.default_rng(4).standard_normal((B, s, cfg.d_model)).astype(np.float32)
+    want, _, _ = jax_transformer.forward(jparams, jcfg, embeds=jnp.asarray(embeds),
+                                         mrope_positions=jnp.asarray(pos))
+    got, _, _ = transformer.forward(params, cfg, embeds=_t(embeds), mrope_positions=_t(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # prefill over the grid, then text decode (t = h = w = position), both packages
+    jmodel, model = jax_build_model(jcfg), build_model(cfg)
+    batch = {"embeds": embeds[:, :S_PRE], "mrope_positions": pos[:, :S_PRE]}
+    jl, jcache, jt = jmodel.prefill(jparams, {k: jnp.asarray(v) for k, v in batch.items()}, s)
+    tl, cache, t = model.prefill(params, {k: _t(v) for k, v in batch.items()}, s)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    for i in range(S_DEC):
+        tok = tokens[:, S_PRE + i: S_PRE + i + 1]
+        jl, jcache, jt = jmodel.decode_step(jparams, jcache, jnp.asarray(tok), jt)
+        tl, cache, t = model.decode_step(params, cache, _t(tok), t)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), err_msg=f"step {i}", **TOL)
+
+
+def test_encoder_forward_over_embeds_matches_reference():
+    jcfg, jparams, cfg, params, _ = _pair("hubert-xlarge")
+    assert not cfg.is_causal and cfg.norm_type == "layer"
+    embeds = np.random.default_rng(5).standard_normal((B, 13, cfg.d_model)).astype(np.float32)
+    want, _, want_aux = jax_transformer.forward(jparams, jcfg, embeds=jnp.asarray(embeds))
+    got, _, aux = transformer.forward(params, cfg, embeds=_t(embeds))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert float(aux) == float(want_aux) == 0.0
+    # non-causal: the first frame's output depends on the last frame
+    moved = embeds.copy()
+    moved[:, -1] = np.random.default_rng(6).standard_normal((B, cfg.d_model))
+    got2, _, _ = transformer.forward(params, cfg, embeds=_t(moved))
+    assert np.abs(got2[:, 0].numpy() - got[:, 0].numpy()).max() > 1e-4
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "hubert-xlarge"])
+def test_vlm_and_encoder_decode_match_teacher_forcing(arch):
+    cfg = configs.get_config(arch, smoke=True, param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    if cfg.family == "encoder":  # no decode: prefill is the forward's last frame
+        embeds = torch.randn((B, S_PRE, cfg.d_model), generator=torch.Generator().manual_seed(1))
+        full, _, _ = transformer.forward(params, cfg, embeds=embeds)
+        logits, _, t = model.prefill(params, {"embeds": embeds}, S_PRE)
+        np.testing.assert_allclose(logits, full[:, -1], atol=2e-3, rtol=2e-3)
+        return
+    tokens = torch.randint(0, cfg.vocab_size, (B, S_PRE + S_DEC),
+                           generator=torch.Generator().manual_seed(1), dtype=torch.int32)
+    text = torch.arange(S_PRE + S_DEC, dtype=torch.int32)[None, :, None].expand(B, -1, 3)
+    full, _, _ = transformer.forward(params, cfg, tokens=tokens, mrope_positions=text)
+    embeds = params["embed"][tokens[:, :S_PRE].long()]
+    logits, cache, t = model.prefill(
+        params, {"embeds": embeds, "mrope_positions": text[:, :S_PRE].contiguous()},
+        S_PRE + S_DEC)
+    np.testing.assert_allclose(logits, full[:, S_PRE - 1], atol=2e-3, rtol=2e-3)
+    for i in range(S_DEC):
+        logits, cache, t = model.decode_step(params, cache, tokens[:, S_PRE + i: S_PRE + i + 1], t)
+        np.testing.assert_allclose(logits, full[:, S_PRE + i], atol=2e-3, rtol=2e-3,
+                                   err_msg=f"{arch} step {i}")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "qwen2-vl-7b", "recurrentgemma-2b",
+                                  "mamba2-2.7b"])
+def test_serve_takes_every_decoder_family(arch, capsys):
+    # depth cut as chip_smoke.py cuts it: dataclasses.replace on the config
+    cfg = configs.get_config(arch, smoke=True, param_dtype="bfloat16")
+    cfg = dataclasses.replace(cfg, n_layers=2 if arch != "recurrentgemma-2b" else 4)
+    rms0, att0 = rmsnorm.launches, flash_attention.launches
+    records = serve.serve(cfg, requests=2, prompt_len=5, gen=2, workers=4, device="cpu")
+    assert len(records) == 2 and all(total >= pre > 0 for total, pre, _ in records)
+    out = capsys.readouterr().out
+    assert out.count("request ") == 2 and "[plan]" in out
+    assert (rmsnorm.launches, flash_attention.launches) == (rms0, att0)
+
+
+def test_serve_refuses_the_encoder():
+    with pytest.raises(SystemExit, match="encoder-only"):
+        serve.main(["--arch", "hubert-xlarge", "--smoke", "--device", "cpu"])
 
 
 def test_serve_main_runs_and_plans(capsys):

@@ -345,6 +345,10 @@ def test_port_never_imports_jax_or_the_reference():
     runtime = {f.name for f in files if f.parent == runtime_dir}
     assert runtime == {"__init__.py", "__main__.py", "chaos.py", "master.py", "protocol.py",
                        "trace.py", "worker.py"}
+    # the model zoo, every family's module
+    models_dir = ROOT / "src" / "repro_torch" / "models"
+    assert {"moe.py", "rglru.py", "hybrid.py", "ssm.py", "mamba.py"} <= {
+        f.name for f in files if f.parent == models_dir}
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -354,6 +358,8 @@ def test_port_never_imports_jax_or_the_reference():
         "import repro_torch, repro_torch.core, repro_torch.cluster, repro_torch.kernels.cover\n"
         "import repro_torch.cluster.events, repro_torch.cluster.master\n"
         "import repro_torch.cluster.runtime, repro_torch.cluster.runtime.worker\n"
+        "import repro_torch.models.moe, repro_torch.models.rglru, repro_torch.models.hybrid\n"
+        "import repro_torch.models.ssm, repro_torch.models.mamba, repro_torch.launch.serve\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')"
         " and sys.modules[m] is not None))"
     )
