@@ -180,7 +180,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports
    hubert's forward against the same forward through the plain attention;
    then the MoE smoke models on the card against the CPU (equal top-k
    expert ids, logits within 1e-4);
-15. prints the kernels line, then, last, the one-line JSON result.
+15. runs the training path: the two kernels' autograd Functions at the
+   training shapes (RMSNorm (8, 128, 1536) bf16 and float32, bf16 and
+   float32 weights, plain and ``plus_one``; attention q (8, 128, 12, 128)
+   over 2 KV heads, causal on wgmma in bf16 and on the CUDA cores in
+   float32, and a window of 32), each forward held to the plain version
+   (``TOL``, ``ROW_RTOL``) and its gradients to autograd through the plain
+   version on the card (float32 2e-5, bf16 2**-6 of each tensor's
+   largest), with the forward kernel's and the plain-torch backward's
+   device times beside their bounds; qwen2-1.5b at full width and depth
+   trained through ``launch.train.train`` with the launcher's defaults
+   (global batch 8, seq 128, 20 steps, no checkpoint), the counters set to
+   0 just before and read just after (113 RMSNorm and 56 attention
+   launches a step: forward and remat recompute, every attention on
+   wgmma), its step ms, tokens/s, share of 989 TFLOP/s, loss, grad norms
+   and peak memory, and one step profiled whole and by part (forward,
+   backward, AdamW: the card's busy ms, idle share and device time by
+   kernel class); one train step at full width cut to 2 layers, float32,
+   batch 2 x 128, on the card against the CPU from the same weights
+   (``tests/test_torch_train_cuda.py::train_step_mismatches``); and restart
+   determinism at 2 layers in bf16 (a checkpoint at step 3 of 6 restored
+   from disk into fresh state continues with bitwise equal losses);
+16. prints the kernels line, then, last, the one-line JSON result.
 
 Any failed phase exits non-zero and prints no result; so does a run without
 a CUDA device or without the repo's sources beside the script.
@@ -282,6 +303,14 @@ ZOO_NORM_WIDTHS = (ZOO_D_INNER, 4096, 3584, 2560)
 # the float32 check's depth: 2 layers; recurrentgemma one (R, R, A) group and its (R, R) tail
 ZOO_F32_DEPTH = {"qwen3-moe-235b-a22b": 2, "qwen2-vl-7b": 2, "recurrentgemma-2b": 5,
                  "mamba2-2.7b": 2, "hubert-xlarge": 2}
+# the training cell: qwen2-1.5b at full width and depth through launch.train,
+# the launcher's defaults (global batch 8, seq 128); steps, the first steps
+# left out of the step-time statistics; the card-vs-CPU step and the restart
+# check at 2 layers (batch 2 and 8); a windowed attention case at the
+# training shapes
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARM = "qwen2-1.5b", 8, 128, 20, 2
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_WINDOW = 2, 2, 32
+RESTART_STEPS, RESTART_AT = 6, 3
 # tests/test_kernels.py's TOL (atol = rtol) by dtype name
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # attention and RMSNorm are also held element by element to a bound scaled by
@@ -2833,6 +2862,409 @@ def phase_zoo_moe_card_vs_cpu() -> None:
               f"{float(aux):.6f} card, {float(want_aux):.6f} CPU", flush=True)
 
 
+# --------------------------------------------------------------------------
+# the training path: qwen2-1.5b at full width and depth
+# --------------------------------------------------------------------------
+
+
+def _kernel_class(name: str) -> str:
+    """A device kernel's class in the training profile, by its name."""
+    if "rmsnorm_kernel" in name:
+        return "RMSNorm kernel"
+    if any(k in name for k in ("wgmma_kernel", "simt_kernel", "splitkv_kernel")):
+        return "attention kernel"
+    if any(k in name.lower() for k in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "matmuls (cuBLAS)"
+    if "memcpy" in name.lower() or "memset" in name.lower():
+        return "copies and fills"
+    return "other (elementwise, reductions)"
+
+
+def _by_class(by_name: dict) -> dict:
+    out: dict = {}
+    for name, us in by_name.items():
+        cls = _kernel_class(name)
+        out[cls] = out.get(cls, 0.0) + us / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def phase_train_kernels() -> dict:
+    """The kernels' autograd Functions at the training path's shapes: forward
+    against the plain version (TOL, ROW_RTOL), gradients against autograd
+    through the plain version on the card, the kernel each call ran, and the
+    forward kernel's and the plain-torch backward's device times."""
+    import torch
+    import torch.nn.functional as F
+    from test_torch_train_cuda import GRAD_RTOL, relative_error
+
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import rmsnorm
+
+    b, s, d = TRAIN_BATCH, TRAIN_SEQ, 1536
+    h, kh, hd = 12, 2, 128
+    phase(f"training shapes: RMSNorm ({b}, {s}, {d}) and attention q ({b}, {s}, {h}, {hd}) "
+          f"k/v ({b}, {s}, {kh}, {hd}) through their autograd Functions; gradients against "
+          f"autograd through the plain versions on the card (f32 {GRAD_RTOL[torch.float32]}, "
+          f"bf16 {GRAD_RTOL[torch.bfloat16]:.3e} of each tensor's max)")
+    rec: dict = {"rmsnorm": {}, "flash_attention": {}}
+    max_err = {"rmsnorm": 0.0, "flash_attention": 0.0}
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        # layer norms in the compute dtype, the final norm's weight in float32
+        for w_dtype in dict.fromkeys((dtype, torch.float32)):
+            for plus_one in (False, True):
+                x = _randn(torch, (b, s, d), dtype, SEED).requires_grad_(True)
+                w = _randn(torch, (d,), w_dtype, SEED + 1, 0.1).requires_grad_(True)
+                g = _randn(torch, (b, s, d), dtype, SEED + 2)
+                what = f"rmsnorm {name} w {w_dtype} plus_one={plus_one}"
+                before = rmsnorm.launches
+                out = rmsnorm.RMSNormFunction.apply(x, w, 1e-6, plus_one)
+                check(rmsnorm.launches == before + 1, f"{what}: the forward launched no kernel")
+                want = rmsnorm.rms_norm_ref(x, w, 1e-6, plus_one)
+                ok, err = close_to(out.detach(), want.detach(), name)
+                max_err["rmsnorm"] = max(max_err["rmsnorm"], err)
+                check(ok, f"{what}: forward max |err| {err} beyond TOL")
+                check(close_by_row(out.detach(), want.detach(), name)[0],
+                      f"{what}: forward beyond ROW_RTOL")
+                got_g = torch.autograd.grad(out, (x, w), g)
+                want_g = torch.autograd.grad(want, (x, w), g)
+                for gname, a, r in zip(("dx", "dw"), got_g, want_g):
+                    rel = relative_error(a, r)
+                    worst[("rmsnorm", name, gname)] = max(worst.get(("rmsnorm", name, gname), 0),
+                                                          rel)
+                    check(a.dtype == r.dtype and rel <= GRAD_RTOL[dtype],
+                          f"{what}: {gname} {rel:.3e} of its max from autograd's")
+        x = _randn(torch, (b, s, d), dtype, SEED)
+        w = _randn(torch, (d,), dtype, SEED + 1, 0.1)
+        g = _randn(torch, (b, s, d), dtype, SEED + 2)
+        xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        fwd = device_ms_per_call(lambda: rmsnorm.rms_norm_fused(x, w), iters=50)
+        # x (3 MB in bf16) stays in the 50 MB L2 between back-to-back calls
+        cold = kernel_ms_cold(lambda: rmsnorm.rms_norm_fused(x, w), "rmsnorm_kernel")
+        plain = device_ms_per_call(lambda: rmsnorm.rms_norm_ref(x, w), iters=50)
+        lib = device_ms_per_call(lambda: F.rms_norm(x, (d,), w, eps=1e-6), iters=50) \
+            if hasattr(F, "rms_norm") else None
+        bwd = device_ms_per_call(lambda: rmsnorm.rms_norm_bwd(g, x, w), iters=50)
+        plain_bwd = device_ms_per_call(lambda: torch.autograd.grad(
+            rmsnorm.rms_norm_ref(xg, wg), (xg, wg), g), iters=50)
+        size, n = x.element_size(), x.numel()
+        f_bnd, f_by = bound_ms(2 * n * size + d * w.element_size(), 4 * n, CARD_F32_FLOP_PER_S)
+        # backward: read g, x, w once, write dx, dw once; ~10 flops an element
+        b_bnd, b_by = bound_ms(3 * n * size + 2 * d * w.element_size(), 10 * n,
+                               CARD_F32_FLOP_PER_S)
+        lib_s = f"{lib:.5f} ms" if lib is not None else "not available"
+        print(f"rmsnorm {name} ({b}, {s}, {d}): forward kernel {fwd:.5f} ms ({cold:.5f} ms with "
+              f"L2 flushed before each call; plain {plain:.5f}, "
+              f"F.rms_norm {lib_s}; bound {f_bnd:.5f} ms, {f_by}); backward rms_norm_bwd "
+              f"{bwd:.5f} ms (plain version's forward + autograd {plain_bwd:.5f}; bound "
+              f"{b_bnd:.5f} ms, {b_by})  [{CARD}]", flush=True)
+        if dtype == torch.bfloat16:
+            rec["rmsnorm"] = {"shape": [b, s, d], "ms": fwd, "cold_ms": cold, "plain_ms": plain,
+                              "bound_ms": f_bnd, "bound_by": f_by, "library_ms": lib,
+                              "backward": {"ms": bwd, "plain_ms": plain_bwd, "bound_ms": b_bnd,
+                                           "bound_by": b_by}}
+
+    pos = torch.arange(s, dtype=torch.int32, device="cuda").expand(b, s).contiguous()
+    cases = [("causal", torch.bfloat16, True, None, "wgmma"),
+             ("causal", torch.float32, True, None, "simt"),
+             (f"window {TRAIN_WINDOW}", torch.bfloat16, True, TRAIN_WINDOW, "wgmma")]
+    for label, dtype, causal, window, want_path in cases:
+        name = str(dtype).removeprefix("torch.")
+        q = _randn(torch, (b, s, h, hd), dtype, SEED + 3).requires_grad_(True)
+        k = _randn(torch, (b, s, kh, hd), dtype, SEED + 4).requires_grad_(True)
+        v = _randn(torch, (b, s, kh, hd), dtype, SEED + 5).requires_grad_(True)
+        g = _randn(torch, (b, s, h, hd), dtype, SEED + 6)
+        what = f"attention {name} {label}"
+        before = (flash.splitkv_launches, flash.wgmma_launches, flash.simt_launches)
+        n_before = flash.launches
+        out = flash.AttentionFunction.apply(q, k, v, pos, pos, causal, window, None)
+        path = _attention_path(flash, before)
+        check(flash.launches == n_before + 1 and path == want_path,
+              f"{what}: ran {path} ({flash.launches - n_before} launches), not {want_path}")
+        want = flash.attention_ref(q, k, v, pos, pos, causal, window)
+        ok, err = close_to(out.detach(), want.detach(), name)
+        max_err["flash_attention"] = max(max_err["flash_attention"], err)
+        check(ok, f"{what}: forward max |err| {err} beyond TOL")
+        check(close_by_row(out.detach(), want.detach(), name)[0],
+              f"{what}: forward beyond ROW_RTOL")
+        got_g = torch.autograd.grad(out, (q, k, v), g)
+        want_g = torch.autograd.grad(want, (q, k, v), g)
+        rels = []
+        for gname, a, r in zip(("dq", "dk", "dv"), got_g, want_g):
+            rel = relative_error(a, r)
+            rels.append(f"{gname} {rel:.3e}")
+            check(a.dtype == r.dtype and rel <= GRAD_RTOL[dtype],
+                  f"{what}: {gname} {rel:.3e} of its max from autograd's")
+        qd, kd, vd, od = q.detach(), k.detach(), v.detach(), out.detach()
+        fwd = device_ms_per_call(
+            lambda: flash.attention(qd, kd, vd, pos, pos, causal, window), iters=20)
+        cold = kernel_ms_cold(lambda: flash.attention(qd, kd, vd, pos, pos, causal, window), path)
+        plain = device_ms_per_call(
+            lambda: flash.attention_ref(qd, kd, vd, pos, pos, causal, window), iters=20)
+        bwd = device_ms_per_call(lambda: flash.attention_bwd(g, qd, kd, vd, od, pos, pos, causal,
+                                                             window), iters=20)
+        plain_bwd = device_ms_per_call(lambda: torch.autograd.grad(
+            flash.attention_ref(q, k, v, pos, pos, causal, window), (q, k, v), g), iters=20)
+        f_bnd, f_by = _attention_bound(torch, qd, kd, pos, pos, causal, window)
+        # backward: q, o, dO read and dq written (4 the size of q), k, v read and
+        # dk, dv written (4 the size of k); per visible pair and query head, S
+        # recomputed and dV, dP, dQ, dK: 10 * hd flops
+        n_bytes = 4 * qd.numel() * qd.element_size() + 4 * kd.numel() * kd.element_size() \
+            + 8 * pos.numel()
+        pairs = _visible_pairs(torch, pos, pos, causal, window)
+        rate = CARD_BF16_FLOP_PER_S if dtype == torch.bfloat16 else CARD_F32_FLOP_PER_S
+        b_bnd, b_by = bound_ms(n_bytes, 10.0 * hd * h * pairs, rate)
+        lib = _sdpa_ms(torch, qd, kd, vd, causal, iters=20) if window is None else None
+        lib_s = f", SDPA {lib:.5f} ms" if lib is not None else ""
+        print(f"{what} on {path}: gradients within bound ({', '.join(rels)}); forward kernel "
+              f"{fwd:.5f} ms ({cold:.5f} ms with L2 flushed; plain {plain:.5f}{lib_s}; bound "
+              f"{f_bnd:.5f} ms, {f_by}); "
+              f"backward attention_bwd {bwd:.5f} ms (plain version's forward + autograd "
+              f"{plain_bwd:.5f}; bound {b_bnd:.5f} ms, {b_by})  [{CARD}]", flush=True)
+        if label == "causal" and dtype == torch.bfloat16:
+            rec["flash_attention"] = {
+                "shape": [b, s, h, hd], "kv_heads": kh, "ms": fwd, "cold_ms": cold,
+                "plain_ms": plain,
+                "bound_ms": f_bnd, "bound_by": f_by, "library_ms": lib,
+                "backward": {"ms": bwd, "plain_ms": plain_bwd, "bound_ms": b_bnd,
+                             "bound_by": b_by}}
+        del q, k, v, g, out, want, got_g, want_g
+    for key, rel in sorted(worst.items()):
+        print(f"{' '.join(key)}: largest gradient error {rel:.3e} of its max")
+    for key in rec:
+        rec[key]["max_abs_err"] = max_err[key]
+    _free()
+    return rec
+
+
+def phase_train_full() -> dict:
+    """qwen2-1.5b at full width and depth trained through ``launch.train.train``
+    (the launcher's defaults: global batch 8, seq 128, SyntheticLM, AdamW with
+    ``cosine_with_warmup(3e-3, ...)``), the counters set to 0 just before and
+    read just after; then one step profiled by part."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import PipelineConfig, SyntheticLM
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, apply_updates, cosine_with_warmup
+    from repro_torch.runtime.train import init_state, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    layers = cfg.n_layers
+    phase(f"training path: launch.train.train, {TRAIN_ARCH} at full width and depth ({layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; f32 master weights, "
+          f"{cfg.compute_dtype} compute, remat), {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens")
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    tee = _Tee(sys.stdout)
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        report = train_launch.train(cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                                    seq_len=TRAIN_SEQ, ckpt_dir=str(ROOT / "build" / "train"),
+                                    ckpt_every=0, log_every=5, seed=SEED)
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out = tee.copy.getvalue()
+    for line in ("[plan]", "[model]", "[done]", "[report]"):
+        check(line in out, f"no {line} line from launch.train")
+    # per step: 2 per layer + the final norm in the forward, 2 per layer again
+    # in the backward's recompute of each checkpointed block; attention 1 + 1
+    per_step = {"rmsnorm": 2 * layers + 1 + 2 * layers, "flash_attention": 2 * layers}
+    want = {k: TRAIN_STEPS * n for k, n in per_step.items()}
+    got = {k: counts[k] for k in want}
+    print(f"launch.train.train in {wall:.3f} s (weights made included); launches {got}, "
+          f"expected {want} ({per_step} a step: {layers} layers x (forward + remat "
+          f"recompute), the final norm once); attention by kernel wgmma {counts['wgmma']}, "
+          f"CUDA-core {counts['simt']}, split-KV {counts['splitkv']}")
+    check(got == want, f"training launches {got}, expected {want}")
+    check(counts["wgmma"] == want["flash_attention"] and counts["simt"] == 0
+          and counts["splitkv"] == 0, "training attention did not run on wgmma alone")
+    check(counts["masked_cover"] == 0, "the training path launched a cover kernel")
+    losses, norms = report["losses"], report["grad_norms"]
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses + norms),
+          f"losses or grad norms not finite: {losses} {norms}")
+    steps_ms = report["step_ms"][TRAIN_WARM:]
+    med = statistics.median(steps_ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = report["params"]
+    flops = 6.0 * n_params * tokens
+    print(f"step ms after {TRAIN_WARM} warm-up steps: median {med:.3f}, min {min(steps_ms):.3f}, "
+          f"max {max(steps_ms):.3f} (first steps {report['step_ms'][:TRAIN_WARM]}); "
+          f"{tokens / (med / 1e3):.1f} tokens/s; 6 N T = 6 x {n_params} x {tokens} = "
+          f"{flops / 1e12:.3f} TFLOP a step (model FLOPs, the remat recompute not counted) "
+          f"at {flops / (med / 1e3) / 1e12:.3f} TFLOP/s, "
+          f"{flops / (med / 1e3) / CARD_BF16_FLOP_PER_S:.2%} of 989 TFLOP/s bf16  [{CARD}]")
+    print(f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (ceiling {report['loss_ceiling']:.3f}; "
+          f"uniform {math.log(cfg.vocab_size):.3f}); grad norm {norms[0]:.3f} -> {norms[-1]:.3f} "
+          f"(max {max(norms):.3f}); peak device memory {peak:.3f} GB", flush=True)
+
+    # one step profiled: whole, then forward / backward / optimizer apart
+    model = build_model(cfg)
+    opt = AdamW(cosine_with_warmup(3e-3, max(TRAIN_STEPS // 20, 1), TRAIN_STEPS))
+    step_fn = make_train_step(model, opt)
+    state = init_state(model, opt, torch.Generator(device="cuda").manual_seed(SEED))
+    pipe = SyntheticLM(PipelineConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED))
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in pipe.global_batch(0).items()}
+    state, _ = step_fn(state, batch)  # warm
+    counts_step: dict = {}
+    wall_ms, by_name = profile_device(lambda: step_fn(state, batch), counts=counts_step)
+    busy = sum(by_name.values()) / 1e3
+    idle = f"{1.0 - busy / wall_ms:.1%}" if busy > 0 else "not measured"
+    print(f"one profiled step: {wall_ms:.3f} ms, card busy {busy:.3f} ms, idle share {idle}; "
+          f"{sum(counts_step.values())} device kernels and copies")
+    leaves = state.params.leaves()
+    holder: dict = {}
+
+    def forward():
+        holder["loss"] = model.train_loss(state.params, batch)[0]
+
+    def backward():
+        holder["grads"] = torch.autograd.grad(holder.pop("loss"), list(leaves.values()))
+
+    def optimizer():
+        grads = dict(zip(leaves, holder.pop("grads")))
+        upd, _, _ = opt.update(grads, state.opt_state, state.params)
+        apply_updates(state.params, upd)
+
+    for part, fn in (("forward", forward), ("backward (remat recompute included)", backward),
+                     ("AdamW", optimizer)):
+        p_counts: dict = {}
+        p_wall, p_by = profile_device(fn, counts=p_counts)
+        p_busy = sum(p_by.values()) / 1e3
+        by_cls = ", ".join(f"{c} {ms:.3f} ms" for c, ms in _by_class(p_by).items())
+        print(f"  {part}: {p_wall:.3f} ms on the host clock, card busy {p_busy:.3f} ms "
+              f"({sum(p_counts.values())} kernels): {by_cls}")
+        for name, us in sorted(p_by.items(), key=lambda kv: -kv[1])[:5]:
+            print(f"      {us / 1e3:9.4f} ms  {p_counts[name]:4d} x  {name[:90]}")
+    del state, holder
+    _free()
+    return {"rmsnorm": got["rmsnorm"], "flash_attention": got["flash_attention"],
+            "wgmma": counts["wgmma"], "step_ms_median": med, "idle": idle}
+
+
+def phase_train_card_vs_cpu() -> None:
+    """One train step of qwen2-1.5b at full width cut to 2 layers, float32
+    compute, batch 2 x 128, on the card against the same step on the CPU from
+    the same weights (``tests/test_torch_train_cuda.py::train_step_mismatches``)."""
+    import copy
+
+    import torch
+    from test_torch_train_cuda import relative_error, step_record, train_step_mismatches
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import PipelineConfig, SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, cosine_with_warmup
+    from repro_torch.runtime.train import TrainState
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH, param_dtype="float32",
+                                         compute_dtype="float32"), n_layers=TRAIN_CHECK_LAYERS)
+    phase(f"one train step on the card against the CPU: {TRAIN_ARCH} at full width, "
+          f"{cfg.n_layers} layers, float32 compute (TF32 off), batch {TRAIN_CHECK_BATCH} x "
+          f"{TRAIN_SEQ}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_model(cfg)
+    opt = AdamW(cosine_with_warmup(3e-3, 1, TRAIN_STEPS))
+    params = model.init(torch.Generator().manual_seed(SEED)).trainable()
+    cpu_state = TrainState(torch.zeros((), dtype=torch.int32), params, opt.init(params))
+    card_params = copy.deepcopy(params).to("cuda")
+    card_state = TrainState(cpu_state.step.to("cuda"), card_params, opt.init(card_params))
+    batch = SyntheticLM(PipelineConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_CHECK_BATCH,
+                                       seed=SEED)).global_batch(0)
+    got = step_record(card_state, {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()},
+                      model, opt)
+    t0 = time.perf_counter()
+    want = step_record(cpu_state, {k: torch.from_numpy(v) for k, v in batch.items()}, model, opt)
+    cpu_s = time.perf_counter() - t0
+    stats: dict = {}
+    bad = train_step_mismatches(got, want, stats)
+    check(not bad, f"card vs CPU train step: {bad[:6]}")
+    worst = max((relative_error(got["grads"][k], w), k) for k, w in want["grads"].items())
+    n_el = sum(w.numel() for w in want["params"].values())
+    print(f"loss card {float(got['loss']):.7f}, CPU {float(want['loss']):.7f}; every gradient "
+          f"and moment within bound (largest gradient error {worst[0]:.3e} of its leaf's max, "
+          f"{worst[1]}); every parameter element within 1e-5 plus its gradient's first-step "
+          f"allowance ({stats['beyond_param_tol']} of {n_el} elements beyond 1e-5 alone, "
+          f"largest difference {stats['largest_param_diff']:.3e}); the CPU step took "
+          f"{cpu_s:.1f} s", flush=True)
+    del got, want, card_state, card_params
+    _free()
+
+
+def phase_train_restart() -> None:
+    """Restart determinism on the card: qwen2-1.5b at full width, 2 layers,
+    bf16 compute; a checkpoint at step 3 of 6 restored from disk into fresh
+    state continues with the uninterrupted run's losses bit for bit."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import PipelineConfig, SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, cosine_with_warmup
+    from repro_torch.runtime.train import _value_and_grad, init_state, make_train_step
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_CHECK_LAYERS)
+    phase(f"restart determinism on the card: {TRAIN_ARCH} at full width, {cfg.n_layers} layers, "
+          f"{cfg.compute_dtype} compute, checkpoint at step {RESTART_AT} of {RESTART_STEPS}")
+    model = build_model(cfg)
+    opt = AdamW(cosine_with_warmup(3e-3, 1, RESTART_STEPS))
+    step_fn = make_train_step(model, opt)
+    pipe = SyntheticLM(PipelineConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED))
+
+    def batch(s):
+        return {k: torch.from_numpy(v).to("cuda") for k, v in pipe.global_batch(s).items()}
+
+    ckdir = ROOT / "build" / "train_restart"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    mgr = CheckpointManager(ckdir, keep=1)
+    state = init_state(model, opt, torch.Generator(device="cuda").manual_seed(SEED))
+    losses = []
+    for s in range(RESTART_STEPS):
+        state, m = step_fn(state, batch(s))
+        losses.append(float(m["loss"]))
+        if s == RESTART_AT - 1:
+            t0 = time.perf_counter()
+            mgr.save(RESTART_AT, state)
+            save_s = time.perf_counter() - t0
+    del state
+    _free()
+    t0 = time.perf_counter()
+    fresh = init_state(model, opt, torch.Generator(device="cuda").manual_seed(SEED + 1))
+    state, s0 = CheckpointManager(ckdir).restore(fresh)
+    restore_s = time.perf_counter() - t0
+    del fresh
+    check(s0 == RESTART_AT and int(state.step) == RESTART_AT, f"restored step {s0}")
+    # the same gradients twice from one state: what run-to-run determinism rests on
+    _, _, g1 = _value_and_grad(model, state.params, batch(RESTART_AT))
+    _, _, g2 = _value_and_grad(model, state.params, batch(RESTART_AT))
+    differ = [k for k in g1 if not torch.equal(g1[k], g2[k])]
+    del g1, g2
+    print(f"gradients recomputed from one state: {'bitwise equal' if not differ else differ}")
+    resumed = []
+    for s in range(RESTART_AT, RESTART_STEPS):
+        state, m = step_fn(state, batch(s))
+        resumed.append(float(m["loss"]))
+    size = sum(p.stat().st_size for p in (ckdir / f"step_{RESTART_AT:08d}").iterdir()) / 1e9
+    print(f"losses {losses}; resumed from disk {resumed}; checkpoint {size:.3f} GB, saved in "
+          f"{save_s:.1f} s, verified and restored in {restore_s:.1f} s", flush=True)
+    check(resumed == losses[RESTART_AT:],
+          f"resumed losses {resumed} differ from the uninterrupted {losses[RESTART_AT:]}")
+    del state
+    shutil.rmtree(ckdir, ignore_errors=True)
+    _free()
+
+
 def main() -> int:
     try:
         import torch
@@ -2872,6 +3304,13 @@ def main() -> int:
         phase_zoo_moe_card_vs_cpu()
         print(f"\nmodel zoo: {time.perf_counter() - t_zoo:.1f} s; the whole script "
               f"{time.perf_counter() - T0:.1f} s so far", flush=True)
+        t_train = time.perf_counter()
+        train_rec = phase_train_kernels()
+        train_launches = phase_train_full()
+        phase_train_card_vs_cpu()
+        phase_train_restart()
+        print(f"\ntraining: {time.perf_counter() - t_train:.1f} s; the whole script "
+              f"{time.perf_counter() - T0:.1f} s so far", flush=True)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2882,11 +3321,14 @@ def main() -> int:
          + zoo_launches["masked_cover"],
          "cover.cu", "src/repro/kernels/cover.py:47"),
         ("rmsnorm", dict(rms_rec, max_abs_err=max(rms_rec["max_abs_err"],
-                                                  zoo_rms_rec["max_abs_err"])),
-         serve_launches["rmsnorm"] + zoo_launches["rmsnorm"],
+                                                  zoo_rms_rec["max_abs_err"],
+                                                  train_rec["rmsnorm"]["max_abs_err"])),
+         serve_launches["rmsnorm"] + zoo_launches["rmsnorm"] + train_launches["rmsnorm"],
          "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:31"),
-        ("flash_attention", att_rec,
-         serve_launches["flash_attention"] + zoo_launches["flash_attention"],
+        ("flash_attention", dict(att_rec, max_abs_err=max(
+            att_rec["max_abs_err"], train_rec["flash_attention"]["max_abs_err"])),
+         serve_launches["flash_attention"] + zoo_launches["flash_attention"]
+         + train_launches["flash_attention"],
          "flash_attention.cu", "src/repro/kernels/flash_attention.py:104"),
     ]
     kernels = [{
@@ -2909,14 +3351,20 @@ def main() -> int:
     kernels[2]["decode"] = att_rec["decode"]
     kernels[2]["launches_by_kernel"] = {
         k: serve_launches["flash_attention_by_kernel"][k] + zoo_launches[k]
+        + (train_launches["wgmma"] if k == "wgmma" else 0)
         for k in ("splitkv", "wgmma", "simt")}
     # the model zoo's new shapes: RMSNorm at d_inner 5120, attention at hd 80
     kernels[1]["zoo"] = {k: zoo_rms_rec[k] for k in ("prefill", "decode")}
     kernels[2]["zoo"] = att_rec["zoo"]
     kernels[1]["launches_by_path"] = {"serve": serve_launches["rmsnorm"],
-                                      "zoo": zoo_launches["rmsnorm"]}
+                                      "zoo": zoo_launches["rmsnorm"],
+                                      "train": train_launches["rmsnorm"]}
     kernels[2]["launches_by_path"] = {"serve": serve_launches["flash_attention"],
-                                      "zoo": zoo_launches["flash_attention"]}
+                                      "zoo": zoo_launches["flash_attention"],
+                                      "train": train_launches["flash_attention"]}
+    # the training shapes: the forward kernel and the plain-torch backward
+    kernels[1]["train"] = train_rec["rmsnorm"]
+    kernels[2]["train"] = train_rec["flash_attention"]
     # cover: kernel A (draws in) above, kernel B (Philox sample-and-cover,
     # every frontier pass of the planning path) beside it
     kernels[0]["philox"] = philox_rec

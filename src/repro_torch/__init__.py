@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of ``repro``: the paper's planning loop and the serving path on an NVIDIA card.
+"""PyTorch/CUDA port of ``repro``: the paper's planning loop, serving and training on an NVIDIA card.
 
 The JAX package ``repro`` stays the reference; this package mirrors its
 paths (``repro_torch/core/planner.py`` ports ``repro/core/planner.py``, and
@@ -14,8 +14,10 @@ Ported so far: the static planning loop (``core.service_time``,
 static path of ``cluster.vectorized``); the dynamic lanes
 (``cluster.epoch_scan``, ``cluster.stream``, ``cluster.control``); the event
 engine (``cluster.events``, ``cluster.master``) and the live master-worker
-runtime on it (``cluster.runtime``); and the dense-decoder serving path:
-``configs``, ``models`` (``dense`` family: ``layers``, ``transformer``,
-``common``, ``convert``), ``runtime.serve`` and ``launch.serve``.
-``ROADMAP.md`` queues the rest.
+runtime on it (``cluster.runtime``); the serving model zoo: ``configs``,
+``models`` (every family), ``runtime.serve`` and ``launch.serve``; and the
+training path: every family's ``train_loss``, ``optim``, ``data``,
+``checkpoint``, ``distributed.rdp``'s host part, ``runtime.train`` and
+``launch.train``.  ``ROADMAP.md`` queues the rest (the mesh code on
+``torch.distributed``).
 """

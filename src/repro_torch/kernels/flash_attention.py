@@ -25,6 +25,12 @@ counts kernel launches, and :data:`splitkv_launches`,
 PyTorch (per-split partials and their merge), which the tests hold to the
 reference.  The Pallas ``block_q`` / ``block_k`` / ``interpret`` have no
 counterpart: the kernels' tiles are fixed.
+
+Training differentiates through :class:`AttentionFunction`: its forward is
+:func:`attention` (one kernel launch on the card) and its backward
+:func:`attention_bwd`, the closed form in plain torch over the saved inputs
+and output.  The reference has no backward kernel to port: its model trains
+through the jnp ``flash_attention``, which XLA differentiates.
 """
 from __future__ import annotations
 
@@ -37,8 +43,8 @@ import torch
 
 from . import _build
 
-__all__ = ["NEG_INF", "attention", "attention_ref", "attention_splitkv_ref",
-           "flash_attention_fwd", "route", "splitkv_plan"]
+__all__ = ["NEG_INF", "AttentionFunction", "attention", "attention_bwd", "attention_ref",
+           "attention_splitkv_ref", "flash_attention_fwd", "route", "splitkv_plan"]
 
 # kernel launches since import (or since a caller last reset it to 0): all of
 # them, and by kernel
@@ -240,6 +246,65 @@ def attention(
         return attention_ref(q, k, v, q_positions, kv_positions, causal, window, scale)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     return _launch(q, k, v, q_positions, kv_positions, out, causal, window, scale)
+
+
+def attention_bwd(
+    do: torch.Tensor,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    q_positions: torch.Tensor,
+    kv_positions: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients ``(dq, dk, dv)`` of :func:`attention` for the output gradient ``do``.
+
+    In float32 over the saved inputs and output: ``P`` recomputed under the
+    kernel's mask (``NEG_INF`` for a hidden score), ``dV = P^T dO``,
+    ``dP = dO V^T``, ``dS = P (dP - rowsum(dO O))`` (zero where hidden),
+    ``dQ = scale dS K``, ``dK = scale dS^T Q``; ``dK`` and ``dV`` summed over
+    each kv head's group of query heads, each cast to its input's type.
+    """
+    b, sq, h, hd = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, sq, kh, g, hd).float()
+    kf, vf = k.float(), v.float()
+    mask = _visible(q_positions, kv_positions, causal, window)[:, None, None]  # (B,1,1,Sq,Sk)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kf) * scale
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    dog = do.reshape(b, sq, kh, g, hd).float()
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, vf)
+    delta = (dog * out.reshape(b, sq, kh, g, hd).float()).sum(dim=-1)  # (B,Sq,KH,g)
+    ds = torch.where(mask, p * (dp - delta.permute(0, 2, 3, 1)[..., None]), 0.0)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * scale
+    return dq.reshape(b, sq, h, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class AttentionFunction(torch.autograd.Function):
+    """Attention that autograd sees: forward :func:`attention`, backward
+    :func:`attention_bwd` (``apply(q, k, v, q_positions, kv_positions,
+    causal, window, scale)``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, kv_positions, causal, window, scale):
+        out = attention(q, k, v, q_positions, kv_positions, causal, window, scale)
+        ctx.save_for_backward(q, k, v, out, q_positions, kv_positions)
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, q_positions, kv_positions = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(do, q, k, v, out, q_positions, kv_positions, ctx.causal,
+                                   ctx.window, ctx.scale)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_fwd(

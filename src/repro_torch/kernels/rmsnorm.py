@@ -7,6 +7,12 @@ plain version only for a tensor on the CPU; for a CUDA tensor it launches
 run can show that its path went through the kernel.  The Pallas kernel's
 ``block_rows`` / ``interpret`` have no counterpart: the CUDA kernel runs one
 warp per row, 8 rows a block.
+
+Training differentiates through :class:`RMSNormFunction`: its forward is
+:func:`rms_norm_fused` (one kernel launch on the card) and its backward
+:func:`rms_norm_bwd`, the closed form in plain torch.  The reference has no
+backward kernel to port: its model trains through the jnp ``rms_norm``,
+which XLA differentiates.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ import torch
 
 from . import _build
 
-__all__ = ["rms_norm_fused", "rms_norm_ref"]
+__all__ = ["RMSNormFunction", "rms_norm_bwd", "rms_norm_fused", "rms_norm_ref"]
 
 # kernel launches since import (or since a caller last reset it to 0)
 launches = 0
@@ -61,6 +67,42 @@ def rms_norm_fused(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
     if x.device.type == "cpu":
         return rms_norm_ref(x, weight, eps, plus_one)
     return _launch(x, weight, float(eps), bool(plus_one))
+
+
+def rms_norm_bwd(g: torch.Tensor, x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
+                 plus_one: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradients ``(dx, dw)`` of RMSNorm for the output gradient ``g``.
+
+    In float32, from the saved ``x`` (``r`` recomputed), cast back to each
+    input's type: ``dx = r (g w' - x r^2 mean(g w' x))`` and ``dw = sum over
+    rows of g x r``, with ``w' = w`` or ``1 + w``.
+    """
+    xf, gf = x.float(), g.float()
+    r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    w = weight.float()
+    if plus_one:
+        w = 1.0 + w
+    gw = gf * w
+    dx = r * (gw - xf * (r * r) * (gw * xf).mean(dim=-1, keepdim=True))
+    dw = (gf * xf * r).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dw.to(weight.dtype)
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """RMSNorm that autograd sees: forward :func:`rms_norm_fused`, backward
+    :func:`rms_norm_bwd` (``apply(x, weight, eps, plus_one)``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps, plus_one):
+        ctx.save_for_backward(x, weight)
+        ctx.eps, ctx.plus_one = eps, plus_one
+        return rms_norm_fused(x, weight, eps, plus_one)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw = rms_norm_bwd(g, x, weight, ctx.eps, ctx.plus_one)
+        return dx, dw, None, None
 
 
 @functools.cache

@@ -12,8 +12,10 @@ RMSNorm, sqrt(d) embedding scale, GeGLU).
 The cache mirrors the parameters (``{"groups": [...], "tail": [...]}``):
 an attention layer keeps the transformer's ring-buffer KV, an RG-LRU layer
 ``conv (B, 3, D)`` in the compute dtype and ``h (B, D)`` in float32.
-Prefill and decode write it IN PLACE.  ``train_loss`` is the transformer's,
-which raises: it waits for the training path (``ROADMAP.md`` open items, 3.6).
+Prefill and decode write it IN PLACE.  :func:`train_loss` is the
+reference's (CE only); with ``cfg.remat`` each full group runs under a
+non-reentrant checkpoint while autograd records (the tail does not, as in
+the reference, which checkpoints only its scanned groups).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import torch
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
-from .common import Params, cast_for_compute, dense_init
+from .common import Params, cast_for_compute, cross_entropy_loss, dense_init
 from .layers import gated_mlp, init_gated_mlp
 from .rglru import init_rglru_block, recurrent_block_apply, recurrent_block_step
 from .transformer import (
@@ -36,7 +38,7 @@ from .transformer import (
     init_attention,
     init_norm,
     kv_cache,
-    train_loss,
+    remat_layer,
 )
 
 __all__ = ["decode_step", "forward", "init_cache", "init_params", "prefill", "train_loss"]
@@ -163,17 +165,34 @@ def forward(
     decode = s == 1 and cache is not None
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device).repeat(b, 1)
-    for g, group_p in enumerate(params["groups"]):
+
+    def group_fn(x, group_p, group_cache):
         group_p = cast_for_compute(group_p, compute)
         for i, kind in enumerate(pat):
             name = f"{kind}_{i}"
-            lc = None if cache is None else cache["groups"][g][name]
+            lc = None if group_cache is None else group_cache[name]
             x = _apply_layer(group_p[name], cfg, kind, layout, x, positions, lc, decode)
+        return x
+
+    for g, group_p in enumerate(params["groups"]):
+        if cache is None and cfg.remat:
+            x = remat_layer(group_fn, x, group_p, None)
+        else:
+            x = group_fn(x, group_p, None if cache is None else cache["groups"][g])
     for i, kind in enumerate(tail):
         lc = None if cache is None else cache["tail"][i]
         tp = cast_for_compute(params["tail"][i], compute)
         x = _apply_layer(tp, cfg, kind, layout, x, positions, lc, decode)
     return _unembed(params, cfg, x), cache
+
+
+def train_loss(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
+    """batch: tokens, labels, loss_mask -> (loss, {"loss"})."""
+    logits, _ = forward(params, cfg, batch["tokens"])
+    loss = cross_entropy_loss(
+        logits, batch["labels"], batch.get("loss_mask"), real_vocab=cfg.vocab_size
+    )
+    return loss, {"loss": loss}
 
 
 def prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], max_len: int):

@@ -5,8 +5,10 @@ Port of ``repro.models.layers``.  The reference computes ``rms_norm`` and
 here both go to the hand-written kernels' wrappers
 (:mod:`repro_torch.kernels.rmsnorm`, :mod:`repro_torch.kernels.flash_attention`),
 which launch the CUDA kernel on a CUDA tensor and run the plain version on
-the CPU.  Everything else is plain torch: the projections and MLPs are
-``x @ W`` with ``W`` in the reference's ``(d_in, d_out)`` layout.
+the CPU.  Each goes through its kernel's ``torch.autograd.Function``: the
+wrapper's forward, one launch, and a closed-form backward in plain torch
+that autograd runs when it records.  Everything else is plain torch: the projections and
+MLPs are ``x @ W`` with ``W`` in the reference's ``(d_in, d_out)`` layout.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import flash_attention as _flash
-from ..kernels.rmsnorm import rms_norm_fused
+from ..kernels.rmsnorm import RMSNormFunction
 from .common import dense_init
 
 __all__ = [
@@ -46,7 +48,7 @@ attention_reference = _flash.attention_ref
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6, plus_one: bool = False):
     """RMSNorm over the last axis: the fused kernel (its plain version on the CPU)."""
-    return rms_norm_fused(x.contiguous(), weight.contiguous(), eps=eps, plus_one=plus_one)
+    return RMSNormFunction.apply(x.contiguous(), weight.contiguous(), eps, plus_one)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5):
@@ -132,11 +134,9 @@ def flash_attention(
     single-token decode (Sq == 1, Sk == cache length).  The reference's
     ``block_k`` has no counterpart: the kernel's KV tile is fixed.
     """
-    return _flash.attention(
-        q.contiguous(), k.contiguous(), v.contiguous(),
-        q_positions.contiguous(), kv_positions.contiguous(),
-        causal=causal, window=window, scale=scale,
-    )
+    args = (q.contiguous(), k.contiguous(), v.contiguous(),
+            q_positions.contiguous(), kv_positions.contiguous())
+    return _flash.AttentionFunction.apply(*args, causal, window, scale)
 
 
 # --------------------------------------------------------------------------

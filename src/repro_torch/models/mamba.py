@@ -4,8 +4,8 @@ The reference stacks the layers and scans them; here ``params["layers"]``
 is a list walked by a Python loop.  The cache is one ``{"conv_x", "conv_bc",
 "h"}`` dict per layer (the conv tails in the compute dtype, the state
 ``(B, nh, N, hp)`` in float32), written IN PLACE by prefill and decode.
-``train_loss`` is the transformer's, which raises: it waits for the training
-path (``ROADMAP.md`` open items, 3.6).
+:func:`train_loss` is the reference's (CE only); with ``cfg.remat`` each
+layer runs under a non-reentrant checkpoint while autograd records.
 """
 from __future__ import annotations
 
@@ -15,9 +15,9 @@ import torch
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
-from .common import Params, cast_for_compute, dense_init
+from .common import Params, cast_for_compute, cross_entropy_loss, dense_init
 from .ssm import SSMDims, init_ssm_layer, ssm_decode_step, ssm_layer_apply
-from .transformer import _embed, _norm, _unembed, init_norm, train_loss
+from .transformer import _embed, _norm, _unembed, init_norm, remat_layer
 
 __all__ = ["decode_step", "forward", "init_cache", "init_params", "prefill", "train_loss"]
 
@@ -72,29 +72,44 @@ def forward(
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Returns (logits fp32, cache written in place)."""
     dims = SSMDims.from_config(cfg)
-    compute = cfg.dtype("compute")
     x = _embed(params, cfg, tokens)
     for i, p in enumerate(params["layers"]):
-        p = cast_for_compute(p, compute)
-        lc = None if cache is None else cache[i]
-        h_in = _norm(p, cfg, x, "norm1")
-        if decode:
-            y, cx, cbc, h = ssm_decode_step(
-                p["mixer"], dims, h_in, lc["conv_x"], lc["conv_bc"], lc["h"]
-            )
-        elif lc is None:
-            y = ssm_layer_apply(p["mixer"], dims, h_in)
+        if cache is None and cfg.remat:
+            x = remat_layer(_layer_fn, x, p, cfg, dims)
         else:
-            y, (cx, cbc, h) = ssm_layer_apply(
-                p["mixer"], dims, h_in, lc["conv_x"], lc["conv_bc"], lc["h"],
-                return_state=True,
-            )
-        if lc is not None:
-            lc["conv_x"].copy_(cx)
-            lc["conv_bc"].copy_(cbc)
-            lc["h"].copy_(h)
-        x = x + y
+            x = _layer_fn(x, p, cfg, dims, None if cache is None else cache[i], decode)
     return _unembed(params, cfg, x), cache
+
+
+def _layer_fn(x, p, cfg: ArchConfig, dims: SSMDims, lc=None, decode: bool = False):
+    """One pre-norm SSD layer; writes a cache ``lc`` in place."""
+    p = cast_for_compute(p, cfg.dtype("compute"))
+    h_in = _norm(p, cfg, x, "norm1")
+    if decode:
+        y, cx, cbc, h = ssm_decode_step(
+            p["mixer"], dims, h_in, lc["conv_x"], lc["conv_bc"], lc["h"]
+        )
+    elif lc is None:
+        y = ssm_layer_apply(p["mixer"], dims, h_in)
+    else:
+        y, (cx, cbc, h) = ssm_layer_apply(
+            p["mixer"], dims, h_in, lc["conv_x"], lc["conv_bc"], lc["h"],
+            return_state=True,
+        )
+    if lc is not None:
+        lc["conv_x"].copy_(cx)
+        lc["conv_bc"].copy_(cbc)
+        lc["h"].copy_(h)
+    return x + y
+
+
+def train_loss(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
+    """batch: tokens, labels, loss_mask -> (loss, {"loss"})."""
+    logits, _ = forward(params, cfg, batch["tokens"])
+    loss = cross_entropy_loss(
+        logits, batch["labels"], batch.get("loss_mask"), real_vocab=cfg.vocab_size
+    )
+    return loss, {"loss": loss}
 
 
 def prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], max_len: int):

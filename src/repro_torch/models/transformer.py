@@ -23,10 +23,18 @@ Where S <= W the two agree; decode is unchanged.
 
 Tensor-parallel head layout (``HeadLayout``): with ``pad_heads_to = 0``, as
 on one card, it degenerates to plain GQA (``repeat = 1``, no head mask).
-Not ported yet, each raising ``NotImplementedError`` that names its
-``ROADMAP.md`` item: the sequence-sharded decode cache
-(``decode_kv_seq_sharded``, multi-chip: item 3.7) and ``train_loss`` (the
-training path: item 3.6).
+Not ported yet: the sequence-sharded decode cache (``decode_kv_seq_sharded``,
+multi-chip), which raises ``NotImplementedError`` naming its ``ROADMAP.md``
+item.
+
+Training: :func:`train_loss` is the reference's (CE plus the MoE router's
+aux loss).  With ``cfg.remat`` and autograd recording, each block runs
+under ``torch.utils.checkpoint`` (non-reentrant), its weights cast for
+compute inside it, so its backward recomputes it; on one card the
+reference's ``"full"`` and ``"block_outs"`` policies differ only in the
+collectives they skip re-running, so both take this per-block checkpoint.
+``sequence_parallel`` annotates a mesh the port does not have: it is
+accepted and changes nothing, as the reference's does without a mesh.
 """
 from __future__ import annotations
 
@@ -35,10 +43,11 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
-from .common import Params, cast_for_compute, dense_init
+from .common import Params, cast_for_compute, cross_entropy_loss, dense_init
 from .layers import (
     apply_mrope,
     apply_rope,
@@ -317,6 +326,21 @@ def _unembed(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype)).float()
 
 
+def remat_layer(fn, *args):
+    """``fn(*args)``, under a non-reentrant ``torch.utils.checkpoint`` while
+    autograd records (the forward holds no state a recompute could miss)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+def _block_fn(layer_p, cfg: ArchConfig, layout: HeadLayout, x, positions, mrope_positions,
+              layer_cache):
+    layer_p = cast_for_compute(layer_p, cfg.dtype("compute"))
+    x, _, aux = block_apply(layer_p, cfg, layout, x, positions, mrope_positions, layer_cache)
+    return x, aux
+
+
 def forward(
     params,
     cfg: ArchConfig,
@@ -332,12 +356,12 @@ def forward(
     b, s = x.shape[:2]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device).repeat(b, 1)
-    compute = cfg.dtype("compute")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer_p in enumerate(params["layers"]):
-        layer_p = cast_for_compute(layer_p, compute)
-        layer_cache = None if cache is None else cache[i]
-        x, _, a = block_apply(layer_p, cfg, layout, x, positions, mrope_positions, layer_cache)
+        args = (layer_p, cfg, layout, x, positions, mrope_positions,
+                None if cache is None else cache[i])
+        x, a = remat_layer(_block_fn, *args) if cfg.remat and cache is None \
+            else _block_fn(*args)
         aux = aux + a
     logits = _unembed(params, cfg, x)
     return logits, cache, aux
@@ -370,15 +394,21 @@ def kv_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> Dict[str, tor
 
 
 # --------------------------------------------------------------------------
-# steps (prefill, decode); training waits for its slice
+# losses / steps (train, prefill, decode)
 # --------------------------------------------------------------------------
 
 
-def train_loss(params, cfg: ArchConfig, batch):
-    raise NotImplementedError(
-        "train_loss waits for the training path (ROADMAP.md open items, 3.6: "
-        "cross_entropy_loss, optim/, data/pipeline.py, runtime/train.py)"
+def train_loss(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
+    """batch: tokens/embeds, labels, loss_mask [, mrope_positions] -> (total, metrics)."""
+    logits, _, aux = forward(
+        params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
+        mrope_positions=batch.get("mrope_positions"),
     )
+    loss = cross_entropy_loss(
+        logits, batch["labels"], batch.get("loss_mask"), real_vocab=cfg.vocab_size
+    )
+    total = loss + cfg.router_aux_loss * aux if cfg.is_moe else loss
+    return total, {"loss": loss, "moe_aux": aux}
 
 
 def prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], max_len: int):

@@ -224,17 +224,27 @@ def test_build_model_takes_every_configuration(arch):
     for smoke in (True, False):  # the full configs build their Model (no weights made)
         model = build_model(configs.get_config(arch, smoke=smoke))
         assert model.cfg.name.startswith(arch)
+    # the training path is ported: every family's train_loss gives a finite
+    # loss and the reference's metric names
     cfg = configs.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg).train_loss(None, {})
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    key = "embeds" if cfg.family in ("vlm", "encoder") else "tokens"
+    inputs = torch.randn(B, S_PRE, cfg.d_model, generator=gen).to(cfg.dtype("compute")) \
+        if key == "embeds" else torch.randint(0, cfg.vocab_size, (B, S_PRE), generator=gen)
+    batch = {key: inputs, "labels": torch.randint(0, cfg.vocab_size, (B, S_PRE), generator=gen)}
+    if cfg.family == "vlm":
+        batch["mrope_positions"] = torch.arange(S_PRE, dtype=torch.int32)[None, :, None] \
+            .expand(B, S_PRE, 3).contiguous()
+    loss, metrics = model.train_loss(model.init(gen), batch)
+    assert bool(torch.isfinite(loss)) and float(loss) > 0
+    assert set(metrics) == ({"loss"} if cfg.family in ("hybrid", "ssm") else {"loss", "moe_aux"})
 
 
 def test_unported_paths_raise():
     cfg = configs.get_config("qwen2-1.5b", smoke=True, decode_kv_seq_sharded=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md open items, 3.7"):
         transformer.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md open items, 3.6"):
-        transformer.train_loss(None, cfg, {})
     # MoE blocks are ported: a smoke MoE model initialises
     moe = configs.get_config("dbrx-132b", smoke=True)
     params = transformer.init_params(torch.Generator().manual_seed(0), moe)

@@ -167,7 +167,7 @@ def test_mamba_init_matches_reference_layout():
     from repro.models import common as jax_common
     from repro_torch.models import common
 
-    _, jparams, cfg, params = _pair()
+    jcfg, jparams, cfg, params = _pair()
     own = build_model(cfg).init(torch.Generator().manual_seed(0))
     assert common.count_params(own) == common.count_params(params) \
         == jax_common.count_params(jparams)
@@ -181,5 +181,13 @@ def test_mamba_init_matches_reference_layout():
     served = build_model(configs.get_config(ARCH, smoke=True)).for_serving(own)
     assert served["layers"][0]["mixer"]["w_x"].dtype == torch.bfloat16
     assert served["layers"][0]["mixer"]["A_log"].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg).train_loss(own, {})
+    # the training path is ported: the loss on the reference's weights is the reference's
+    rng = np.random.default_rng(3)
+    batch = {k: rng.integers(0, cfg.vocab_size, size=(B, 12)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    want, _ = jax_build_model(jcfg).train_loss(jparams, {k: jnp.asarray(v)
+                                                        for k, v in batch.items()})
+    got, metrics = build_model(cfg).train_loss(params, {k: torch.from_numpy(v)
+                                                        for k, v in batch.items()})
+    assert set(metrics) == {"loss"}
+    np.testing.assert_allclose(got.item(), float(want), atol=1e-4, rtol=1e-4)
