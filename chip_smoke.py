@@ -201,7 +201,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports
    (``tests/test_torch_train_cuda.py::train_step_mismatches``); and restart
    determinism at 2 layers in bf16 (a checkpoint at step 3 of 6 restored
    from disk into fresh state continues with bitwise equal losses);
-16. prints the kernels line, then, last, the one-line JSON result.
+16. runs the mesh paths (``distributed/`` on ``torch.distributed``) in a
+   world of one on NCCL, initialised through a ``file://`` store:
+   qwen2-1.5b whole through ``jit_init_state`` / ``jit_train_step`` on the
+   (1, 1) ("data", "model") mesh and on ``make_rdp_mesh`` of the launcher's
+   (B, r) cut to one rank, each bitwise equal to ``make_train_step`` from
+   the same state (loss, grad norm, every leaf of the parameters and both
+   moments), 113 RMSNorm and 56 attention launches a mesh step, the step's
+   median ms beside the plain step's and the peak memory; qwen2-1.5b served
+   with the sequence-sharded true-KV cache through ``jit_prefill`` /
+   ``jit_serve_step`` (prompt 1024, 32 teacher-forced tokens) against the
+   plain ring's logits, in float32 within 2e-3 + 2e-3 |want| and in bf16
+   timed (decode ms per token beside the plain ring's); the int8
+   compressed all-reduce over a (151936, 1536) leaf, ``q``, ``scale`` and
+   the error feedback bitwise the CPU's arithmetic, timed beside its bytes
+   bound; a mesh state at 2 layers saved and restored onto the RDP mesh,
+   bitwise;
+17. prints the kernels line, then, last, the one-line JSON result.
 
 Any failed phase exits non-zero and prints no result; so does a run without
 a CUDA device or without the repo's sources beside the script.
@@ -311,6 +327,8 @@ ZOO_F32_DEPTH = {"qwen3-moe-235b-a22b": 2, "qwen2-vl-7b": 2, "recurrentgemma-2b"
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARM = "qwen2-1.5b", 8, 128, 20, 2
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_WINDOW = 2, 2, 32
 RESTART_STEPS, RESTART_AT = 6, 3
+# the mesh train step: timed steps after TRAIN_WARM warm-up ones, mesh and plain
+MESH_TIMED_STEPS = 5
 # tests/test_kernels.py's TOL (atol = rtol) by dtype name
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # attention and RMSNorm are also held element by element to a bound scaled by
@@ -3265,6 +3283,361 @@ def phase_train_restart() -> None:
     _free()
 
 
+# --------------------------------------------------------------------------
+# the mesh paths: distributed/ on torch.distributed, a world of one on NCCL
+# --------------------------------------------------------------------------
+
+
+def phase_mesh_init() -> None:
+    """A world of one on NCCL over the card, through a ``file://`` store (no
+    network): the process group every mesh phase runs on."""
+    import torch
+    import torch.distributed as dist
+
+    phase("mesh: a world of one on NCCL (file:// store)")
+    store = ROOT / "build" / "mesh_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    probe = torch.ones(4, device="cuda")
+    dist.all_reduce(probe)  # the communicator is made at the first collective
+    torch.cuda.synchronize()
+    check(dist.get_backend() == "nccl" and probe.tolist() == [1.0] * 4,
+          f"NCCL world: backend {dist.get_backend()}, all_reduce {probe.tolist()}")
+    print(f"NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, world of "
+          f"{dist.get_world_size()}, first all_reduce after {time.perf_counter() - t0:.3f} s",
+          flush=True)
+
+
+def _plain_alias(state):
+    """The plain TrainState that shares a world-of-one mesh state's storage
+    (every shard there is its whole leaf), its parameters trainable, as
+    ``init_state`` makes them."""
+    import torch
+
+    from repro_torch.optim import OptState
+    from repro_torch.runtime.train import TrainState
+
+    params = state.params.replace_leaves(
+        {k: torch.nn.Parameter(p.to_local(), requires_grad=True)
+         for k, p in state.params.leaves().items()})
+    opt = state.opt_state
+    return TrainState(state.step, params, OptState(
+        opt.count, {k: t.to_local() for k, t in opt.m.items()},
+        {k: t.to_local() for k, t in opt.v.items()}))
+
+
+def _state_leaves(state) -> dict:
+    """Every tensor of a TrainState (plain or mesh) by key, local (whole) tensors."""
+    out = {"step": state.step, "count": state.opt_state.count}
+    for k, p in state.params.leaves().items():
+        out["params." + k] = p.to_local() if hasattr(p, "to_local") else p
+    for name in ("m", "v"):
+        for k, t in getattr(state.opt_state, name).items():
+            out[f"{name}.{k}"] = t.to_local() if hasattr(t, "to_local") else t
+    return out
+
+
+def _timed_steps(step_fn, state, batch, warm: int, steps: int):
+    """Host ms of each of ``steps`` chained steps (each ends in a synchronise)
+    after ``warm`` untimed ones, and the peak device memory meanwhile."""
+    import torch
+
+    for _ in range(warm):
+        state, _ = step_fn(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, torch.cuda.max_memory_allocated() / 1e9
+
+
+def phase_mesh_train() -> dict:
+    """qwen2-1.5b whole (28 layers, batch 8 x 128, bf16 compute, f32 master,
+    remat) through ``jit_init_state`` / ``jit_train_step`` on the (1, 1)
+    ("data", "model") mesh and on ``make_rdp_mesh`` of the launcher's plan cut
+    to one rank, each held bitwise against ``make_train_step`` from the same
+    state: the loss, the grad norm and every leaf of the parameters and both
+    moments.  Then the step's median ms beside the plain step's, the peak
+    memory, and the kernel launches of one mesh step (counts set to 0 just
+    before, read just after)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.planner import RedundancyPlanner
+    from repro_torch.data import PipelineConfig, SyntheticLM
+    from repro_torch.distributed import rdp
+    from repro_torch.launch import train as train_launch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, cosine_with_warmup
+    from repro_torch.runtime.train import jit_init_state, jit_train_step, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    layers = cfg.n_layers
+    plan = RedundancyPlanner(8).plan(train_launch.DISTS["sexp"], "mean")
+    one = dataclasses.replace(plan, n_workers=1, n_batches=1, replication=1)
+    phase(f"mesh train step: {TRAIN_ARCH} whole ({layers} layers, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, {cfg.compute_dtype} compute, f32 master, remat) through "
+          f"jit_train_step on (1, 1) ('data', 'model') and on make_rdp_mesh of the launcher's "
+          f"plan B={plan.n_batches} x r={plan.replication} cut to one rank (1, 1, 1), each "
+          "bitwise against make_train_step from the same state")
+    model = build_model(cfg)
+    opt = AdamW(cosine_with_warmup(3e-3, max(TRAIN_STEPS // 20, 1), TRAIN_STEPS))
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    pipe = SyntheticLM(PipelineConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED))
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in pipe.global_batch(0).items()}
+    plain_step = make_train_step(model, opt)
+    meshes = [("(1, 1) data/model", make_mesh((1, 1), ("data", "model"))),
+              ("RDP (1, 1, 1)", rdp.make_rdp_mesh(one, 1))]
+    rec: dict = {"launches": {"rmsnorm": 0, "flash_attention": 0, "wgmma": 0}}
+    for name, mesh in meshes:
+        _free()
+        init, st_sh = jit_init_state(mesh, model, opt)
+        step, _, b_sh = jit_train_step(mesh, model, opt, shape)
+        state = init(torch.Generator(device="cuda").manual_seed(SEED))
+        # the plain step first, from the same storage; its result stays on the
+        # card beside the mesh step's (about 62 GB at the peak, compared leaf by leaf)
+        p_state, want_metrics = plain_step(_plain_alias(state), batch)
+        want = {k: t.detach() for k, t in _state_leaves(p_state).items()}
+        del p_state
+        _reset_counts()
+        new, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        counts = _counts()
+        del state
+        got = _state_leaves(new)
+        check(set(got) == set(want), f"{name}: mesh state keys differ from the plain state's")
+        differ = [k for k in want if not torch.equal(got[k].detach(), want[k])]
+        for key in ("loss", "grad_norm", "lr", "loss_total"):
+            if not torch.equal(metrics[key], want_metrics[key]):
+                differ.append(f"metric {key}")
+        placed = {str(s.spec) for s in st_sh.params.values()}
+        print(f"{name}: batch {b_sh['tokens'].spec}, parameter specs {sorted(placed)}; "
+              f"loss {float(metrics['loss']):.7f}, grad norm {float(metrics['grad_norm']):.7f}; "
+              f"{len(want)} leaves and 4 metrics {'bitwise equal' if not differ else differ[:6]}")
+        check(not differ, f"{name}: the mesh step differs from the plain step at {differ[:6]}")
+        want_launch = {"rmsnorm": 2 * layers + 1 + 2 * layers, "flash_attention": 2 * layers,
+                       "wgmma": 2 * layers}
+        got_launch = {k: counts[k] for k in want_launch}
+        print(f"  launches in one mesh step {got_launch}, expected {want_launch} (the plain "
+              "step's: forward + remat recompute)")
+        check(got_launch == want_launch, f"{name}: launches {got_launch}, expected {want_launch}")
+        for k in rec["launches"]:
+            rec["launches"][k] += got_launch[k]
+        del want, want_metrics, got, new, metrics
+        _free()
+        # each chain from a fresh state that only the chain holds
+        gen = torch.Generator(device="cuda")
+        mesh_ms, mesh_peak = _timed_steps(step, init(gen.manual_seed(SEED)), batch, TRAIN_WARM,
+                                          MESH_TIMED_STEPS)
+        _free()
+        plain_ms, plain_peak = _timed_steps(plain_step, _plain_alias(init(gen.manual_seed(SEED))),
+                                            batch, TRAIN_WARM, MESH_TIMED_STEPS)
+        med, pmed = statistics.median(mesh_ms), statistics.median(plain_ms)
+        print(f"  step ms over {MESH_TIMED_STEPS} after {TRAIN_WARM} warm-up: mesh median "
+              f"{med:.3f} (min {min(mesh_ms):.3f}, max {max(mesh_ms):.3f}), plain median "
+              f"{pmed:.3f} (min {min(plain_ms):.3f}, max {max(plain_ms):.3f}); mesh / plain "
+              f"{med / pmed:.4f}; peak device memory mesh {mesh_peak:.3f} GB, plain "
+              f"{plain_peak:.3f} GB  [{CARD}]", flush=True)
+        rec[name] = {"mesh_ms": med, "plain_ms": pmed}
+    _free()
+    return rec
+
+
+def phase_mesh_serve() -> dict:
+    """qwen2-1.5b whole with the sequence-sharded true-KV cache through
+    ``jit_prefill`` / ``jit_serve_step`` on (1, 1): in float32 (TF32 off), the
+    logits of a prompt and every teacher-forced decode step against the plain
+    ring cache's within the served tolerance (2e-3 + 2e-3 |want|); in bf16,
+    the decode ms per token beside the plain cache's, and the launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve import jit_prefill, jit_serve_step
+
+    n = SERVE_PROMPT + SERVE_GEN
+    phase(f"mesh serving: {SERVE_ARCH} whole, decode_kv_seq_sharded through jit_prefill / "
+          f"jit_serve_step on (1, 1), prompt {SERVE_PROMPT} + {SERVE_GEN} teacher-forced tokens, "
+          "against the plain ring cache (float32: 2e-3 + 2e-3 |want|; bf16: timed)")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    rec: dict = {}
+    for dtype in ("float32", "bfloat16"):
+        _free()
+        cfg_p = get_config(SERVE_ARCH, compute_dtype=dtype)
+        cfg_s = dataclasses.replace(cfg_p, decode_kv_seq_sharded=True)
+        plain, seq = build_model(cfg_p), build_model(cfg_s)
+        params = plain.for_serving(plain.init(torch.Generator(device="cuda").manual_seed(SEED)))
+        prefill, p_sh, _, c_sh = jit_prefill(mesh, seq, ShapeConfig("p", n, 1, "prefill"))
+        step, _, _, _ = jit_serve_step(mesh, seq, ShapeConfig("d", n, 1, "decode"))
+        dparams = params.replace_leaves({k: sharding.distribute(p, p_sh[k])
+                                         for k, p in params.leaves().items()})
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        tokens = torch.randint(0, cfg_p.vocab_size, (1, n), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        worst, times = 0.0, {"plain": [], "seq": []}
+        counts = {"rmsnorm": 0, "flash_attention": 0, "splitkv": 0, "wgmma": 0, "simt": 0}
+
+        def seq_path(fn, *args):
+            """``fn(*args)`` of the seq-sharded path, its launches counted alone."""
+            _reset_counts()
+            out = fn(*args)
+            for k in counts:
+                counts[k] += _counts()[k]
+            return out
+
+        with torch.inference_mode():
+            a, ca, ta = plain.prefill(params, {"tokens": tokens[:, :SERVE_PROMPT]}, n)
+            b, cb, tb = seq_path(prefill, dparams, {"tokens": tokens[:, :SERVE_PROMPT]})
+            check("ks" in cb[0] and isinstance(cb[0]["ks"], torch.distributed.tensor.DTensor)
+                  and str(c_sh[0]["ks"].spec) == "PartitionSpec('data', 'model', None, None)",
+                  f"the served cache is not the sequence-sharded DTensor ring: {sorted(cb[0])}")
+            pairs = [(b, a)]
+            for i in range(SERVE_GEN - 1):
+                tok = tokens[:, SERVE_PROMPT + i:SERVE_PROMPT + i + 1]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                a, ca, ta = plain.decode_step(params, ca, tok, ta)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                b, cb, tb = seq_path(step, dparams, cb, tok, tb)
+                torch.cuda.synchronize()
+                times["plain"].append((t1 - t0) * 1e3)
+                times["seq"].append((time.perf_counter() - t1) * 1e3)
+                pairs.append((b, a))
+        for i, (got, want) in enumerate(pairs):
+            err = (got.float() - want.float()).abs()
+            worst = max(worst, float(err.max()))
+            if dtype == "float32":
+                check(bool(torch.isfinite(got).all())
+                      and bool((err <= 2e-3 + 2e-3 * want.float().abs()).all()),
+                      f"float32 step {i}: seq-sharded logits differ from the plain ring's by "
+                      f"{float(err.max())}")
+            else:
+                check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+                      f"bf16 step {i}: logits {tuple(got.shape)} not finite")
+        steps = SERVE_GEN - 1
+        # the seq-sharded path: every norm of the prefill and of each decode
+        # step, the prefill's attention over the activations; its decode
+        # attends by the einsum combine (no attention kernel)
+        want_counts = {"rmsnorm": (1 + steps) * (2 * cfg_p.n_layers + 1),
+                       "flash_attention": cfg_p.n_layers}
+        med = {k: statistics.median(v[2:]) for k, v in times.items()}
+        got_counts = {k: counts[k] for k in want_counts}
+        print(f"{dtype}: prefill + {steps} decode steps, max |seq-sharded - plain ring| "
+              f"{worst:.3e} over {cfg_p.padded_vocab} logits; decode ms/token median (after 2) "
+              f"seq-sharded {med['seq']:.3f}, plain ring {med['plain']:.3f}; the seq-sharded "
+              f"path's launches {counts}, expected {want_counts}  [{CARD}]", flush=True)
+        check(got_counts == want_counts,
+              f"{dtype} serving launches {got_counts}, expected {want_counts}")
+        rec[dtype] = {"seq_ms": med["seq"], "plain_ms": med["plain"], "max_err": worst,
+                      **counts}
+        del params, dparams, ca, cb, pairs
+    _free()
+    return rec
+
+
+def phase_mesh_allreduce() -> None:
+    """``compressed_allreduce_mean`` on NCCL over qwen2-1.5b's largest leaf
+    (the 151936 x 1536 embedding's shape): ``q``, ``scale`` and the new error
+    feedback bitwise the plain arithmetic on the CPU, the mean within 1e-6 of
+    the terms' size; its time beside its bytes bound."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives
+
+    cfg = get_config(SERVE_ARCH)
+    shape = (cfg.padded_vocab, cfg.d_model)
+    phase(f"mesh: int8 compressed all-reduce on NCCL over a {shape} float32 leaf")
+    _free()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    x = torch.randn(shape, generator=gen, device="cuda") * 1e-3
+    ef0 = torch.randn(shape, generator=gen, device="cuda") * 1e-6
+    mean, ef = collectives.compressed_allreduce_mean(x, ef0, None)
+    q, scale = collectives.quantize_int8(x + ef0)
+    x_c, ef0_c = x.cpu(), ef0.cpu()
+    y_c = x_c + ef0_c
+    q_c, scale_c = collectives.quantize_int8(y_c)
+    ef_c = y_c - collectives.dequantize_int8(q_c, scale_c)
+    same = {"q": torch.equal(q.cpu(), q_c), "scale": torch.equal(scale.cpu(), scale_c),
+            "ef": torch.equal(ef.cpu(), ef_c)}
+    term = (scale_c.abs() * q_c.float().abs())
+    mean_ok = bool(((mean.cpu() - scale_c * q_c.float()).abs() <= 1e-6 * term).all())
+    print(f"card against the CPU's arithmetic: {same}; mean within 1e-6 of its term: {mean_ok}; "
+          f"world {dist.get_world_size()}")
+    check(all(same.values()) and mean_ok, f"compressed all-reduce differs: {same}, mean {mean_ok}")
+    ms = device_ms_per_call(lambda: collectives.compressed_allreduce_mean(x, ef0, None), 10)
+    bound = 16 * x.numel() / CARD_BYTES_PER_S * 1e3  # read x and ef, write mean and ef
+    print(f"{ms:.4f} ms a call (card busy, profiled) against a bytes bound of {bound:.4f} ms "
+          f"(x and ef read, mean and ef written, 16 B an element at 3.35 TB/s): "
+          f"{bound / ms:.1%} of it  [{CARD}]", flush=True)
+    del x, ef0, mean, ef, q
+    _free()
+
+
+def phase_mesh_checkpoint() -> None:
+    """A mesh state of qwen2-1.5b at full width, 2 layers, one step on (1, 1),
+    saved and restored onto the RDP (1, 1, 1) mesh: bitwise every leaf."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import PipelineConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, cosine_with_warmup
+    from repro_torch.runtime.train import jit_init_state, jit_train_step
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_CHECK_LAYERS)
+    phase(f"mesh checkpoint: {TRAIN_ARCH} at full width, {cfg.n_layers} layers, one step on "
+          "(1, 1), saved, restored onto (1, 1, 1) ('replica', 'shard', 'model')")
+    model = build_model(cfg)
+    opt = AdamW(cosine_with_warmup(3e-3, 1, RESTART_STEPS))
+    mesh = make_mesh((1, 1), ("data", "model"))
+    init, _ = jit_init_state(mesh, model, opt)
+    step, _, _ = jit_train_step(mesh, model, opt, ShapeConfig("t", TRAIN_SEQ, TRAIN_BATCH,
+                                                                "train"))
+    pipe = SyntheticLM(PipelineConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED))
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in pipe.global_batch(0).items()}
+    state, _ = step(init(torch.Generator(device="cuda").manual_seed(SEED)), batch)
+    ckdir = ROOT / "build" / "mesh_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    CheckpointManager(ckdir, keep=1).save(1, state)
+    save_s = time.perf_counter() - t0
+    rdp_mesh = make_mesh((1, 1, 1), ("replica", "shard", "model"))
+    like = jit_init_state(rdp_mesh, model, opt)[0](
+        torch.Generator(device="cuda").manual_seed(SEED + 1))
+    restored, s = CheckpointManager(ckdir, keep=1).restore(like)
+    want, got = _state_leaves(state), _state_leaves(restored)
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    on_rdp = all(p.device_mesh.mesh_dim_names == ("replica", "shard", "model")
+                 for p in restored.params.leaves().values())
+    print(f"saved in {save_s:.2f} s; restored step {s} onto the RDP mesh ({on_rdp}): "
+          f"{len(want)} leaves {'bitwise equal' if not differ else differ[:6]}", flush=True)
+    check(s == 1 and on_rdp and not differ, f"mesh checkpoint restore differs at {differ[:6]}")
+    del state, restored, like, want, got
+    shutil.rmtree(ckdir, ignore_errors=True)
+    _free()
+
+
 def main() -> int:
     try:
         import torch
@@ -3311,9 +3684,23 @@ def main() -> int:
         phase_train_restart()
         print(f"\ntraining: {time.perf_counter() - t_train:.1f} s; the whole script "
               f"{time.perf_counter() - T0:.1f} s so far", flush=True)
+        t_mesh = time.perf_counter()
+        phase_mesh_init()
+        try:
+            mesh_train = phase_mesh_train()
+            mesh_serve = phase_mesh_serve()
+            phase_mesh_allreduce()
+            phase_mesh_checkpoint()
+        finally:
+            torch.distributed.destroy_process_group()
+        print(f"\nmesh paths: {time.perf_counter() - t_mesh:.1f} s; the whole script "
+              f"{time.perf_counter() - T0:.1f} s so far", flush=True)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    # the mesh train steps' launches, and the seq-sharded serving path's (both dtypes)
+    mesh_launches = {k: mesh_train["launches"][k] + sum(mesh_serve[d][k] for d in mesh_serve)
+                     for k in ("rmsnorm", "flash_attention")}
     rows = [
         # name, record, launches on the main paths, replaces
         ("masked_cover", cover_rec,
@@ -3323,12 +3710,13 @@ def main() -> int:
         ("rmsnorm", dict(rms_rec, max_abs_err=max(rms_rec["max_abs_err"],
                                                   zoo_rms_rec["max_abs_err"],
                                                   train_rec["rmsnorm"]["max_abs_err"])),
-         serve_launches["rmsnorm"] + zoo_launches["rmsnorm"] + train_launches["rmsnorm"],
+         serve_launches["rmsnorm"] + zoo_launches["rmsnorm"] + train_launches["rmsnorm"]
+         + mesh_launches["rmsnorm"],
          "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:31"),
         ("flash_attention", dict(att_rec, max_abs_err=max(
             att_rec["max_abs_err"], train_rec["flash_attention"]["max_abs_err"])),
          serve_launches["flash_attention"] + zoo_launches["flash_attention"]
-         + train_launches["flash_attention"],
+         + train_launches["flash_attention"] + mesh_launches["flash_attention"],
          "flash_attention.cu", "src/repro/kernels/flash_attention.py:104"),
     ]
     kernels = [{
@@ -3351,17 +3739,20 @@ def main() -> int:
     kernels[2]["decode"] = att_rec["decode"]
     kernels[2]["launches_by_kernel"] = {
         k: serve_launches["flash_attention_by_kernel"][k] + zoo_launches[k]
-        + (train_launches["wgmma"] if k == "wgmma" else 0)
+        + (train_launches["wgmma"] + mesh_train["launches"]["wgmma"] if k == "wgmma" else 0)
+        + sum(mesh_serve[d][k] for d in mesh_serve)
         for k in ("splitkv", "wgmma", "simt")}
     # the model zoo's new shapes: RMSNorm at d_inner 5120, attention at hd 80
     kernels[1]["zoo"] = {k: zoo_rms_rec[k] for k in ("prefill", "decode")}
     kernels[2]["zoo"] = att_rec["zoo"]
     kernels[1]["launches_by_path"] = {"serve": serve_launches["rmsnorm"],
                                       "zoo": zoo_launches["rmsnorm"],
-                                      "train": train_launches["rmsnorm"]}
+                                      "train": train_launches["rmsnorm"],
+                                      "mesh": mesh_launches["rmsnorm"]}
     kernels[2]["launches_by_path"] = {"serve": serve_launches["flash_attention"],
                                       "zoo": zoo_launches["flash_attention"],
-                                      "train": train_launches["flash_attention"]}
+                                      "train": train_launches["flash_attention"],
+                                      "mesh": mesh_launches["flash_attention"]}
     # the training shapes: the forward kernel and the plain-torch backward
     kernels[1]["train"] = train_rec["rmsnorm"]
     kernels[2]["train"] = train_rec["flash_attention"]

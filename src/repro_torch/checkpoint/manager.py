@@ -16,6 +16,12 @@ Tensors are copied to the host before a save returns (``save_async``
 included) and come back on the device and in the dtype of the ``like``
 tree's leaf, with its ``requires_grad``.  numpy has no bfloat16, so a
 bfloat16 leaf is refused rather than saved as something else.
+
+A mesh state (DTensor leaves, ``runtime/train.py::jit_train_step``) is saved
+whole: every rank gathers each leaf (``full_tensor()``, a collective, so
+every rank calls ``save``) and rank 0 alone writes.  It restores onto any
+mesh: a DTensor leaf of ``like`` (from ``jit_init_state`` on the new mesh)
+gives the mesh and placements the loaded leaf is distributed to.
 """
 from __future__ import annotations
 
@@ -28,7 +34,10 @@ from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from ..distributed import sharding
 from ..models.common import Params
 
 __all__ = ["CheckpointManager"]
@@ -74,6 +83,9 @@ def _restore_leaf(like: Any, arr: np.ndarray) -> Any:
         if tuple(arr.shape) != tuple(like.shape):
             raise ValueError(f"checkpoint leaf of shape {arr.shape}, expected {tuple(like.shape)}")
         t = torch.from_numpy(arr).to(device=like.device, dtype=like.dtype)
+        if isinstance(like, DTensor):
+            t = sharding.distribute(t, sharding.NamedSharding(like.device_mesh,
+                                                              sharding.spec_of(like)))
         if isinstance(like, torch.nn.Parameter):
             return torch.nn.Parameter(t, requires_grad=like.requires_grad)
         return t.requires_grad_(like.requires_grad)
@@ -87,8 +99,15 @@ def _to_host(key: str, leaf: Any) -> np.ndarray:
         if leaf.dtype == torch.bfloat16:
             raise ValueError(f"checkpoint leaf {key} is bfloat16, which numpy cannot hold; "
                              "save float32 master weights")
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()  # a collective: every rank saves
         return leaf.detach().to("cpu", copy=True).numpy()  # a copy, also of a CPU tensor
     return np.array(leaf)
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a world, or a lone process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 class CheckpointManager:
@@ -102,13 +121,17 @@ class CheckpointManager:
     # -- save -----------------------------------------------------------------
 
     def save(self, step: int, state: Any) -> pathlib.Path:
-        return self._write(step, [(k, _to_host(k, v)) for k, v in _flatten(state)])
+        host = [(k, _to_host(k, v)) for k, v in _flatten(state)]
+        if not _writes():
+            return self.dir / f"{PREFIX}{step:08d}"
+        return self._write(step, host)
 
     def save_async(self, step: int, state: Any) -> None:
         """Device->host copy happens now; disk I/O overlaps the next steps."""
         self.wait()
         host = [(k, _to_host(k, v)) for k, v in _flatten(state)]
-        self._pending = self._pool.submit(self._write, step, host)
+        if _writes():
+            self._pending = self._pool.submit(self._write, step, host)
 
     def wait(self) -> None:
         if self._pending is not None:

@@ -1,7 +1,8 @@
-"""Replicated data parallelism's host side (port of ``repro.distributed``, in part).
+"""Multi-device code on ``torch.distributed`` (port of ``repro.distributed``).
 
-Only ``rdp``'s host part is ported: the shard assignment, its coverage after
-failures and the elastic controller.  The mesh code (``make_rdp_mesh``,
-``sharding``, ``axes``, ``collectives``) waits for ``torch.distributed``
-(``ROADMAP.md`` §1, item 2).
+``sharding`` (param / cache / batch placements, and moving tensors between a
+rank's full view and its shard), ``axes`` (logical axes for model code),
+``collectives`` (int8 error-feedback all-reduce) and ``rdp`` (the paper's
+policy as a ("replica", "shard", "model") mesh, and its host side).
+``compat`` is jax-version code and has no counterpart.
 """

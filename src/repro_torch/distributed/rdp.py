@@ -14,11 +14,11 @@ plain DP -- but the system gains:
     from the measured step-time distribution and only the mesh factorization
     changes -- data placement is counter-deterministic (see data.pipeline).
 
-Port of ``repro.distributed.rdp``'s host part (``assignment_matrix``,
-``surviving_coverage``, ``Transition``, ``ElasticController``), numpy over the
-port's ``core.batching`` and ``RedundancyPlanner``.  ``make_rdp_mesh`` (the
-("replica", "shard", "model") device mesh) is absent: it waits for the
-mesh code on ``torch.distributed`` (``ROADMAP.md`` §1, item 2).
+Port of ``repro.distributed.rdp``: ``make_rdp_mesh`` builds the
+("replica", "shard", "model") ``DeviceMesh`` (``launch/mesh.py``); the host
+part (``assignment_matrix``, ``surviving_coverage``, ``Transition``,
+``ElasticController``) is numpy over the port's ``core.batching`` and
+``RedundancyPlanner``.
 """
 from __future__ import annotations
 
@@ -30,8 +30,15 @@ import numpy as np
 from ..core import batching
 from ..core.planner import RedundancyPlan, RedundancyPlanner
 from ..core.service_time import ServiceTime
+from ..launch.mesh import make_replicated_mesh
 
-__all__ = ["ElasticController", "Transition", "assignment_matrix", "surviving_coverage"]
+__all__ = ["ElasticController", "Transition", "assignment_matrix", "make_rdp_mesh",
+           "surviving_coverage"]
+
+
+def make_rdp_mesh(plan: RedundancyPlan, model_parallel: int, device_type=None):
+    """Mesh ("replica", "shard", "model") realizing a replication plan."""
+    return make_replicated_mesh(plan.replication, plan.n_batches, model_parallel, device_type)
 
 
 def assignment_matrix(plan: RedundancyPlan) -> np.ndarray:

@@ -22,10 +22,17 @@ ring's W positions sees no key and averages V uniformly (``ROADMAP.md`` §3).
 Where S <= W the two agree; decode is unchanged.
 
 Tensor-parallel head layout (``HeadLayout``): with ``pad_heads_to = 0``, as
-on one card, it degenerates to plain GQA (``repeat = 1``, no head mask).
-Not ported yet: the sequence-sharded decode cache (``decode_kv_seq_sharded``,
-multi-chip), which raises ``NotImplementedError`` naming its ``ROADMAP.md``
-item.
+on one card, it degenerates to plain GQA (``repeat = 1``, no head mask);
+with ``pad_heads_to > 0`` KV heads repeat and padded query slots are masked,
+so the math is the unpadded model's.
+
+The sequence-sharded true-KV cache (``decode_kv_seq_sharded``, no window):
+``{"ks", "vs": (B, W, K_true, hd), "poss": (W,)}`` per layer, no head
+repetition.  A prefill writes the ring and attends over the activations; a
+decode step is :func:`_seq_sharded_decode`.  Under a mesh
+(``runtime/serve.py``) the ring is a DTensor sharded on its sequence over
+the ``"model"`` axis, and each model rank attends over its chunk; the ranks
+combine their partial softmax statistics with all-reduces.
 
 Training: :func:`train_loss` is the reference's (CE plus the MoE router's
 aux loss).  With ``cfg.remat`` and autograd recording, each block runs
@@ -43,10 +50,13 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
+from ..distributed import axes as _axes
 from .common import Params, cast_for_compute, cross_entropy_loss, dense_init
 from .layers import (
     apply_mrope,
@@ -62,9 +72,6 @@ from .layers import (
 from .moe import init_moe, moe_ffn
 
 Cache = List[Dict[str, torch.Tensor]]
-
-_SEQ_SHARDED = ("the sequence-sharded decode cache is multi-chip: it waits for distributed/ "
-                "on torch.distributed (ROADMAP.md open items, 3.7)")
 
 
 # --------------------------------------------------------------------------
@@ -174,7 +181,24 @@ def attention_apply(
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     if cache is not None and "ks" in cache:
-        raise NotImplementedError(_SEQ_SHARDED)
+        # sequence-sharded TRUE-KV cache mode (no xR head repetition)
+        if s == 1:  # decode: partial-softmax combine over the ring's chunks
+            o = _seq_sharded_decode(cfg, layout, q, k, v, cache, positions[0, 0])
+        else:
+            # prefill on a fresh (plain) cache: write the true-KV ring; attend
+            # over the activations (the empty-cache contents are exactly k/v)
+            w = cache["ks"].shape[1]
+            keep = min(s, w)
+            pos_tail = positions[0, s - keep :]
+            slots = (pos_tail % w).long()
+            cache["ks"].index_copy_(1, slots, k[:, s - keep :])
+            cache["vs"].index_copy_(1, slots, v[:, s - keep :])
+            cache["poss"].index_copy_(0, slots, pos_tail.int())
+            o = flash_attention(q, k, v, positions, positions, causal=cfg.is_causal,
+                                window=window)
+        if layout.h_pad != layout.n_heads:
+            o = o * layout.head_mask(o.device)[None, None, :, None].to(o.dtype)
+        return o.reshape(b, s, layout.h_pad * hd) @ p["wo"], cache
 
     k = repeat_kv(k, layout.repeat)
     v = repeat_kv(v, layout.repeat)
@@ -201,6 +225,85 @@ def attention_apply(
         o = o * layout.head_mask(o.device)[None, None, :, None].to(o.dtype)
     out = o.reshape(b, s, layout.h_pad * hd) @ p["wo"]
     return out, new_cache
+
+
+# --------------------------------------------------------------------------
+# sequence-sharded KV decode (partial-softmax combine)
+# --------------------------------------------------------------------------
+
+
+def _attend(qg, ck, cv, pos, t, scale):
+    """Partial flash statistics of one chunk, in float32.  Returns (m, l, acc)."""
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), ck.float()) * scale  # (B,K,G',1,wl)
+    valid = (pos >= 0) & (pos <= t)
+    s = torch.where(valid[None, None, None, None, :], s,
+                    torch.finfo(torch.float32).min / 2)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    lsum = p.sum(dim=-1)
+    acc = torch.einsum("bkgqs,bskd->bkgqd", p, cv.float())
+    return m, lsum, acc
+
+
+def _write(ck, cv, pos, kn, vn, t, slot_local, active):
+    """Write the new token at ``slot_local`` where ``active`` (a 0-d bool
+    tensor), IN PLACE; the slot keeps its contents elsewhere."""
+    idx = slot_local.long().reshape(1)
+    ck.index_copy_(1, idx, torch.where(active, kn, ck.index_select(1, idx)))
+    cv.index_copy_(1, idx, torch.where(active, vn, cv.index_select(1, idx)))
+    pos.index_copy_(0, idx, torch.where(active, t.int().reshape(1), pos.index_select(0, idx)))
+
+
+def _seq_sharded_decode(cfg: ArchConfig, layout: HeadLayout, q, k_new, v_new, cache, t):
+    """Decode attention over a sequence-sharded true-KV cache -> (B,1,H_pad,hd).
+
+    q: (B,1,H_pad,hd); k_new / v_new: (B,1,K_true,hd); cache: {"ks","vs":
+    (B,W,K_true,hd), "poss": (W,)}, plain tensors or DTensors; t: the 0-d
+    position.  Each model rank holds a W/TP chunk of the ring (TRUE kv heads --
+    no xR repetition), writes the new token if its slot lands locally,
+    computes the partial flash statistics over its chunk, and the ranks
+    combine with a max/sum reduction: o = sum(acc*exp(m-M)) / sum(l*exp(m-M)).
+    With no logical-axes context, no model axis, or a model axis that does not
+    divide W, the whole ring is local (the reference's single-device branch);
+    so it is under a model axis of size 1, where the combine is the identity
+    (M = m, exp(0) = 1) and this branch gives the same values with no
+    collective.  The cache is written in place.
+    """
+    ctx = _axes.current()
+    b, _, h_pad, hd = q.shape
+    gp = layout.repeat * layout.g_pad  # query slots per TRUE kv head
+    scale = 1.0 / math.sqrt(hd)
+    w_total = cache["ks"].shape[1]  # a DTensor's shape is the global one
+    ck, cv, pos = (x.to_local() if isinstance(x, DTensor) else x
+                   for x in (cache["ks"], cache["vs"], cache["poss"]))
+    qg = q.reshape(b, 1, layout.n_kv, gp, hd)
+    slot = t % w_total
+    tp = ctx.axis_size(ctx.model) if ctx is not None and ctx.model else 1
+    if tp == 1 or w_total % tp:
+        # single-device / unsharded: same math, whole buffer local
+        _write(ck, cv, pos, k_new, v_new, t, slot, torch.ones((), dtype=torch.bool,
+                                                               device=q.device))
+        m, lsum, acc = _attend(qg, ck, cv, pos, t, scale)
+        o = acc / torch.clamp(lsum[..., None], min=1e-30)
+        return o.reshape(b, 1, h_pad, hd).to(q.dtype)
+
+    mesh = ctx.mesh
+    group = mesh.get_group(ctx.model)
+    wl = ck.shape[1]
+    lo = mesh.get_local_rank(ctx.model) * wl
+    active = (slot >= lo) & (slot < lo + wl)
+    _write(ck, cv, pos, k_new, v_new, t, torch.clamp(slot - lo, 0, wl - 1), active)
+    m, lsum, acc = _attend(qg, ck, cv, pos, t, scale)
+    # flash combine across seq shards
+    m_g = m.clone()
+    dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
+    alpha = torch.exp(m - m_g)
+    l_g = lsum * alpha
+    dist.all_reduce(l_g, op=dist.ReduceOp.SUM, group=group)
+    acc_g = acc * alpha[..., None]
+    dist.all_reduce(acc_g, op=dist.ReduceOp.SUM, group=group)
+    o = acc_g / torch.clamp(l_g[..., None], min=1e-30)
+    return o.reshape(b, 1, h_pad, hd).to(q.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -373,10 +476,19 @@ def forward(
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None) -> Cache:
-    """One zeroed ring buffer per layer, ``pos`` -1 in every (unwritten) slot."""
-    if cfg.decode_kv_seq_sharded and not cfg.window:
-        raise NotImplementedError(_SEQ_SHARDED)
+    """One zeroed ring buffer per layer, ``pos`` -1 in every (unwritten) slot.
+
+    With ``decode_kv_seq_sharded`` (and no window) the ring holds the TRUE
+    kv heads: ``{"ks", "vs": (B, W, K, hd), "poss": (W,)}``.
+    """
     dev = resolve_device(device)
+    if cfg.decode_kv_seq_sharded and not cfg.window:
+        w, dtype = max_len, cfg.dtype("compute")
+        shape = (batch, w, cfg.n_kv_heads, cfg.head_dim)
+        return [{"ks": torch.zeros(shape, dtype=dtype, device=dev),
+                 "vs": torch.zeros(shape, dtype=dtype, device=dev),
+                 "poss": torch.full((w,), -1, dtype=torch.int32, device=dev)}
+                for _ in range(cfg.n_layers)]
     return [kv_cache(cfg, batch, max_len, dev) for _ in range(cfg.n_layers)]
 
 

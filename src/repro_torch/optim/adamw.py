@@ -87,8 +87,14 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads: Tree, state: OptState, params: Tree):
         """Returns (updates, new_state, metrics)."""
+        return self.update_shards(grads, state, params, global_norm(_leaves(grads)))
+
+    @torch.no_grad()
+    def update_shards(self, grads: Tree, state: OptState, params: Tree, gnorm: torch.Tensor):
+        """:meth:`update` of shards of a tree whose whole gradient has the
+        global norm ``gnorm`` (each rank of a mesh step updates its own
+        shards; the update is elementwise once the clipping scale is known)."""
         grads, leaves = _leaves(grads), _leaves(params)
-        gnorm = global_norm(grads)
         scale = None
         if self.clip_norm is not None:
             scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)

@@ -1,24 +1,49 @@
-"""Train-step construction: autograd + AdamW on one device.
+"""Train-step construction: autograd + AdamW, on one device or over a mesh.
 
 Port of ``repro.runtime.train``.  A train step is a function of
 ``(TrainState, batch)`` returning the next state and the step's metrics, as
-the reference's; PyTorch runs it eagerly on one card.  Gradients come from
+the reference's; PyTorch runs it eagerly.  Gradients come from
 ``torch.autograd.grad`` of the model's ``train_loss`` with respect to every
 leaf of the float32 master weights; AdamW then builds the next parameters
-(the previous state stays as it was).  The reference's ``state_shardings``,
-``jit_train_step`` and ``jit_init_state`` are mesh code: they wait for
-``distributed/`` on ``torch.distributed`` (``ROADMAP.md`` §1, item 2).
+(the previous state stays as it was).
+
+The mesh half (``state_shardings``, ``jit_train_step``, ``jit_init_state``)
+keeps the reference's names; nothing is compiled.  Over a ``DeviceMesh`` the
+parameters and both AdamW moments are DTensors placed by
+``sharding.param_shardings``.  A mesh step gathers the parameters over every
+axis that shards them (FSDP-style), so the forward and its kernels run on
+plain tensors; it runs data-parallel over the batch axes, sums the
+gradients over them, and each rank applies AdamW to its own shards.  It has
+the reference's global-batch semantics: the cross-entropy divides by the
+mask sum of the whole global batch (all-reduced before the backward), and
+the clipping norm is taken over the whole summed gradient.  Tensor-parallel
+compute over ``"model"`` (head-parallel attention, column/row MLPs,
+vocab-parallel cross-entropy), which XLA's partitioner does for the
+reference, is not done: every model rank of a batch shard computes the same
+values (``ROADMAP.md`` §1).  The MoE router's aux loss and its capacity
+dropping are statistics of the batch; over more than one batch shard a mesh
+step of an MoE family raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, NamedTuple
 
 import torch
+import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensorMode
 
+from ..distributed import sharding
+from ..distributed.axes import logical_axes
 from ..models import Model
-from ..optim import AdamW, OptState, apply_updates
+from ..optim import AdamW, OptState, apply_updates, global_norm
 
-__all__ = ["TrainState", "default_microbatches", "init_state", "make_train_step"]
+__all__ = ["TrainState", "default_microbatches", "init_state", "jit_init_state",
+           "jit_train_step", "make_train_step", "param_shapes", "shard_state",
+           "state_shardings"]
+
+_MOE_MESH = ("the MoE router's aux loss and capacity are batch statistics; a mesh step over "
+             "more than one batch shard waits for their all-reduce (ROADMAP.md §1, item 2)")
 
 
 class TrainState(NamedTuple):
@@ -45,6 +70,29 @@ def _value_and_grad(model: Model, params, batch):
     return loss.detach(), {k: m.detach() for k, m in metrics.items()}, grads
 
 
+def _accumulate(value_and_grad: Callable, batch, microbatches: int):
+    """``value_and_grad(batch)``, or with ``microbatches = M > 1`` its mean
+    over M chunks of the batch's rows: float32 gradient sums over M, the
+    loss sum over M, each metric's mean over the chunks."""
+    if microbatches == 1:
+        return value_and_grad(batch)
+    chunks = {k: v.reshape(microbatches, v.shape[0] // microbatches, *v.shape[1:])
+              for k, v in batch.items()}
+    gsum, lsum, metrics_all = None, 0.0, []
+    for i in range(microbatches):
+        loss_i, metrics_i, g_i = value_and_grad({k: v[i] for k, v in chunks.items()})
+        if gsum is None:  # zeros + g: the first chunk's gradients, in float32
+            gsum = {k: g.float() for k, g in g_i.items()}
+        else:
+            for k, g in g_i.items():
+                gsum[k].add_(g.float())
+        lsum = lsum + loss_i
+        metrics_all.append(metrics_i)
+    grads = {k: g / microbatches for k, g in gsum.items()}
+    metrics = {k: torch.stack([m[k] for m in metrics_all]).mean() for k in metrics_all[0]}
+    return lsum / microbatches, metrics, grads
+
+
 def make_train_step(model: Model, optimizer: AdamW, microbatches: int = 1) -> Callable:
     """Train step with optional gradient accumulation.
 
@@ -57,26 +105,8 @@ def make_train_step(model: Model, optimizer: AdamW, microbatches: int = 1) -> Ca
     """
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        if microbatches == 1:
-            loss, metrics, grads = _value_and_grad(model, state.params, batch)
-        else:
-            chunks = {k: v.reshape(microbatches, v.shape[0] // microbatches, *v.shape[1:])
-                      for k, v in batch.items()}
-            gsum, lsum, metrics_all = None, 0.0, []
-            for i in range(microbatches):
-                loss_i, metrics_i, g_i = _value_and_grad(
-                    model, state.params, {k: v[i] for k, v in chunks.items()})
-                if gsum is None:  # zeros + g: the first chunk's gradients, in float32
-                    gsum = {k: g.float() for k, g in g_i.items()}
-                else:
-                    for k, g in g_i.items():
-                        gsum[k].add_(g.float())
-                lsum = lsum + loss_i
-                metrics_all.append(metrics_i)
-            grads = {k: g / microbatches for k, g in gsum.items()}
-            loss = lsum / microbatches
-            metrics = {k: torch.stack([m[k] for m in metrics_all]).mean()
-                       for k in metrics_all[0]}
+        loss, metrics, grads = _accumulate(
+            lambda chunk: _value_and_grad(model, state.params, chunk), batch, microbatches)
         updates, opt_state, opt_metrics = optimizer.update(
             grads, state.opt_state, state.params
         )
@@ -105,3 +135,183 @@ def default_microbatches(model: Model, shape) -> int:
     while act / m > 6e9 and m < rows and rows % (2 * m) == 0:
         m *= 2
     return m
+
+
+# ---------------------------------------------------------------------------
+# the mesh half
+# ---------------------------------------------------------------------------
+
+
+def param_shapes(model: Model) -> Dict[str, torch.Tensor]:
+    """The parameters by leaf path as fake tensors: shapes and dtypes with no
+    storage (the reference's ``param_specs``, traced under ``FakeTensorMode``)."""
+    with FakeTensorMode():
+        return model.init(torch.Generator()).leaves()
+
+
+def state_shardings(mesh, model: Model, optimizer: AdamW, axes=None) -> TrainState:
+    """NamedSharding tree congruent with TrainState (opt moments ~ params)."""
+    p_sh = sharding.param_shardings(mesh, param_shapes(model), axes)
+    scalar = sharding.scalar_sharding(mesh)
+    return TrainState(step=scalar, params=p_sh, opt_state=OptState(count=scalar, m=p_sh, v=p_sh))
+
+
+def shard_state(state: TrainState, st_sh: TrainState) -> TrainState:
+    """A plain TrainState (the same on every rank) as DTensors placed by
+    ``st_sh``; each rank keeps its own shards (no collective)."""
+    params = state.params.replace_leaves(
+        {k: sharding.distribute(p.detach(), st_sh.params[k])
+         for k, p in state.params.leaves().items()})
+    opt = state.opt_state
+    return TrainState(state.step, params, OptState(
+        opt.count,
+        {k: sharding.distribute(t, st_sh.opt_state.m[k]) for k, t in opt.m.items()},
+        {k: sharding.distribute(t, st_sh.opt_state.v[k]) for k, t in opt.v.items()},
+    ))
+
+
+def jit_init_state(mesh, model: Model, optimizer: AdamW):
+    """``(init, st_sh)``: ``init(generator)`` is :func:`init_state` placed on
+    the mesh by :func:`state_shardings` (nothing is compiled)."""
+    st_sh = state_shardings(mesh, model, optimizer)
+    return (lambda generator: shard_state(init_state(model, optimizer, generator), st_sh)), st_sh
+
+
+def _input_shapes(model: Model, shape) -> Dict[str, torch.Size]:
+    """The reference's ``input_specs`` for a train cell, as shapes."""
+    cfg, b, s = model.cfg, shape.global_batch, shape.seq_len
+    out: Dict[str, torch.Size] = {}
+    if cfg.family in ("vlm", "encoder"):  # modality frontend is a stub
+        out["embeds"] = torch.Size((b, s, cfg.d_model))
+    else:
+        out["tokens"] = torch.Size((b, s))
+    if cfg.family == "vlm":
+        out["mrope_positions"] = torch.Size((b, s, 3))
+    out["labels"] = torch.Size((b, s))
+    out["loss_mask"] = torch.Size((b, s))
+    return out
+
+
+class _BatchAxes:
+    """The batch axes of a mesh: this rank's index among the batch shards,
+    their count, and the groups to sum over (axes of size 1 have nothing to sum)."""
+
+    def __init__(self, mesh, names):
+        sizes = sharding.mesh_sizes(mesh)
+        coord = dict(zip(sizes, mesh.get_coordinate()))
+        self.count = math.prod(sizes[n] for n in names)
+        self.index = 0
+        for n in names:
+            self.index = self.index * sizes[n] + coord[n]
+        self.groups = [mesh.get_group(n) for n in names if sizes[n] > 1]
+
+    def sum_(self, x: torch.Tensor) -> torch.Tensor:
+        for g in self.groups:
+            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=g)
+        return x
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global-batch tensor (dim 0)."""
+        if x.shape[0] % self.count:
+            raise ValueError(f"a batch of {x.shape[0]} rows does not divide over "
+                             f"{self.count} batch shards")
+        n = x.shape[0] // self.count
+        return x[self.index * n:(self.index + 1) * n]
+
+
+def _mesh_value_and_grad(model: Model, params, batch, bx: _BatchAxes):
+    """:func:`_value_and_grad` of this rank's rows, normalised by the whole
+    global batch: the CE loss's divisor ``max(mask.sum(), 1)`` becomes the
+    mask sum over every batch shard (all-reduced before the backward), so
+    summing the ranks' gradients gives the global batch's.  Returns the
+    global loss and metrics and this rank's gradients."""
+    leaves = params.leaves()
+    mask = batch.get("loss_mask")
+    labels = batch["labels"]
+    dev = labels.device
+    local = (mask.float().sum() if mask is not None
+             else torch.tensor(float(labels.numel()), device=dev))
+    total = bx.sum_(local.clone())
+    # exactly 1.0 on one batch shard (x / x), so the step is the plain one there
+    w = torch.clamp(local, min=1.0) / torch.clamp(total, min=1.0)
+    loss, metrics = model.train_loss(params, batch)
+    grads = torch.autograd.grad(loss * w, list(leaves.values()), allow_unused=True)
+    grads = {k: torch.zeros_like(p) if g is None else g
+             for (k, p), g in zip(leaves.items(), grads)}
+    # the MoE aux loss runs on one batch shard only (jit_train_step): as it is
+    metrics = {k: bx.sum_(m.detach() * w) if k == "loss" else m.detach()
+               for k, m in metrics.items()}
+    return bx.sum_((loss.detach() * w)), metrics, grads
+
+
+def jit_train_step(mesh, model: Model, optimizer: AdamW, shape, donate: bool = True,
+                   microbatches: int = 1, mesh_axes=None):
+    """The mesh train step + the (state, batch) shardings it uses.
+
+    Returns ``(step, st_sh, b_sh)`` as the reference's; ``step(state,
+    batch)`` takes a state placed by ``st_sh`` (:func:`jit_init_state`,
+    :func:`shard_state`) and the global batch -- plain tensors, the same on
+    every rank, or DTensors placed by ``b_sh`` -- and returns the next state
+    (DTensors again) and the metrics, the same on every rank.  Nothing is
+    compiled, and the step keeps no reference to the state it was given
+    (``donate`` is accepted for the reference's signature).  With
+    ``microbatches = M`` the global batch splits into M chunks of rows, as the
+    reference's, and each rank takes its rows of each chunk.
+    """
+    del donate
+    axes = mesh_axes or sharding.MeshAxes.infer(mesh)
+    st_sh = state_shardings(mesh, model, optimizer, axes)
+    b_sh = sharding.batch_shardings(mesh, _input_shapes(model, shape), axes)
+    bx = _BatchAxes(mesh, axes.batch)
+    if model.cfg.is_moe and bx.count > 1:
+        raise NotImplementedError(_MOE_MESH)
+
+    slices: Dict[str, tuple] = {}  # each leaf's shard of its whole gradient, by path
+
+    def step(state: TrainState, batch: Dict[str, Any]):
+        with logical_axes(mesh, axes.batch, axes.model, seq=model.cfg.sequence_parallel):
+            return _mesh_step(model, optimizer, microbatches, bx, slices, state, batch)
+
+    return step, st_sh, b_sh
+
+
+def _mesh_step(model: Model, optimizer: AdamW, microbatches: int, bx: _BatchAxes,
+               slices: Dict[str, tuple], state: TrainState, batch):
+    leaves = state.params.leaves()  # path -> DTensor, in the plain tree's order
+    with torch.no_grad():
+        full = {k: sharding.gather(p).detach().requires_grad_(True) for k, p in leaves.items()}
+    params = state.params.replace_leaves(full)
+    batch = {k: sharding.gather(v) for k, v in batch.items()}  # the global batch
+
+    def value_and_grad(chunk):
+        return _mesh_value_and_grad(model, params, {k: bx.rows(v) for k, v in chunk.items()}, bx)
+
+    loss, metrics, grads = _accumulate(value_and_grad, batch, microbatches)
+    del params, full
+    with torch.no_grad():
+        for g in grads.values():
+            bx.sum_(g)
+        # the clipping norm of the whole summed gradient, in the plain step's leaf order
+        gnorm = global_norm({k: grads[k] for k in leaves})
+        opt = state.opt_state
+        local = {k: p.to_local() for k, p in leaves.items()}
+        g_local = {}
+        for k, p in leaves.items():
+            if k not in slices:
+                slices[k] = sharding.local_slice(p.shape, sharding.spec_of(p), p.device_mesh,
+                                                 p.device_mesh.get_coordinate())
+            g_local[k] = grads[k][slices[k]]
+        del grads
+        updates, new_opt, opt_metrics = optimizer.update_shards(
+            g_local, OptState(opt.count, {k: m.to_local() for k, m in opt.m.items()},
+                              {k: v.to_local() for k, v in opt.v.items()}),
+            local, gnorm)
+        del g_local
+        new_local = apply_updates(local, updates)
+
+    place = sharding.with_local
+    params = state.params.replace_leaves({k: place(p, new_local[k]) for k, p in leaves.items()})
+    opt_state = OptState(new_opt.count, {k: place(opt.m[k], t) for k, t in new_opt.m.items()},
+                         {k: place(opt.v[k], t) for k, t in new_opt.v.items()})
+    metrics = {**metrics, **opt_metrics, "loss_total": loss}
+    return TrainState(state.step + 1, params, opt_state), metrics

@@ -44,7 +44,10 @@ pytestmark = pytest.mark.timeout(180)
 
 SEEDS = list(range(max(5, int(os.environ.get("CHAOS_SEEDS", "5")))))
 CPU = {"device": "cpu"}
-KW = dict(heartbeat_s=0.05, heartbeat_timeout_s=2.0, lease_floor_s=30.0)
+# a heartbeat gap of 10 s, not 2, fails a worker: on a loaded host a live
+# worker's heartbeats can stall for seconds, and a worker failed for
+# "heartbeat" first swallows the scheduled kill the assertions need
+KW = dict(heartbeat_s=0.05, heartbeat_timeout_s=10.0, lease_floor_s=30.0)
 
 
 async def join_threads(threads, timeout_s=10.0):
@@ -70,9 +73,24 @@ def chaos_scenario(cl, seed):
     )
 
 
+def missing_before_crash(events) -> list:
+    """What the acceptance scenario's journal must hold before the crash, and
+    does not yet: job 1 in flight (dispatched, not finished), every delivered
+    kill's ``eof`` failure, the payload raise's ``task_fail`` and ``retry``."""
+    kills = {e["wid"] for e in events if e["ev"] == "chaos" and e["kind"] == "kill"}
+    eofs = {e["wid"] for e in events if e["ev"] == "fail" and e["cause"] == "eof"}
+    kinds = {e["ev"] for e in events}
+    missing = [] if any(e["ev"] == "dispatch" and e["job"] == 1 for e in events) \
+        else ["job 1 dispatched"]
+    missing += [] if kills and kills <= eofs else ["the kill and its eof"]
+    missing += [ev for ev in ("task_fail", "retry") if ev not in kinds]
+    return missing
+
+
 async def crash_mid_run(rt, sc, journal, **kw):
-    """Run two jobs under a journaling master and crash it once job 1 is in
-    flight; returns (wids alive at the crash, the last stamp before it)."""
+    """Run two jobs under a journaling master and crash it once the journal
+    holds what the assertions need (:func:`missing_before_crash`: waited on,
+    not timed); returns (wids alive at the crash, the last stamp before it)."""
     master = rt.RuntimeMaster(3, sc, journal=journal, **KW)
     port = await master.start()
     threads = [rt.spawn_worker_thread(master.host, port, **kw) for _ in range(3)]
@@ -84,12 +102,14 @@ async def crash_mid_run(rt, sc, journal, **kw):
         ]
         run_task = asyncio.ensure_future(master.run(jobs, timeout_s=60.0))
         for _ in range(3000):
-            if any(e["ev"] == "dispatch" and e["job"] == 1 for e in master.recorder.events):
+            missing = missing_before_crash(master.recorder.events)
+            if not missing:
                 break
+            if run_task.done():
+                raise AssertionError(f"the run ended before the crash, missing {missing}")
             await asyncio.sleep(0.01)
         else:
-            raise TimeoutError("job 1 was never dispatched")
-        await asyncio.sleep(0.05)
+            raise TimeoutError(f"never seen before the crash: {missing}")
         run_task.cancel()
         try:
             await run_task

@@ -1,0 +1,283 @@
+"""Rank side of the port's multi-rank tests: the mesh code on gloo CPU ranks.
+
+One process per rank:
+
+    python tests/torch_mesh_ranks.py CASES RANK WORLD STORE WORKDIR
+
+Each rank joins a gloo world of WORLD ranks through the ``file://`` store
+STORE, reads ``WORKDIR/inputs.pt`` (written by the test: the reference's
+weights carried into the port, the batches), runs each case of CASES
+(comma-separated) in turn and writes ``WORKDIR/<case>.rank<RANK>.pt``.  A
+case that raises writes its traceback instead, so the other cases still
+report.  Imports torch and the port only (no jax).  The tests call
+:func:`run_ranks`.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import subprocess
+import sys
+import traceback
+
+import torch
+import torch.distributed as dist
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(REPO, "src"))
+
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.core.planner import RedundancyPlan  # noqa: E402
+from repro_torch.distributed import axes, collectives, rdp, sharding  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.optim import AdamW  # noqa: E402
+from repro_torch.runtime.serve import jit_prefill, jit_serve_step  # noqa: E402
+from repro_torch.runtime.train import (  # noqa: E402
+    TrainState, jit_init_state, jit_train_step, shard_state)
+
+B, S = 8, 16
+S_PRE, S_MAX = 12, 16
+
+
+def train_cfg():
+    return get_config("qwen2-1.5b", smoke=True, param_dtype="float32", compute_dtype="float32")
+
+
+def decode_cfg(seq_sharded: bool):
+    return get_config("qwen2-1.5b", smoke=True, param_dtype="float32", compute_dtype="float32",
+                      pad_heads_to=4, decode_kv_seq_sharded=seq_sharded)
+
+
+def optimizer() -> AdamW:
+    return AdamW(learning_rate=1e-2, weight_decay=0.0)
+
+
+def params_of(model, leaves: dict):
+    """The port's Params carrying ``leaves`` (by path)."""
+    return model.init(torch.Generator().manual_seed(0)).replace_leaves(leaves)
+
+
+def plain_state(model, opt, leaves: dict) -> TrainState:
+    params = params_of(model, leaves).trainable()
+    return TrainState(torch.zeros((), dtype=torch.int32), params, opt.init(params))
+
+
+def full_state(state: TrainState) -> dict:
+    """Every leaf of a mesh state, whole (a collective: every rank calls it)."""
+    out = {"step": state.step.clone(), "count": state.opt_state.count.clone()}
+    for k, p in state.params.leaves().items():
+        out[f"params.{k}"] = p.full_tensor()
+    for name in ("m", "v"):
+        for k, t in getattr(state.opt_state, name).items():
+            out[f"{name}.{k}"] = t.full_tensor()
+    return out
+
+
+def local_state(state: TrainState) -> dict:
+    return {f"params.{k}": p.to_local().clone() for k, p in state.params.leaves().items()}
+
+
+def _step(inp, mesh, axes, batch_key="batch", microbatches=1):
+    """One mesh step from the reference's weights; ``mesh``: a DeviceMesh, or
+    a shape to make one of with ``axes``."""
+    model, opt = build_model(train_cfg()), optimizer()
+    if axes is not None:
+        mesh = make_mesh(mesh, axes, device_type="cpu")
+    step, st_sh, b_sh = jit_train_step(mesh, model, opt, ShapeConfig("t", S, B, "train"),
+                                       donate=False, microbatches=microbatches)
+    state = shard_state(plain_state(model, opt, inp["params"]), st_sh)
+    batch = dict(inp["batch"])
+    if batch_key != "batch":
+        batch["loss_mask"] = inp[batch_key]
+    # half the leaves as DTensors placed by b_sh, half as the plain global batch
+    batch["tokens"] = sharding.distribute(batch["tokens"], b_sh["tokens"])
+    new, metrics = step(state, batch)
+    return new, metrics, {k: str(s.spec) for k, s in b_sh.items()}
+
+
+def case_step42(inp):
+    new, metrics, b_spec = _step(inp, (4, 2), ("data", "model"))
+    return {"loss": metrics["loss"], "grad_norm": metrics["grad_norm"], "b_spec": b_spec,
+            "state": full_state(new), "local": local_state(new)}
+
+
+def case_rdp222(inp):
+    plan = RedundancyPlan(n_workers=4, n_batches=2, replication=2, objective="mean",
+                          predicted_mean=0.0, predicted_cov=0.0, frontier_B=(),
+                          frontier_mean=(), frontier_cov=(), source="test")
+    new, metrics, b_spec = _step(inp, rdp.make_rdp_mesh(plan, 2, device_type="cpu"), None)
+    return {"loss": metrics["loss"], "grad_norm": metrics["grad_norm"], "b_spec": b_spec,
+            "state": full_state(new), "local": local_state(new)}
+
+
+def case_micro(inp):
+    new, metrics, _ = _step(inp, (2, 4), ("data", "model"), microbatches=4)
+    return {"loss": metrics["loss"], "state": full_state(new)}
+
+
+def case_ragged(inp):
+    new, metrics, _ = _step(inp, (4, 2), ("data", "model"), batch_key="ragged_mask")
+    return {"loss": metrics["loss"], "grad_norm": metrics["grad_norm"],
+            "state": full_state(new)}
+
+
+def case_allreduce(inp):
+    mesh = make_mesh((dist.get_world_size(),), ("pod",), device_type="cpu")
+    group = mesh.get_group("pod")
+    x = inp["ar_x"][dist.get_rank()]
+    ef = torch.zeros_like(x)
+    q, scale = collectives.quantize_int8(x.float() + ef)
+    mean, ef1 = collectives.compressed_allreduce_mean(x, ef, group)
+    plain = collectives.allreduce_mean(x, group)
+    efs, running = ef, torch.zeros_like(x)
+    for _ in range(30):
+        m, efs = collectives.compressed_allreduce_mean(x, efs, group)
+        running = running + m
+    return {"q": q, "scale": scale, "mean": mean, "ef": ef1, "plain": plain,
+            "running": running / 30}
+
+
+def case_ckpt_save(inp):
+    new, metrics, _ = _step(inp, (4, 2), ("data", "model"))
+    CheckpointManager(inp["ckpt_dir"], keep=1).save(1, new)
+    return {"state": full_state(new), "wrote": sorted(os.listdir(inp["ckpt_dir"]))}
+
+
+def case_ckpt_restore(inp):
+    model, opt = build_model(train_cfg()), optimizer()
+    mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+    init, st_sh = jit_init_state(mesh, model, opt)
+    like = init(torch.Generator().manual_seed(1))  # other weights: restore must replace them
+    restored, step_no = CheckpointManager(inp["ckpt_dir"], keep=1).restore(like)
+    placed = all(p.placements == st_sh.params[k].placements
+                 for k, p in restored.params.leaves().items())
+    saved = full_state(restored)
+    step, _, _ = jit_train_step(mesh, model, opt, ShapeConfig("t", S, B, "train"), donate=False)
+    new, metrics = step(restored, inp["batch"])
+    return {"step": step_no, "placed": placed, "restored": saved, "loss": metrics["loss"],
+            "state": full_state(new)}
+
+
+def _serve(inp, seq_sharded: bool):
+    model = build_model(decode_cfg(seq_sharded))
+    mesh = make_mesh((2, 4), ("data", "model"), device_type="cpu")
+    shape = ShapeConfig("d", S_MAX, B, "decode")
+    prefill, p_sh, b_sh, c_sh = jit_prefill(mesh, model, ShapeConfig("p", S_MAX, B, "prefill"))
+    step, p_sh2, c_sh2, tok_sh = jit_serve_step(mesh, model, shape, donate=False)
+    params = params_of(model, inp["dec_params"])
+    params = params.replace_leaves({k: sharding.distribute(p, p_sh[k])
+                                    for k, p in params.leaves().items()})
+    toks = inp["dec_tokens"]
+    logits, cache, t = prefill(params, {"tokens": toks[:, :S_PRE]})
+    out = {"prefill": logits, "c_spec": sharding.describe(c_sh),
+           "local_cache": {k: v.to_local().clone() for k, v in cache[0].items()}}
+    for i in range(3):
+        logits, cache, t = step(params, cache, toks[:, S_PRE + i:S_PRE + i + 1], t)
+        out[f"decode{i}"] = logits
+    out["cache"] = {k: v.full_tensor() for k, v in cache[0].items()}
+    return out
+
+
+def case_seqdecode(inp):
+    return _serve(inp, True)
+
+
+def case_ringdecode(inp):
+    return _serve(inp, False)
+
+
+def case_rows(inp):
+    """Which elements each rank holds under a few specs, for the element order;
+    and ``axes.shard`` moving a DTensor to the placements its roles resolve to."""
+    out = {}
+    full = torch.arange(16 * 8).reshape(16, 8)
+    for names in (("pod", "data", "model"), ("replica", "shard", "model")):
+        mesh = make_mesh((2, 2, 2), names, device_type="cpu")
+        for name, spec in inp["row_specs"][names].items():
+            sh = sharding.NamedSharding(mesh, sharding.PartitionSpec(*spec))
+            out[f"{names[0]}:{name}"] = sharding.distribute(full, sh).to_local().clone()
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), device_type="cpu")
+    x = sharding.distribute(full, sharding.NamedSharding(
+        mesh, sharding.PartitionSpec(("pod", "data"))))
+    with axes.logical_axes(mesh, ("pod", "data"), "model"):
+        out["shard:model"] = axes.shard(x, None, "model").to_local().clone()
+        out["shard:both"] = axes.shard(x, "batch", "model").to_local().clone()
+        out["shard:cols"] = axes.shard(x, None, "batch").to_local().clone()
+    return out
+
+
+def case_launch(inp):
+    """The launcher's command line (the smoke config: bfloat16 compute)."""
+    from repro_torch.launch import train as launch_train
+
+    launch_train.main(["--arch", "qwen2-1.5b", "--smoke", "--steps", "3", "--seq-len", "32",
+                       "--device", "cpu", "--ckpt-dir", inp["launch_dir"], "--ckpt-every", "2",
+                       "--log-every", "1"])
+    return {}
+
+
+def case_launch_f32(inp):
+    """``launch.train.train`` in float32 compute, no checkpoints."""
+    from repro_torch.launch import train as launch_train
+
+    report = launch_train.train(train_cfg(), steps=3, seq_len=32, device="cpu", ckpt_every=0,
+                                ckpt_dir=inp["launch_dir"] + "_f32", log_every=1)
+    return {"losses": report["losses"], "grad_norms": report["grad_norms"]}
+
+
+def run_ranks(cases, world: int, workdir, timeout: float = 420.0) -> dict:
+    """Run ``cases`` on ``world`` gloo ranks -> {case: [rank 0's output, ...]}."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.path.join(REPO, "src"))
+    env.pop("XLA_FLAGS", None)
+    store = os.path.join(workdir, f"store{world}")
+    if os.path.exists(store):  # a file store is good for one world only
+        os.remove(store)
+    procs, logs = [], []
+    for r in range(world):
+        log = open(os.path.join(workdir, f"rank{world}.{r}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, __file__, ",".join(cases), str(r), str(world), store, str(workdir)],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=REPO))
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    if any(p.returncode for p in procs):
+        tail = open(os.path.join(workdir, f"rank{world}.0.log")).read()[-4000:]
+        raise AssertionError(f"ranks exited {[p.returncode for p in procs]}:\n{tail}")
+    return {c: [torch.load(os.path.join(workdir, f"{c}.rank{r}.pt"), weights_only=False)
+                for r in range(world)] for c in cases}
+
+
+def main(argv) -> int:
+    cases, rank, world, store, workdir = argv[1], int(argv[2]), int(argv[3]), argv[4], argv[5]
+    torch.set_num_threads(1)
+    # a rank whose case raised leaves the others in a collective: fail it after a minute
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+        for case in cases.split(","):
+            try:
+                out = globals()[f"case_{case}"](inp)
+            except Exception:  # reported to the test, which fails that case alone
+                out = {"error": traceback.format_exc()}
+            torch.save(out, os.path.join(workdir, f"{case}.rank{rank}.pt"))
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))
