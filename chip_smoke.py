@@ -217,7 +217,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports
    the error feedback bitwise the CPU's arithmetic, timed beside its bytes
    bound; a mesh state at 2 layers saved and restored onto the RDP mesh,
    bitwise;
-17. prints the kernels line, then, last, the one-line JSON result.
+17. runs tensor parallelism over "model" (``distributed/tensor_parallel.py``):
+   the plain ring through ``jit_prefill`` / ``jit_serve_step`` on (1, 1),
+   bitwise the plain model's logits; then every model rank of a TP group side
+   by side on the one card, one thread a rank (``tests/torch_tp_threads.py``):
+   qwen2-1.5b whole served at TP 2 and at TP 4 with ``pad_heads_to=4``
+   (float32 within 2e-3 + 2e-3 |want| of the plain path, bf16 reported; 1
+   request, prompt 1024, 16 tokens), qwen3-moe-235b-a22b at 2 of 94 layers
+   served at TP 4 (16 query heads over 1 KV head a rank, 32 experts a rank),
+   one train step at TP 2 (full width, 2 layers, float32) held to the plain
+   step under ``train_step_mismatches`` with every gradient assembled from
+   the rank shards; each path's launches by kernel; each rank-local
+   attention shape the phase launched held against its plain version
+   (``close_by_row``) and timed beside its bound;
+18. prints the kernels line, then, last, the one-line JSON result.
 
 Any failed phase exits non-zero and prints no result; so does a run without
 a CUDA device or without the repo's sources beside the script.
@@ -329,6 +342,13 @@ TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_WINDOW = 2, 2, 32
 RESTART_STEPS, RESTART_AT = 6, 3
 # the mesh train step: timed steps after TRAIN_WARM warm-up ones, mesh and plain
 MESH_TIMED_STEPS = 5
+# tensor parallelism, every rank of a group a thread on the one card: qwen2-1.5b
+# served whole at (TP, pad_heads_to) (2, 0) and (4, 4), prompt SERVE_PROMPT and
+# TP_GEN tokens; qwen3-moe at TP_MOE_DEPTH layers at TP 4; one train step at TP 2
+TP_SERVE = ((2, 0), (4, 4))
+TP_GEN = 16
+TP_MOE_ARCH, TP_MOE_DEPTH, TP_MOE_SIZE = "qwen3-moe-235b-a22b", 2, 4
+TP_TRAIN_SIZE = 2
 # tests/test_kernels.py's TOL (atol = rtol) by dtype name
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # attention and RMSNorm are also held element by element to a bound scaled by
@@ -3638,6 +3658,285 @@ def phase_mesh_checkpoint() -> None:
     _free()
 
 
+# --------------------------------------------------------------------------
+# tensor parallelism over "model": a group's ranks side by side on the card
+# --------------------------------------------------------------------------
+
+
+def _tp_serve(model, params, tokens, size: int):
+    """Prefill the prompt, then TP_GEN - 1 teacher-forced decode steps: each
+    step's whole logits.  ``size`` 1: the plain model; else every rank of a
+    TP group of ``size``, one thread each, and every rank's logits."""
+    import torch
+    import torch_tp_threads as th
+
+    def run(p):
+        with torch.inference_mode():
+            logits, cache, t = model.prefill(p, {"tokens": tokens[:, :SERVE_PROMPT]},
+                                             SERVE_PROMPT + TP_GEN)
+            out = [logits]
+            for i in range(TP_GEN - 1):
+                tok = tokens[:, SERVE_PROMPT + i:SERVE_PROMPT + i + 1]
+                logits, cache, t = model.decode_step(p, cache, tok, t)
+                out.append(logits)
+        torch.cuda.synchronize()
+        return out
+
+    if size == 1:
+        return run(params)
+    trees = [th.rank_params(params, size, r) for r in range(size)]
+    return th.run_ranks(size, lambda r, group: run(trees[r]))
+
+
+def _tp_check_ranks(outs: list, want: list, dtype: str, what: str) -> float:
+    """Every rank's logits the same; rank 0's against the plain path's (float32:
+    2e-3 + 2e-3 |want|); the largest |difference|."""
+    import torch
+
+    worst = 0.0
+    for r, got in enumerate(outs):
+        check(all(torch.equal(a, b) for a, b in zip(got, outs[0])),
+              f"{what}: rank {r}'s logits differ from rank 0's")
+    for i, (g, w) in enumerate(zip(outs[0], want)):
+        err = (g.float() - w.float()).abs()
+        worst = max(worst, float(err.max()))
+        check(bool(torch.isfinite(g).all()) and g.shape == w.shape,
+              f"{what} step {i}: logits {tuple(g.shape)} not finite")
+        if dtype == "float32":
+            check(bool((err <= 2e-3 + 2e-3 * w.float().abs()).all()),
+                  f"{what} step {i}: logits differ from the plain path's by {float(err.max())}")
+    return worst
+
+
+def _tp_attention_shapes(cfg, size: int) -> tuple:
+    """(query slots, KV heads) of one rank's attention at TP ``size``."""
+    from repro_torch.models import transformer
+
+    lay = transformer._layout(cfg)
+    hl = lay.h_pad // size  # rank 0's slots; in these layouts every rank's read one KV head
+    return hl, (hl - 1) // lay.g_pad + 1, cfg.head_dim
+
+
+def phase_tensor_parallel() -> dict:
+    """Tensor parallelism over "model": size 1 through the mesh serve step;
+    then qwen2-1.5b's serving at TP 2 and TP 4, qwen3-moe's at TP 4 and a
+    qwen2-1.5b train step at TP 2, every rank a thread on the one card; the
+    rank-local attention shapes against their plain versions."""
+    import torch
+    import torch_tp_threads as th
+    from test_torch_train_cuda import LOSS_RTOL, step_record, train_step_mismatches
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import PipelineConfig, SyntheticLM
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, apply_updates, cosine_with_warmup, global_norm
+    from repro_torch.runtime.serve import jit_prefill, jit_serve_step
+    from repro_torch.runtime.train import TrainState, _grad_norm, _value_and_grad
+
+    t_phase = time.perf_counter()
+    n = SERVE_PROMPT + TP_GEN
+    phase(f"tensor parallelism over 'model': the plain ring on (1, 1) bitwise; {SERVE_ARCH} "
+          f"served whole at TP {[s for s, _ in TP_SERVE]}, {TP_MOE_ARCH} at {TP_MOE_DEPTH} "
+          f"layers at TP {TP_MOE_SIZE}, a train step at TP {TP_TRAIN_SIZE}; every rank a "
+          "thread on the one card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    names = ("rmsnorm", "flash_attention", "splitkv", "wgmma", "simt")
+    rec: dict = {"launches": dict.fromkeys(names, 0), "shapes": {}, "serve": {}}
+    seen_shapes: set = set()
+
+    def counted(fn, *args):
+        _reset_counts()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        got = _counts()
+        for k in names:
+            rec["launches"][k] += got[k]
+        return out, {k: got[k] for k in names}
+
+    # size 1: the plain ring through the mesh serve step, bitwise the plain model
+    cfg = get_config(SERVE_ARCH)
+    model = build_model(cfg)
+    params = model.for_serving(model.init(torch.Generator(device="cuda").manual_seed(SEED)))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    prefill, p_sh, _, c_sh = jit_prefill(mesh, model, ShapeConfig("p", n, 1, "prefill"))
+    step, _, _, _ = jit_serve_step(mesh, model, ShapeConfig("d", n, 1, "decode"))
+    dparams = params.replace_leaves({k: sharding.distribute(p, p_sh[k])
+                                     for k, p in params.leaves().items()})
+    want = _tp_serve(model, params, tokens, 1)
+    with torch.inference_mode():
+        got, cache, t = prefill(dparams, {"tokens": tokens[:, :SERVE_PROMPT]})
+        same = [torch.equal(got, want[0])]
+        for i in range(TP_GEN - 1):
+            got, cache, t = step(dparams, cache, tokens[:, SERVE_PROMPT + i:SERVE_PROMPT + i + 1],
+                                 t)
+            same.append(torch.equal(got, want[i + 1]))
+    print(f"size 1: {SERVE_ARCH} bf16 plain ring through jit_prefill / jit_serve_step on (1, 1), "
+          f"cache {c_sh[0]['k'].spec}: {sum(same)} of {len(same)} steps' logits bitwise the "
+          "plain model's", flush=True)
+    check(all(same), f"the size-1 mesh serve step differs from the plain model at steps "
+                     f"{[i for i, ok in enumerate(same) if not ok]}")
+    del params, dparams, cache, want
+    _free()
+
+    # every rank of a group side by side: qwen2-1.5b served whole
+    for size, pad in TP_SERVE:
+        for dtype in ("float32", "bfloat16"):
+            cfg = get_config(SERVE_ARCH, compute_dtype=dtype, pad_heads_to=pad)
+            model = build_model(cfg)
+            params = model.for_serving(model.init(
+                torch.Generator(device="cuda").manual_seed(SEED)))
+            t0 = time.perf_counter()
+            want = _tp_serve(model, params, tokens, 1)
+            plain_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            outs, counts = counted(_tp_serve, model, params, tokens, size)
+            tp_s = time.perf_counter() - t0
+            what = f"{SERVE_ARCH} {dtype} TP {size} (pad_heads_to={pad})"
+            worst = _tp_check_ranks(outs, want, dtype, what)
+            per = size * TP_GEN
+            want_counts = {"rmsnorm": per * (2 * cfg.n_layers + 1),
+                           "flash_attention": per * cfg.n_layers,
+                           "splitkv": size * (TP_GEN - 1) * cfg.n_layers,
+                           "wgmma" if dtype == "bfloat16" else "simt": size * cfg.n_layers}
+            shape = _tp_attention_shapes(cfg, size)
+            seen_shapes.add((SERVE_ARCH, size, pad) + shape)
+            print(f"{what}: {shape[0]} query slots over {shape[1]} KV head(s) a rank; max "
+                  f"|TP - plain| {worst:.3e} over {TP_GEN} steps' {cfg.padded_vocab} logits; "
+                  f"launches {counts} (expected {want_counts}); host s: plain {plain_s:.2f}, "
+                  f"{size} ranks {tp_s:.2f}  [{CARD}]", flush=True)
+            check(all(counts[k] == v for k, v in want_counts.items()),
+                  f"{what}: launches {counts}, expected {want_counts}")
+            rec["serve"][f"{SERVE_ARCH} tp{size} {dtype}"] = worst
+            del params, want, outs
+            _free()
+
+    # qwen3-moe at 2 layers, TP 4: 16 query heads over 1 KV head, 32 experts a rank
+    for dtype in ("float32", "bfloat16"):
+        cfg = _zoo_config(TP_MOE_ARCH, TP_MOE_DEPTH, compute_dtype=dtype,
+                          param_dtype=dtype)
+        model = build_model(cfg)
+        params = model.for_serving(model.init(torch.Generator(device="cuda").manual_seed(SEED)))
+        want = _tp_serve(model, params, tokens, 1)
+        outs, counts = counted(_tp_serve, model, params, tokens, TP_MOE_SIZE)
+        what = f"{TP_MOE_ARCH} {TP_MOE_DEPTH} layers {dtype} TP {TP_MOE_SIZE}"
+        worst = _tp_check_ranks(outs, want, dtype, what)
+        shape = _tp_attention_shapes(cfg, TP_MOE_SIZE)
+        seen_shapes.add((TP_MOE_ARCH, TP_MOE_SIZE, 0) + shape)
+        experts = cfg.n_experts // TP_MOE_SIZE
+        print(f"{what}: {shape[0]} query slots over {shape[1]} KV head(s) and {experts} experts "
+              f"a rank; max |TP - plain| {worst:.3e}; launches {counts}  [{CARD}]", flush=True)
+        check(counts["flash_attention"] == TP_MOE_SIZE * TP_GEN * cfg.n_layers
+              and counts["splitkv"] == TP_MOE_SIZE * (TP_GEN - 1) * cfg.n_layers,
+              f"{what}: launches {counts}")
+        rec["serve"][f"{TP_MOE_ARCH} tp{TP_MOE_SIZE} {dtype}"] = worst
+        del params, want, outs
+        _free()
+
+    # one train step at TP 2: full width, 2 layers, float32
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH, param_dtype="float32",
+                                         compute_dtype="float32"), n_layers=TRAIN_CHECK_LAYERS)
+    model = build_model(cfg)
+    opt = AdamW(cosine_with_warmup(3e-3, 1, TRAIN_STEPS))
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED)).trainable()
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in SyntheticLM(PipelineConfig(
+        cfg.vocab_size, TRAIN_SEQ, TRAIN_CHECK_BATCH, seed=SEED)).global_batch(0).items()}
+    state = TrainState(torch.zeros((), dtype=torch.int32, device="cuda"), params,
+                       opt.init(params))
+    want = step_record(state, batch, model, opt)
+    want_norm = float(global_norm(want["grads"]))
+    dims = th.sharded_dims(params.leaves(), TP_TRAIN_SIZE)
+
+    def rank_step(r, group):
+        p = th.rank_params(params, TP_TRAIN_SIZE, r, trainable=True)
+        loss, _, grads = _value_and_grad(model, p, batch)
+        gnorm = _grad_norm(grads, set(dims), group)
+        updates, new, om = opt.update_shards(grads, opt.init(p), p, gnorm)
+        return {"loss": loss, "grads": grads, "params": apply_updates(p.leaves(), updates),
+                "m": new.m, "v": new.v, "old": p.leaves(), "count": new.count, "lr": om["lr"],
+                "gnorm": gnorm}
+
+    ranks, counts = counted(th.run_ranks, TP_TRAIN_SIZE, rank_step)
+    got = {k: th.assemble([r[k] for r in ranks], dims) for k in ("grads", "params", "m", "v",
+                                                                  "old")}
+    got.update(loss=ranks[0]["loss"], count=ranks[0]["count"], lr=ranks[0]["lr"], opt=opt)
+    stats: dict = {}
+    bad = train_step_mismatches(got, want, stats)
+    gnorm = float(ranks[0]["gnorm"])
+    same = all(float(r["loss"]) == float(ranks[0]["loss"]) and float(r["gnorm"]) == gnorm
+               for r in ranks)
+    print(f"train step TP {TP_TRAIN_SIZE}: {TRAIN_ARCH} full width, {cfg.n_layers} layers, "
+          f"float32, batch {TRAIN_CHECK_BATCH} x {TRAIN_SEQ}: loss {float(got['loss']):.7f} vs "
+          f"plain {float(want['loss']):.7f}, grad norm {gnorm:.7f} vs {want_norm:.7f}; "
+          f"{len(dims)} leaves split over the ranks, every gradient assembled from the shards "
+          f"and held with the moments and parameters under train_step_mismatches "
+          f"({stats.get('beyond_param_tol')} elements held by their allowance); launches "
+          f"{counts}  [{CARD}]", flush=True)
+    check(not bad, f"TP train step against the plain step: {bad[:6]}")
+    check(same and abs(gnorm - want_norm) <= LOSS_RTOL * want_norm,
+          f"TP grad norm {gnorm} (every rank the same: {same}) vs the plain {want_norm}")
+    check(counts["flash_attention"] == TP_TRAIN_SIZE * 2 * cfg.n_layers
+          and counts["rmsnorm"] == TP_TRAIN_SIZE * (4 * cfg.n_layers + 1),
+          f"TP train step launches {counts}")
+    del params, state, want, got, ranks
+    _free()
+
+    # the rank-local attention shapes, against their plain versions
+    max_err = 0.0
+    for arch, size, pad, h, kh, hd in sorted(seen_shapes):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).removeprefix("torch.")
+            for label, sq in (("prefill", SERVE_PROMPT), ("decode", 1)):
+                q = _randn(torch, (1, sq, h, hd), dtype, SEED + 2)
+                k = _randn(torch, (1, n if sq == 1 else sq, kh, hd), dtype, SEED + 3)
+                v = _randn(torch, tuple(k.shape), dtype, SEED + 4)
+                if sq == 1:
+                    kv_pos = _ring_positions(torch, n, n - 1, n)
+                    q_pos = torch.full((1, 1), n - 1, dtype=torch.int32, device="cuda")
+                else:
+                    q_pos = torch.arange(sq, dtype=torch.int32, device="cuda")[None]
+                    kv_pos = q_pos.clone()
+                want = flash.attention_ref(q, k, v, q_pos, kv_pos, True, None)
+                before = (flash.splitkv_launches, flash.wgmma_launches, flash.simt_launches)
+                got = flash.attention(q, k, v, q_pos, kv_pos, True, None)
+                path = _attention_path(flash, before)
+                want_path = "splitkv" if sq == 1 else ("wgmma" if name == "bfloat16" else "simt")
+                ok, row = close_by_row(got, want, name)
+                err = float((got.float() - want.float()).abs().max())
+                max_err = max(max_err, err)
+                tag = f"{arch} TP {size} {label} q {tuple(q.shape)} kv {tuple(k.shape)} {name}"
+                check(ok and path == want_path, f"attention {tag}: on {path} (want {want_path}),"
+                                                f" |err| / (|want| + row RMS) {row}")
+                if name == "bfloat16":
+                    ms = device_ms_per_call(
+                        lambda: flash.attention(q, k, v, q_pos, kv_pos, True, None), iters=20)
+                    plain_ms = device_ms_per_call(
+                        lambda: flash.attention_ref(q, k, v, q_pos, kv_pos, True, None), iters=5)
+                    bnd, by = _attention_bound(torch, q, k, q_pos, kv_pos, True, None)
+                    rec["shapes"][f"{arch} tp{size} {label}"] = {
+                        "shape": [list(q.shape), list(k.shape)], "path": path, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                        "max_abs_err": err}
+                    print(f"{tag} on {path}: within ROW_RTOL ({row:.2e}); device ms kernel "
+                          f"{ms:.5f}, plain {plain_ms:.5f}; bound {bnd:.5f} ({by}), kernel at "
+                          f"{bnd / ms:.2%} of bound  [{CARD}]", flush=True)
+                else:
+                    print(f"{tag} on {path}: within ROW_RTOL ({row:.2e})", flush=True)
+                del q, k, v, want, got
+    rec["max_abs_err"] = max_err
+    _free()
+    print(f"tensor parallelism: {time.perf_counter() - t_phase:.1f} s; the TP path's launches "
+          f"{rec['launches']}", flush=True)
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -3691,6 +3990,7 @@ def main() -> int:
             mesh_serve = phase_mesh_serve()
             phase_mesh_allreduce()
             phase_mesh_checkpoint()
+            tp_rec = phase_tensor_parallel()
         finally:
             torch.distributed.destroy_process_group()
         print(f"\nmesh paths: {time.perf_counter() - t_mesh:.1f} s; the whole script "
@@ -3701,6 +4001,7 @@ def main() -> int:
     # the mesh train steps' launches, and the seq-sharded serving path's (both dtypes)
     mesh_launches = {k: mesh_train["launches"][k] + sum(mesh_serve[d][k] for d in mesh_serve)
                      for k in ("rmsnorm", "flash_attention")}
+    tp_launches = tp_rec["launches"]
     rows = [
         # name, record, launches on the main paths, replaces
         ("masked_cover", cover_rec,
@@ -3711,12 +4012,14 @@ def main() -> int:
                                                   zoo_rms_rec["max_abs_err"],
                                                   train_rec["rmsnorm"]["max_abs_err"])),
          serve_launches["rmsnorm"] + zoo_launches["rmsnorm"] + train_launches["rmsnorm"]
-         + mesh_launches["rmsnorm"],
+         + mesh_launches["rmsnorm"] + tp_launches["rmsnorm"],
          "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:31"),
         ("flash_attention", dict(att_rec, max_abs_err=max(
-            att_rec["max_abs_err"], train_rec["flash_attention"]["max_abs_err"])),
+            att_rec["max_abs_err"], train_rec["flash_attention"]["max_abs_err"],
+            tp_rec["max_abs_err"])),
          serve_launches["flash_attention"] + zoo_launches["flash_attention"]
-         + train_launches["flash_attention"] + mesh_launches["flash_attention"],
+         + train_launches["flash_attention"] + mesh_launches["flash_attention"]
+         + tp_launches["flash_attention"],
          "flash_attention.cu", "src/repro/kernels/flash_attention.py:104"),
     ]
     kernels = [{
@@ -3740,7 +4043,7 @@ def main() -> int:
     kernels[2]["launches_by_kernel"] = {
         k: serve_launches["flash_attention_by_kernel"][k] + zoo_launches[k]
         + (train_launches["wgmma"] + mesh_train["launches"]["wgmma"] if k == "wgmma" else 0)
-        + sum(mesh_serve[d][k] for d in mesh_serve)
+        + sum(mesh_serve[d][k] for d in mesh_serve) + tp_launches[k]
         for k in ("splitkv", "wgmma", "simt")}
     # the model zoo's new shapes: RMSNorm at d_inner 5120, attention at hd 80
     kernels[1]["zoo"] = {k: zoo_rms_rec[k] for k in ("prefill", "decode")}
@@ -3748,11 +4051,15 @@ def main() -> int:
     kernels[1]["launches_by_path"] = {"serve": serve_launches["rmsnorm"],
                                       "zoo": zoo_launches["rmsnorm"],
                                       "train": train_launches["rmsnorm"],
-                                      "mesh": mesh_launches["rmsnorm"]}
+                                      "mesh": mesh_launches["rmsnorm"],
+                                      "tp": tp_launches["rmsnorm"]}
     kernels[2]["launches_by_path"] = {"serve": serve_launches["flash_attention"],
                                       "zoo": zoo_launches["flash_attention"],
                                       "train": train_launches["flash_attention"],
-                                      "mesh": mesh_launches["flash_attention"]}
+                                      "mesh": mesh_launches["flash_attention"],
+                                      "tp": tp_launches["flash_attention"]}
+    # the rank-local attention shapes of tensor parallelism
+    kernels[2]["tp"] = tp_rec["shapes"]
     # the training shapes: the forward kernel and the plain-torch backward
     kernels[1]["train"] = train_rec["rmsnorm"]
     kernels[2]["train"] = train_rec["flash_attention"]

@@ -3,10 +3,17 @@
 Model code calls ``shard(x, "batch", None, "model", ...)`` with one logical
 role per dim.  Under an active ``logical_axes`` context (set by the step
 functions of ``runtime/``) a DTensor is redistributed to the placements the
-roles resolve to; a plain tensor -- what the port's compute runs on, its
-parameters gathered per step -- comes back as it is, since the reference's
-constraint is a partitioner hint and never changes a value.  Without a
-context ``shard`` returns ``x``, as on one card.
+roles resolve to; a plain tensor -- what the port's compute runs on, each
+rank's shards of the parameters -- comes back as it is, since the
+reference's constraint is a partitioner hint and never changes a value.
+Without a context ``shard`` returns ``x``, as on one card.
+
+The context also carries the groups the compute is split over
+(``tensor_parallel.Group``): ``tp``, the ranks of the ``"model"`` axis that
+split the model's products (``tensor_parallel.model_group``), and ``dp``,
+the batch axes' ranks that the batch statistics sum over
+(``tensor_parallel.batch_group``).  The context is per thread, so ranks run
+as threads of one process each see their own.
 
 The resolution is the reference's, with its rule for a dim the axes do not
 divide: that dim is left unconstrained (it keeps whatever placement it has),
@@ -16,7 +23,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Optional, Tuple
+import threading
+from typing import Any, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -25,7 +33,7 @@ from .sharding import PartitionSpec, mesh_sizes
 
 __all__ = ["LogicalAxes", "UNCONSTRAINED", "current", "logical_axes", "shard", "shard_spec"]
 
-_CURRENT: list = []
+_LOCAL = threading.local()
 
 
 class _Unconstrained:
@@ -42,6 +50,8 @@ class LogicalAxes:
     batch: Tuple[str, ...]  # mesh axes carrying the global batch
     model: Optional[str]  # tensor-parallel axis
     seq: bool = False  # sequence parallelism: residual stream seq-shards over model
+    tp: Any = None  # tensor_parallel.Group over the model axis (None: a group of one)
+    dp: Any = None  # tensor_parallel.Group over the batch axes (None: a group of one)
 
     def axis_size(self, names) -> int:
         sizes = mesh_sizes(self.mesh)
@@ -52,16 +62,25 @@ class LogicalAxes:
 
 
 @contextlib.contextmanager
-def logical_axes(mesh, batch: Tuple[str, ...], model: Optional[str], seq: bool = False):
-    _CURRENT.append(LogicalAxes(mesh, tuple(batch), model, seq))
+def logical_axes(mesh, batch: Tuple[str, ...], model: Optional[str], seq: bool = False,
+                 tp=None, dp=None):
+    stack = _stack()
+    stack.append(LogicalAxes(mesh, tuple(batch), model, seq, tp, dp))
     try:
         yield
     finally:
-        _CURRENT.pop()
+        stack.pop()
+
+
+def _stack() -> list:
+    if not hasattr(_LOCAL, "stack"):
+        _LOCAL.stack = []
+    return _LOCAL.stack
 
 
 def current() -> Optional[LogicalAxes]:
-    return _CURRENT[-1] if _CURRENT else None
+    stack = _stack()
+    return stack[-1] if stack else None
 
 
 def shard_spec(ctx: LogicalAxes, shape, roles) -> PartitionSpec:

@@ -383,13 +383,15 @@ def with_local(x: DTensor, local: torch.Tensor) -> DTensor:
     return DTensor(local, x._spec, requires_grad=False)
 
 
-def is_whole(x) -> bool:
-    """Whether ``x``'s local tensor is the whole tensor: a plain tensor, or a
-    DTensor sharded over mesh axes of size 1 only (:func:`gather` copies nothing)."""
+def is_whole(x, keep: Sequence[str] = ()) -> bool:
+    """Whether ``x``'s local tensor is the whole tensor but over the axes in
+    ``keep``: a plain tensor, or a DTensor sharded over those and over mesh
+    axes of size 1 only (``gather(x, keep)`` copies nothing)."""
     if not isinstance(x, DTensor):
         return True
-    mesh = x.device_mesh
-    return all(mesh.size(i) == 1 for i, p in enumerate(x.placements) if p.is_shard())
+    mesh, names = x.device_mesh, x.device_mesh.mesh_dim_names
+    return all(mesh.size(i) == 1 or names[i] in keep
+               for i, p in enumerate(x.placements) if p.is_shard())
 
 
 def gather(x, keep: Sequence[str] = ()) -> torch.Tensor:

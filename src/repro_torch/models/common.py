@@ -15,6 +15,8 @@ from typing import Any, Callable, Mapping
 import torch
 from torch import nn
 
+from ..distributed import tensor_parallel as tp
+
 __all__ = [
     "Params",
     "cast_for_compute",
@@ -177,6 +179,8 @@ def cross_entropy_loss(
     mask: torch.Tensor | None = None,
     real_vocab: int | None = None,
     z_loss: float = 0.0,
+    group=None,
+    vocab_offset: int = 0,
 ) -> torch.Tensor:
     """Token CE in float32 with padded-vocab masking and optional z-loss.
 
@@ -184,15 +188,30 @@ def cross_entropy_loss(
     reference's expressions in its order: padded columns at float32's lowest
     value, the label's log-prob as a masked sum over the vocabulary (not a
     gather), and the mask-weighted mean over ``max(mask.sum(), 1)``.
+
+    Vocab-parallel: over a ``group`` (``tensor_parallel.Group``) of more than
+    one rank, ``logits`` are this rank's columns, the first at
+    ``vocab_offset``.  The padded columns are masked by their global index,
+    the max is an all-reduce max (a constant to the gradient), the exp-sum
+    and the label's logit are sums over the group, and the z-loss is taken on
+    the global log-sum-exp.
     """
+    group = group or tp.SINGLE
     logits = logits.float()
     v = logits.shape[-1]
     cols = torch.arange(v, device=logits.device)
-    if real_vocab is not None and real_vocab < v:
+    if group.size > 1:
+        cols = cols + vocab_offset
+    if real_vocab is not None and real_vocab < v * group.size:
         logits = torch.where(cols >= real_vocab, torch.finfo(torch.float32).min, logits)
-    lse = torch.logsumexp(logits, dim=-1)
     label_hit = cols == labels[..., None].long()
-    ll = torch.where(label_hit, logits, 0.0).sum(dim=-1)
+    if group.size == 1:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.where(label_hit, logits, 0.0).sum(dim=-1)
+    else:
+        m = group.all_reduce_max(logits.detach().amax(dim=-1))
+        lse = m + torch.log(tp.leave(torch.exp(logits - m[..., None]).sum(dim=-1), group))
+        ll = tp.leave(torch.where(label_hit, logits, 0.0).sum(dim=-1), group)
     nll = lse - ll
     if z_loss > 0.0:
         nll = nll + z_loss * lse**2

@@ -17,6 +17,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from ..distributed import tensor_parallel as tp
 from ..kernels import flash_attention as _flash
 from ..kernels.rmsnorm import RMSNormFunction
 from .common import dense_init
@@ -156,10 +157,13 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def gated_mlp(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """SwiGLU (silu) / GeGLU (gelu) feed-forward."""
+def gated_mlp(params, x: torch.Tensor, act: str = "silu", group: tp.Group = tp.SINGLE):
+    """SwiGLU (silu) / GeGLU (gelu) feed-forward.  Over a ``group`` of more
+    than one rank, ``w_gate`` / ``w_up`` are this rank's column shards and
+    ``w_down`` its row shard: the rank's partial product is summed."""
     fn = F.silu if act == "silu" else _gelu_tanh
-    return (fn(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"]
+    x = tp.enter(x, group)
+    return tp.leave((fn(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"], group)
 
 
 def init_mlp(generator: torch.Generator, d_model: int, d_ff: int, dtype, bias: bool = True):
@@ -174,12 +178,16 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int, dtype, bias: b
     return p
 
 
-def mlp(params, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
+def mlp(params, x: torch.Tensor, act: str = "gelu", group: tp.Group = tp.SINGLE):
+    """Over a ``group`` of more than one rank, ``w_in`` / ``b_in`` are this
+    rank's column shards and ``w_out`` its row shard; ``b_out`` (whole) is
+    added once, after the sum."""
     fn = _gelu_tanh if act == "gelu" else F.relu
+    x = tp.enter(x, group)
     h = x @ params["w_in"]
     if "b_in" in params:
         h = h + params["b_in"]
-    y = fn(h) @ params["w_out"]
+    y = tp.leave(fn(h) @ params["w_out"], group)
     if "b_out" in params:
         y = y + params["b_out"]
     return y

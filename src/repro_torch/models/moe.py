@@ -20,6 +20,17 @@ Two choices pin the reference's numbers where torch promises less:
 
 The decode step (S = 1, capacity 1) runs every expert's product, as the
 reference does.  Covers dbrx (16 experts, top-4) and qwen3-moe (128, top-8).
+
+Over a mesh (``tensor_parallel``): the experts are expert-parallel over the
+model group where it divides E (the rules' ``("model", "fsdp", None)``).
+The routing and the dispatch metadata are computed whole on every rank, each
+rank gathers and runs only its ``E / TP`` experts' capacity blocks and
+combines its own rows, and the partial outputs are summed over the group.
+Capacity is per batch row (``k * S / E``), so it does not depend on how the
+batch is sharded; the aux loss's two batch means, of the routed fractions
+``f`` and of the router probabilities, are sums over the batch group
+(``tensor_parallel.batch_group``, set by the mesh train step only: serving
+discards the aux) divided by the global token count.
 """
 from __future__ import annotations
 
@@ -29,6 +40,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import tensor_parallel as tp
 from .common import dense_init
 from .layers import _gelu_tanh
 
@@ -51,12 +63,15 @@ def _route(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return top_idx, torch.softmax(top_logits.float(), dim=-1)
 
 
-def _dispatch_rows(x: torch.Tensor, expert_ids: torch.Tensor, n_experts: int, capacity: int):
+def _dispatch_rows(x: torch.Tensor, expert_ids: torch.Tensor, n_experts: int, capacity: int,
+                   first: int = 0, width: int | None = None):
     """Every row at once.  x: (B,S,d); expert_ids: (B,S,k).
 
     Returns the gathered expert inputs ``(B, E*C, d)`` and the combine
     metadata ``(token_of, slot, order, keep)``, each ``(B, S*k)`` and equal to
-    the reference's ``_dispatch_row`` of each row.
+    the reference's ``_dispatch_row`` of each row.  With ``width``, only the
+    slots ``[first, first + width)`` are gathered (an expert-parallel rank's
+    experts), ``(B, width, d)``; the metadata stay whole.
     """
     b, s, k = expert_ids.shape
     d = x.shape[-1]
@@ -75,23 +90,36 @@ def _dispatch_rows(x: torch.Tensor, expert_ids: torch.Tensor, n_experts: int, ca
     keep = rank < capacity
     sentinel = n_experts * capacity
     slot = torch.where(keep, sorted_e * capacity + rank, sentinel)
+    into = slot
+    if width is not None and width < sentinel:  # other ranks' slots go to the drop slot
+        into = slot - first
+        into = torch.where((into >= 0) & (into < width), into, width)
+        sentinel = width
     # one flat buffer of B rows of E*C + 1 slots; the last slot of a row takes
     # its drops and is cut off (the reference's mode="drop" and xg[:-1])
     xg = torch.zeros((b * (sentinel + 1), d), dtype=x.dtype, device=x.device)
     src = torch.gather(x, 1, token_of[..., None].expand(b, n, d))
-    xg.index_copy_(0, (slot + row * (sentinel + 1)).reshape(-1), src.reshape(b * n, d))
+    xg.index_copy_(0, (into + row * (sentinel + 1)).reshape(-1), src.reshape(b * n, d))
     xg = xg.view(b, sentinel + 1, d)[:, :sentinel]
     return xg, (token_of, slot, order, keep)
 
 
-def _combine_rows(y_flat: torch.Tensor, meta, weights: torch.Tensor, s: int) -> torch.Tensor:
+def _combine_rows(y_flat: torch.Tensor, meta, weights: torch.Tensor, s: int,
+                  first: int | None = None) -> torch.Tensor:
     """y_flat: (B, E*C, d) expert outputs -> (B, S, d), each token's k
-    contributions summed left to right in sorted-assignment order."""
+    contributions summed left to right in sorted-assignment order.  With
+    ``first``, ``y_flat`` holds the slots from ``first`` on (an
+    expert-parallel rank's experts) and a token's rows in other slots count
+    as zeros."""
     token_of, slot, order, keep = meta
     b, n = slot.shape
     k = n // s
     d = y_flat.shape[-1]
     w = torch.gather(weights.reshape(b, n), 1, order).to(y_flat.dtype)  # sorted order
+    if first is not None:  # a rank's slots only
+        slot = slot - first
+        keep = keep & (slot >= 0) & (slot < y_flat.shape[1])
+        slot = slot.clamp(min=0)
     idx = slot.clamp(max=y_flat.shape[1] - 1)
     y_rows = torch.gather(y_flat, 1, idx[..., None].expand(b, n, d))
     y_rows = y_rows * (w * keep.to(y_flat.dtype))[..., None]
@@ -116,24 +144,35 @@ def moe_ffn(
     b, s, d = x.shape
     e = params["router"].shape[-1]
     k = n_experts_per_tok
-    capacity = max(1, math.ceil(k * s / e * capacity_factor))
+    capacity = max(1, math.ceil(k * s / e * capacity_factor))  # per row
 
     logits = (x.float() @ params["router"]).float()  # (B,S,E)
     expert_ids, weights = _route(logits, k)
 
     # load-balancing aux loss (Switch-style): E * sum_i f_i * P_i
     probs = torch.softmax(logits, dim=-1)
-    f = F.one_hot(expert_ids, e).float().sum(dim=-2).mean(dim=(0, 1)) / k
-    aux = e * torch.sum(f * probs.mean(dim=(0, 1)))
+    counts = F.one_hot(expert_ids, e).float().sum(dim=-2)  # (B,S,E)
+    bg = tp.batch_group()
+    if bg.size == 1:
+        f = counts.mean(dim=(0, 1)) / k
+        aux = e * torch.sum(f * probs.mean(dim=(0, 1)))
+    else:  # the means of the global batch: sums over the batch shards
+        n = b * s * bg.size
+        f = bg.all_reduce_sum(counts.sum(dim=(0, 1))) / n / k
+        aux = e * torch.sum(f * (tp.leave(probs.sum(dim=(0, 1)), bg) / n))
 
-    xg, meta = _dispatch_rows(x, expert_ids, e, capacity)
-    xg = xg.reshape(b, e, capacity, d)
+    eg = tp.model_group().over(e)  # expert-parallel: this rank's E / TP experts
+    el = e // eg.size
+    first, width = eg.rank * el * capacity, el * capacity  # this rank's slots
+    xg, meta = _dispatch_rows(tp.enter(x, eg), expert_ids, e, capacity, first, width)
+    xg = xg.reshape(b, el, capacity, d)
     fn = F.silu if act == "silu" else _gelu_tanh  # jax.nn.gelu's default: tanh
     g = torch.einsum("becd,edf->becf", xg, params["w_gate"])
     u = torch.einsum("becd,edf->becf", xg, params["w_up"])
     y = torch.einsum("becf,efd->becd", fn(g) * u, params["w_down"])
-    out = _combine_rows(y.reshape(b, e * capacity, d), meta, weights, s)
-    return out.to(x.dtype), aux
+    out = _combine_rows(y.reshape(b, width, d), meta, tp.enter(weights, eg), s,
+                        None if eg.size == 1 else first)
+    return tp.leave(out, eg).to(x.dtype), aux
 
 
 def moe_ffn_reference(params, x: torch.Tensor, n_experts_per_tok: int, act: str = "silu"):

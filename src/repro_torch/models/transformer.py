@@ -26,6 +26,18 @@ on one card, it degenerates to plain GQA (``repeat = 1``, no head mask);
 with ``pad_heads_to > 0`` KV heads repeat and padded query slots are masked,
 so the math is the unpadded model's.
 
+Tensor parallelism over the ``"model"`` axis (the group
+``tensor_parallel.model_group()`` of the step's ``logical_axes`` context;
+none outside a mesh step): each rank holds the shards the reference's rules
+give it and computes as XLA's partitioner splits the reference.  Attention
+is head-parallel (:func:`_attention_heads`), the MLPs column / row parallel
+with one sum, the MoE experts expert-parallel (``moe.py``), the embedding
+and unembedding vocab-parallel on ``embed``'s rows (``lm_head``'s columns):
+``forward`` returns this rank's logit columns, ``train_loss`` takes the
+vocab-parallel cross-entropy, and ``prefill`` / ``decode_step`` gather the
+logits whole.  A dim the axis does not divide is whole on every rank and
+computed whole, as the rules leave it.
+
 The sequence-sharded true-KV cache (``decode_kv_seq_sharded``, no window):
 ``{"ks", "vs": (B, W, K_true, hd), "poss": (W,)}`` per layer, no head
 repetition.  A prefill writes the ring and attends over the activations; a
@@ -50,13 +62,12 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
-from ..distributed import axes as _axes
+from ..distributed import tensor_parallel as tp
 from .common import Params, cast_for_compute, cross_entropy_loss, dense_init
 from .layers import (
     apply_mrope,
@@ -163,24 +174,31 @@ def attention_apply(
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """One attention layer.  With a cache, S > 1 tokens are a prefill on a
     fresh cache: they attend over their own k/v only, so a warm cache must be
-    continued one token a call (decode), which attends over the ring."""
+    continued one token a call (decode), which attends over the ring.
+
+    Over a model group (``tensor_parallel.model_group``) that divides the
+    query slots, each rank attends on its own slots (:func:`_attention_heads`).
+    Where the group divides ``wq``'s columns but not the slots, or the ring is
+    the sequence-sharded one, ``q`` is gathered whole, the attention runs
+    whole on every rank, and each rank multiplies its columns of ``o`` by its
+    row shard of ``wo``."""
+    grp = tp.model_group().over(layout.h_pad * cfg.head_dim)
+    seq_ring = cache is not None and "ks" in cache
+    if not seq_ring and grp.over(layout.h_pad).size > 1:
+        return _attention_heads(p, cfg, layout, grp, x, positions, mrope_positions, cache,
+                                window)
     b, s, _ = x.shape
     hd = cfg.head_dim
-    q = x @ p["wq"]
+    q = tp.enter(x, grp) @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, layout.h_pad, hd)
+    q = tp.gather(q, grp, -1).reshape(b, s, layout.h_pad, hd)
     k = k.reshape(b, s, layout.n_kv, hd)
     v = v.reshape(b, s, layout.n_kv, hd)
-    if mrope_positions is not None:
-        q = apply_mrope(q, mrope_positions, cfg.mrope_sections, cfg.rope_theta)
-        k = apply_mrope(k, mrope_positions, cfg.mrope_sections, cfg.rope_theta)
-    else:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    if cache is not None and "ks" in cache:
+    q, k = _rotary(cfg, q, k, positions, mrope_positions)
+    if seq_ring:
         # sequence-sharded TRUE-KV cache mode (no xR head repetition)
         if s == 1:  # decode: partial-softmax combine over the ring's chunks
             o = _seq_sharded_decode(cfg, layout, q, k, v, cache, positions[0, 0])
@@ -198,33 +216,98 @@ def attention_apply(
                                 window=window)
         if layout.h_pad != layout.n_heads:
             o = o * layout.head_mask(o.device)[None, None, :, None].to(o.dtype)
-        return o.reshape(b, s, layout.h_pad * hd) @ p["wo"], cache
+        return _out(p, o.reshape(b, s, layout.h_pad * hd), grp), cache
 
     k = repeat_kv(k, layout.repeat)
     v = repeat_kv(v, layout.repeat)
-
-    # no cache, or a prefill on a fresh one: the prompt's own k/v
-    new_cache, k_att, v_att, kv_pos = None, k, v, positions
-    if cache is not None:
-        # ring-buffer write of the last W positions (decode: the one new
-        # token at t % W), IN PLACE into the caller's cache tensors
-        w = cache["k"].shape[1]
-        keep = min(s, w)
-        pos_tail = positions[0, s - keep :]
-        slots = (pos_tail % w).long()
-        cache["k"].index_copy_(1, slots, k[:, s - keep :])
-        cache["v"].index_copy_(1, slots, v[:, s - keep :])
-        cache["pos"].index_copy_(0, slots, pos_tail.int())
-        new_cache = cache
-        if s == 1:  # decode: attend over the ring
-            k_att, v_att = cache["k"], cache["v"]
-            kv_pos = cache["pos"][None, :].expand(b, w)
-
+    new_cache, k_att, v_att, kv_pos = _ring(cache, k, v, k, v, positions)
     o = flash_attention(q, k_att, v_att, positions, kv_pos, causal=cfg.is_causal, window=window)
     if layout.h_pad != layout.n_heads:
         o = o * layout.head_mask(o.device)[None, None, :, None].to(o.dtype)
-    out = o.reshape(b, s, layout.h_pad * hd) @ p["wo"]
-    return out, new_cache
+    return _out(p, o.reshape(b, s, layout.h_pad * hd), grp), new_cache
+
+
+def _rotary(cfg: ArchConfig, q, k, positions, mrope_positions):
+    if mrope_positions is not None:
+        return (apply_mrope(q, mrope_positions, cfg.mrope_sections, cfg.rope_theta),
+                apply_mrope(k, mrope_positions, cfg.mrope_sections, cfg.rope_theta))
+    return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta)
+
+
+def _out(p, o: torch.Tensor, grp: tp.Group) -> torch.Tensor:
+    """``o @ wo``; over a group, this rank's columns of a whole ``o`` by its
+    row shard of ``wo``, summed."""
+    return tp.leave(tp.scatter(o, grp, -1) @ p["wo"], grp)
+
+
+def _ring(cache, k_write, v_write, k, v, positions):
+    """Write the ring (if any) and pick what the queries attend over:
+    ``(cache, k, v, kv_positions)``.  No cache, or a prefill on a fresh one:
+    the prompt's own ``k`` / ``v``; a decode step: the ring."""
+    if cache is None:
+        return None, k, v, positions
+    # ring-buffer write of the last W positions (decode: the one new token at
+    # t % W), IN PLACE into the caller's cache tensors
+    b, s = positions.shape
+    w = cache["k"].shape[1]
+    keep = min(s, w)
+    pos_tail = positions[0, s - keep :]
+    slots = (pos_tail % w).long()
+    cache["k"].index_copy_(1, slots, k_write[:, s - keep :])
+    cache["v"].index_copy_(1, slots, v_write[:, s - keep :])
+    cache["pos"].index_copy_(0, slots, pos_tail.int())
+    if s == 1:  # decode: attend over the ring
+        return cache, cache["k"], cache["v"], cache["pos"][None, :].expand(b, w)
+    return cache, k, v, positions
+
+
+def _attention_heads(p, cfg: ArchConfig, layout: HeadLayout, grp: tp.Group, x, positions,
+                     mrope_positions, cache, window):
+    """Head-parallel attention: this rank's ``H_pad / TP`` query slots (its
+    ``wq`` / ``bq`` columns) over the repeated KV heads they map to, then its
+    row shard of ``wo`` and a sum over the group.
+
+    ``k`` / ``v`` come from the replicated ``wk`` / ``wv``: only the true
+    heads the rank's slots read, or all of them where its ring is whole (the
+    axis does not divide ``K_pad``; every rank then writes every head, so the
+    replicas agree).  A sharded ring holds the rank's ``K_pad / TP`` repeated
+    heads.  Where the slots do not split evenly over their KV heads, each
+    slot gets its own copy of its head (a group size of one)."""
+    b, s, _ = x.shape
+    hd, r, g_pad = cfg.head_dim, layout.repeat, layout.g_pad
+    hl = layout.h_pad // grp.size
+    s0 = grp.rank * hl
+    kc0, kc1 = s0 // g_pad, (s0 + hl - 1) // g_pad + 1  # the slots' repeated KV heads
+    ring_whole = cache is not None and cache["k"].shape[2] == layout.k_pad
+    t0, t1 = (0, layout.n_kv) if ring_whole else (kc0 // r, (kc1 - 1) // r + 1)
+    cols = slice(t0 * hd, t1 * hd)
+    xi = tp.enter(x, grp)
+    q = xi @ p["wq"]
+    k = xi @ tp.enter(p["wk"], grp)[:, cols]
+    v = xi @ tp.enter(p["wv"], grp)[:, cols]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + tp.enter(p["bk"], grp)[cols]
+        v = v + tp.enter(p["bv"], grp)[cols]
+    q = q.reshape(b, s, hl, hd)
+    q, k = _rotary(cfg, q, k.reshape(b, s, t1 - t0, hd), positions, mrope_positions)
+    k = repeat_kv(k, r)
+    v = repeat_kv(v.reshape(b, s, t1 - t0, hd), r)
+    mine = slice(kc0 - t0 * r, kc1 - t0 * r)  # the rank's repeated heads within k / v
+    k_loc, v_loc = k[:, :, mine], v[:, :, mine]
+    if ring_whole:
+        new_cache, k_att, v_att, kv_pos = _ring(cache, k, v, k_loc, v_loc, positions)
+        if s == 1:
+            k_att, v_att = k_att[:, :, kc0:kc1], v_att[:, :, kc0:kc1]
+    else:
+        new_cache, k_att, v_att, kv_pos = _ring(cache, k_loc, v_loc, k_loc, v_loc, positions)
+    if kc1 - kc0 > 1 and (s0 % g_pad or hl % g_pad):
+        idx = torch.arange(s0, s0 + hl, device=x.device) // g_pad - kc0
+        k_att, v_att = k_att.index_select(2, idx), v_att.index_select(2, idx)
+    o = flash_attention(q, k_att, v_att, positions, kv_pos, causal=cfg.is_causal, window=window)
+    if layout.h_pad != layout.n_heads:
+        o = o * layout.head_mask(o.device)[s0:s0 + hl][None, None, :, None].to(o.dtype)
+    return tp.leave(o.reshape(b, s, hl * hd) @ p["wo"], grp), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -262,14 +345,15 @@ def _seq_sharded_decode(cfg: ArchConfig, layout: HeadLayout, q, k_new, v_new, ca
     position.  Each model rank holds a W/TP chunk of the ring (TRUE kv heads --
     no xR repetition), writes the new token if its slot lands locally,
     computes the partial flash statistics over its chunk, and the ranks
-    combine with a max/sum reduction: o = sum(acc*exp(m-M)) / sum(l*exp(m-M)).
-    With no logical-axes context, no model axis, or a model axis that does not
-    divide W, the whole ring is local (the reference's single-device branch);
-    so it is under a model axis of size 1, where the combine is the identity
-    (M = m, exp(0) = 1) and this branch gives the same values with no
-    collective.  The cache is written in place.
+    combine with a max/sum reduction over the model group
+    (``tensor_parallel.model_group``): o = sum(acc*exp(m-M)) / sum(l*exp(m-M)).
+    With no model group, or a ring that is whole on the rank (a model axis
+    that does not divide W), the whole ring is local (the reference's
+    single-device branch); so it is under a model axis of size 1, where the
+    combine is the identity (M = m, exp(0) = 1) and this branch gives the same
+    values with no collective.  The cache is written in place.
     """
-    ctx = _axes.current()
+    grp = tp.model_group()
     b, _, h_pad, hd = q.shape
     gp = layout.repeat * layout.g_pad  # query slots per TRUE kv head
     scale = 1.0 / math.sqrt(hd)
@@ -278,8 +362,8 @@ def _seq_sharded_decode(cfg: ArchConfig, layout: HeadLayout, q, k_new, v_new, ca
                    for x in (cache["ks"], cache["vs"], cache["poss"]))
     qg = q.reshape(b, 1, layout.n_kv, gp, hd)
     slot = t % w_total
-    tp = ctx.axis_size(ctx.model) if ctx is not None and ctx.model else 1
-    if tp == 1 or w_total % tp:
+    wl = ck.shape[1]
+    if grp.size == 1 or wl == w_total:
         # single-device / unsharded: same math, whole buffer local
         _write(ck, cv, pos, k_new, v_new, t, slot, torch.ones((), dtype=torch.bool,
                                                                device=q.device))
@@ -287,21 +371,15 @@ def _seq_sharded_decode(cfg: ArchConfig, layout: HeadLayout, q, k_new, v_new, ca
         o = acc / torch.clamp(lsum[..., None], min=1e-30)
         return o.reshape(b, 1, h_pad, hd).to(q.dtype)
 
-    mesh = ctx.mesh
-    group = mesh.get_group(ctx.model)
-    wl = ck.shape[1]
-    lo = mesh.get_local_rank(ctx.model) * wl
+    lo = grp.rank * wl
     active = (slot >= lo) & (slot < lo + wl)
     _write(ck, cv, pos, k_new, v_new, t, torch.clamp(slot - lo, 0, wl - 1), active)
     m, lsum, acc = _attend(qg, ck, cv, pos, t, scale)
     # flash combine across seq shards
-    m_g = m.clone()
-    dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
+    m_g = grp.all_reduce_max(m)
     alpha = torch.exp(m - m_g)
-    l_g = lsum * alpha
-    dist.all_reduce(l_g, op=dist.ReduceOp.SUM, group=group)
-    acc_g = acc * alpha[..., None]
-    dist.all_reduce(acc_g, op=dist.ReduceOp.SUM, group=group)
+    l_g = grp.all_reduce_sum(lsum * alpha)
+    acc_g = grp.all_reduce_sum(acc * alpha[..., None])
     o = acc_g / torch.clamp(l_g[..., None], min=1e-30)
     return o.reshape(b, 1, h_pad, hd).to(q.dtype)
 
@@ -357,12 +435,13 @@ def block_apply(
     x = x + h
     y_in = _norm(p, cfg, x, "norm2")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ff = tp.model_group().over(cfg.d_ff)  # the rules shard the MLP's d_ff where it divides
     if cfg.is_moe:
         y, aux = moe_ffn(p["moe"], y_in, cfg.n_experts_per_tok, cfg.capacity_factor, cfg.act)
     elif cfg.gated_mlp:
-        y = gated_mlp(p["mlp"], y_in, cfg.act)
+        y = gated_mlp(p["mlp"], y_in, cfg.act, ff)
     else:
-        y = mlp(p["mlp"], y_in, cfg.act)
+        y = mlp(p["mlp"], y_in, cfg.act, ff)
     return x + y, new_cache, aux
 
 
@@ -413,9 +492,23 @@ def cast_for_serving(params: Params, cfg: ArchConfig) -> Params:
     return Params(tree)
 
 
+def _vocab_group(cfg: ArchConfig) -> tp.Group:
+    """The model group where it splits the (padded) vocabulary: ``embed``'s
+    rows and ``lm_head``'s columns are then this rank's."""
+    return tp.model_group().over(cfg.padded_vocab)
+
+
 def _embed(params, cfg: ArchConfig, tokens=None, embeds=None) -> torch.Tensor:
     if embeds is None:
-        embeds = params["embed"][tokens.long()]
+        vg = _vocab_group(cfg)
+        if vg.size == 1:
+            embeds = params["embed"][tokens.long()]
+        else:  # this rank's rows; an id outside them gives zeros; then the sum
+            table = params["embed"]
+            ids = tokens.long() - vg.rank * table.shape[0]
+            hit = (ids >= 0) & (ids < table.shape[0])
+            rows = table[ids.clamp(0, table.shape[0] - 1)]
+            embeds = tp.leave(torch.where(hit[..., None], rows, torch.zeros_like(rows)), vg)
     x = embeds.to(cfg.dtype("compute"))
     if cfg.embed_scale:
         # sqrt(d) rounded to the compute dtype first, as the reference does
@@ -424,9 +517,15 @@ def _embed(params, cfg: ArchConfig, tokens=None, embeds=None) -> torch.Tensor:
 
 
 def _unembed(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    x = _norm(params, cfg, x, "final_norm")
+    """Float32 logits: over a vocabulary group, this rank's columns."""
+    x = tp.enter(_norm(params, cfg, x, "final_norm"), _vocab_group(cfg))
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return (x @ w.to(x.dtype)).float()
+
+
+def _whole_vocab(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
+    """Logits of every column: a vocabulary group's columns all-gathered."""
+    return tp.gather(logits, _vocab_group(cfg), -1)
 
 
 def remat_layer(fn, *args):
@@ -453,7 +552,8 @@ def forward(
     mrope_positions: Optional[torch.Tensor] = None,
     cache: Optional[Cache] = None,
 ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
-    """Returns (logits fp32, cache written in place, moe_aux)."""
+    """Returns (logits fp32, cache written in place, moe_aux); over a model
+    group that splits the vocabulary, the logits are this rank's columns."""
     layout = _layout(cfg)
     x = _embed(params, cfg, tokens, embeds)
     b, s = x.shape[:2]
@@ -479,7 +579,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None) -> Cache:
     """One zeroed ring buffer per layer, ``pos`` -1 in every (unwritten) slot.
 
     With ``decode_kv_seq_sharded`` (and no window) the ring holds the TRUE
-    kv heads: ``{"ks", "vs": (B, W, K, hd), "poss": (W,)}``.
+    kv heads: ``{"ks", "vs": (B, W, K, hd), "poss": (W,)}``.  Over a model
+    group that divides ``K_pad`` a plain ring holds this rank's heads.
     """
     dev = resolve_device(device)
     if cfg.decode_kv_seq_sharded and not cfg.window:
@@ -497,7 +598,7 @@ def kv_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> Dict[str, tor
     layout = _layout(cfg)
     w = min(max_len, cfg.window) if cfg.window else max_len
     dtype = cfg.dtype("compute")
-    shape = (batch, w, layout.k_pad, cfg.head_dim)
+    shape = (batch, w, layout.k_pad // tp.model_group().over(layout.k_pad).size, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -516,8 +617,10 @@ def train_loss(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
         params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
         mrope_positions=batch.get("mrope_positions"),
     )
+    vg = _vocab_group(cfg)
     loss = cross_entropy_loss(
-        logits, batch["labels"], batch.get("loss_mask"), real_vocab=cfg.vocab_size
+        logits, batch["labels"], batch.get("loss_mask"), real_vocab=cfg.vocab_size,
+        group=vg, vocab_offset=vg.rank * logits.shape[-1],
     )
     total = loss + cfg.router_aux_loss * aux if cfg.is_moe else loss
     return total, {"loss": loss, "moe_aux": aux}
@@ -534,7 +637,7 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], max_len: in
         params, cfg, tokens=tokens, embeds=embeds,
         mrope_positions=batch.get("mrope_positions"), cache=cache,
     )
-    return logits[:, -1], cache, s
+    return _whole_vocab(cfg, logits[:, -1]), cache, s
 
 
 def decode_step(params, cfg: ArchConfig, cache: Cache, tokens: torch.Tensor, t: int):
@@ -547,4 +650,4 @@ def decode_step(params, cfg: ArchConfig, cache: Cache, tokens: torch.Tensor, t: 
     logits, cache, _ = forward(
         params, cfg, tokens=tokens, positions=positions, mrope_positions=mrope, cache=cache
     )
-    return logits[:, -1], cache, t + 1
+    return _whole_vocab(cfg, logits[:, -1]), cache, t + 1

@@ -4,16 +4,21 @@ Port of ``repro.runtime.serve``.  ``make_prefill_step`` / ``make_serve_step``
 run on one device, the decode cache written in place.  ``jit_prefill`` /
 ``jit_serve_step`` are their mesh halves, with the reference's names and
 return tuples; nothing is compiled.  Over a ``DeviceMesh`` the parameters
-are DTensors placed by ``sharding.param_shardings`` and gathered per call
-(FSDP-style), and the cache's leaves are DTensors placed by
-``sharding.cache_shardings``: the plain ring sharded on heads over
-``"model"``, the sequence-sharded true-KV ring (``decode_kv_seq_sharded``)
-on its sequence.  Compute is data-parallel over the batch axes.  A step
-gathers each plain-ring leaf over the model axis, decodes on it, and writes
-this rank's heads back; the true-KV ring stays in its shards and each model
-rank attends over its own chunk (``models/transformer.py::_seq_sharded_decode``,
-under the ``logical_axes`` context each step activates).  The logits come
-back whole, the same on every rank.
+are DTensors placed by ``sharding.param_shardings``, and the cache's leaves
+are DTensors placed by ``sharding.cache_shardings``: the plain ring sharded
+on heads over ``"model"``, the sequence-sharded true-KV ring
+(``decode_kv_seq_sharded``) on its sequence.  Compute is data-parallel over
+the batch axes and, for the transformer families, tensor-parallel over
+``"model"`` (``runtime/train.py``): a call gathers each parameter over every
+axis but ``"model"``, each model rank computes on its shards, and the
+plain ring stays in its head shards, each rank prefilling and decoding its
+own heads in place.  In the true-KV mode the model axis carries the ring's
+sequence: the attention is whole-head on every rank and each rank attends
+over its own chunk (``models/transformer.py::_seq_sharded_decode``), while
+the MLPs and the vocabulary stay tensor-parallel.  The hybrid and
+state-space families gather their parameters whole, gather each cache leaf
+over the model axis, decode on it and write this rank's part back.  The
+logits come back whole, the same on every rank.
 """
 from __future__ import annotations
 
@@ -26,9 +31,10 @@ from torch.distributed.tensor import DTensor
 
 from ..configs.base import ShapeConfig
 from ..distributed import sharding
+from ..distributed import tensor_parallel as tp
 from ..distributed.axes import logical_axes
 from ..models import Model
-from .train import _BatchAxes, param_shapes
+from .train import _BatchAxes, model_axes, param_shapes
 
 __all__ = ["jit_prefill", "jit_serve_step", "make_prefill_step", "make_serve_step"]
 
@@ -66,15 +72,17 @@ def _prefill_batch_shapes(model: Model, shape: ShapeConfig) -> Dict[str, torch.S
     return out
 
 
-def _compute_params(params, kept: "weakref.WeakKeyDictionary"):
-    """The whole parameters, gathered over every axis that shards them.  Where
-    every leaf is whole already (a world of one), the tree of local tensors is
-    made once per parameter tree and kept in ``kept`` (it shares their storage)."""
+def _compute_params(params, kept: "weakref.WeakKeyDictionary", keep: tuple):
+    """The parameters gathered over every axis that shards them but those in
+    ``keep`` (the model axis of a tensor-parallel family).  Where no leaf
+    needs a gather (a world of one, or shards over ``keep`` only), the tree of
+    local tensors is made once per parameter tree and kept in ``kept`` (it
+    shares their storage)."""
     tree = kept.get(params)
     if tree is None:
         leaves = params.leaves()
-        tree = params.replace_leaves({k: sharding.gather(p) for k, p in leaves.items()})
-        if all(sharding.is_whole(p) for p in leaves.values()):
+        tree = params.replace_leaves({k: sharding.gather(p, keep) for k, p in leaves.items()})
+        if all(sharding.is_whole(p, keep) for p in leaves.values()):
             kept[params] = tree
     return tree
 
@@ -88,13 +96,7 @@ def _rows(x, sh: sharding.NamedSharding, bx: _BatchAxes) -> torch.Tensor:
 def _global_rows(x: torch.Tensor, bx: _BatchAxes, split: bool) -> torch.Tensor:
     """The global batch of per-rank rows (every rank gets the whole); rows
     that were not split are the whole already."""
-    if not split or bx.count == 1:
-        return x
-    for g in reversed(bx.groups):  # the minor batch axis first
-        got = [torch.empty_like(x) for _ in range(torch.distributed.get_world_size(g))]
-        torch.distributed.all_gather(got, x.contiguous(), group=g)
-        x = torch.cat(got, dim=0)
-    return x
+    return bx.all_gather(x, 0) if split else x
 
 
 def _map(fn, tree, sh_tree, name: str = ""):
@@ -124,19 +126,23 @@ def jit_prefill(mesh, model: Model, shape: ShapeConfig):
     b_sh = sharding.batch_shardings(mesh, _prefill_batch_shapes(model, shape))
     c_sh = sharding.cache_shardings(mesh, _cache_shapes(model, shape))
     bx = _BatchAxes(mesh, axes.batch)
-    keep = axes.batch
+    tp_keep = model_axes(model, axes)
+    tpg = tp.MeshGroup(mesh, tp_keep)
     kept = weakref.WeakKeyDictionary()
 
     def place(name: str, x: torch.Tensor, sh: sharding.NamedSharding) -> DTensor:
+        # the prefill made this rank's rows, and a split family's ring heads
+        skip = axes.batch + (() if name in _SEQ_KEYS else tp_keep)
         local = x[sharding.local_slice(x.shape, sh.spec, mesh, mesh.get_coordinate(),
-                                       skip=keep)]
+                                       skip=skip)]
         return DTensor.from_local(local.contiguous(), mesh, sh.placements, run_check=False)
 
     def prefill_step(params, batch):
         split = bool(next(iter(b_sh.values())).spec)
-        with logical_axes(mesh, axes.batch, axes.model, seq=model.cfg.sequence_parallel):
+        with logical_axes(mesh, axes.batch, axes.model, seq=model.cfg.sequence_parallel,
+                          tp=tpg):
             batch = {k: _rows(v, b_sh[k], bx) for k, v in batch.items()}
-            logits, cache, t = model.prefill(_compute_params(params, kept), batch,
+            logits, cache, t = model.prefill(_compute_params(params, kept, tp_keep), batch,
                                              shape.seq_len)
         return _global_rows(logits, bx, split), _map(place, cache, c_sh), t
 
@@ -155,18 +161,23 @@ def jit_serve_step(mesh, model: Model, shape: ShapeConfig, donate: bool = True):
     tokens = {"tokens": torch.Size((shape.global_batch, 1))}
     tok_sh = sharding.batch_shardings(mesh, tokens)["tokens"]
     bx = _BatchAxes(mesh, axes.batch)
-    keep = axes.batch
+    tp_keep = model_axes(model, axes)
+    tpg = tp.MeshGroup(mesh, tp_keep)
+    keep = axes.batch + tp_keep
     kept = weakref.WeakKeyDictionary()
 
     def view(name: str, x, sh):
+        # a split family's ring is its local heads, written in place; the true-KV
+        # ring stays a DTensor (each rank its chunk); other leaves are gathered
         return x if name in _SEQ_KEYS else sharding.gather(x, keep)
 
     def serve_step(params, cache, tokens, t):
-        with logical_axes(mesh, axes.batch, axes.model, seq=model.cfg.sequence_parallel):
+        with logical_axes(mesh, axes.batch, axes.model, seq=model.cfg.sequence_parallel,
+                          tp=tpg):
             compute = _map(view, cache, c_sh)
-            logits, _, t1 = model.decode_step(_compute_params(params, kept), compute,
+            logits, _, t1 = model.decode_step(_compute_params(params, kept, tp_keep), compute,
                                               _rows(tokens, tok_sh, bx), t)
-        with torch.no_grad():
+        with torch.no_grad():  # a no-op where the view shares the leaf's storage
             for x, full in zip(_leaves(cache), _leaves(compute)):
                 if isinstance(x, DTensor) and x is not full:
                     sharding.write_back(x, full, keep)

@@ -11,39 +11,51 @@ The mesh half (``state_shardings``, ``jit_train_step``, ``jit_init_state``)
 keeps the reference's names; nothing is compiled.  Over a ``DeviceMesh`` the
 parameters and both AdamW moments are DTensors placed by
 ``sharding.param_shardings``.  A mesh step gathers the parameters over every
-axis that shards them (FSDP-style), so the forward and its kernels run on
-plain tensors; it runs data-parallel over the batch axes, sums the
-gradients over them, and each rank applies AdamW to its own shards.  It has
-the reference's global-batch semantics: the cross-entropy divides by the
-mask sum of the whole global batch (all-reduced before the backward), and
-the clipping norm is taken over the whole summed gradient.  Tensor-parallel
-compute over ``"model"`` (head-parallel attention, column/row MLPs,
-vocab-parallel cross-entropy), which XLA's partitioner does for the
-reference, is not done: every model rank of a batch shard computes the same
-values (``ROADMAP.md`` §1).  The MoE router's aux loss and its capacity
-dropping are statistics of the batch; over more than one batch shard a mesh
-step of an MoE family raises ``NotImplementedError``.
+axis that shards them but ``"model"`` (FSDP-style), so the forward and its
+kernels run on plain tensors; it runs data-parallel over the batch axes,
+sums the gradients over them, and each rank applies AdamW to its own
+shards.  It has the reference's global-batch semantics: the cross-entropy
+divides by the mask sum of the whole global batch (all-reduced before the
+backward), and the clipping norm is taken over the whole summed gradient.
+
+Tensor parallelism over ``"model"`` (the transformer families: dense, MoE,
+VLM, encoder), as XLA's partitioner splits the reference: each model rank
+keeps its model shard of every leaf the rules shard there and computes on
+it (head-parallel attention, column / row MLPs, expert-parallel MoE,
+vocab-parallel embedding, unembedding and cross-entropy;
+``distributed/tensor_parallel.py``), the model group reached through the
+step's ``logical_axes`` context.  A model-sharded leaf's gradient is its
+model shard; a replicated leaf's is whole (summed over the group inside the
+model where a rank-local region read it).  The clipping norm sums each
+shard's squares over the group and counts each replicated leaf once.  On a
+model axis of size 1 no collective runs and the step is the plain
+step, bitwise.  The hybrid and state-space families compute whole on every
+model rank, as before (``ROADMAP.md`` §1).
+
+The MoE router's aux loss takes its two batch means over the global batch
+(sums over the batch group inside ``models/moe.py``); it enters the
+objective unweighted, so the batch ranks' summed gradients are the global
+batch's.  Capacity is per sequence row and needs no collective.
 """
 from __future__ import annotations
 
-import math
 from typing import Any, Callable, Dict, NamedTuple
 
 import torch
-import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from ..distributed import sharding
+from ..distributed import tensor_parallel as tp
 from ..distributed.axes import logical_axes
 from ..models import Model
 from ..optim import AdamW, OptState, apply_updates, global_norm
 
-__all__ = ["TrainState", "default_microbatches", "init_state", "jit_init_state",
-           "jit_train_step", "make_train_step", "param_shapes", "shard_state",
+__all__ = ["TP_FAMILIES", "TrainState", "default_microbatches", "init_state", "jit_init_state",
+           "jit_train_step", "make_train_step", "model_axes", "param_shapes", "shard_state",
            "state_shardings"]
 
-_MOE_MESH = ("the MoE router's aux loss and capacity are batch statistics; a mesh step over "
-             "more than one batch shard waits for their all-reduce (ROADMAP.md §1, item 2)")
+# the families whose compute is split over "model" (models/transformer.py)
+TP_FAMILIES = ("dense", "moe", "vlm", "encoder")
 
 
 class TrainState(NamedTuple):
@@ -192,56 +204,52 @@ def _input_shapes(model: Model, shape) -> Dict[str, torch.Size]:
     return out
 
 
-class _BatchAxes:
-    """The batch axes of a mesh: this rank's index among the batch shards,
-    their count, and the groups to sum over (axes of size 1 have nothing to sum)."""
-
-    def __init__(self, mesh, names):
-        sizes = sharding.mesh_sizes(mesh)
-        coord = dict(zip(sizes, mesh.get_coordinate()))
-        self.count = math.prod(sizes[n] for n in names)
-        self.index = 0
-        for n in names:
-            self.index = self.index * sizes[n] + coord[n]
-        self.groups = [mesh.get_group(n) for n in names if sizes[n] > 1]
-
-    def sum_(self, x: torch.Tensor) -> torch.Tensor:
-        for g in self.groups:
-            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=g)
-        return x
+class _BatchAxes(tp.MeshGroup):
+    """The batch axes of a mesh as a group: this rank's index among the batch
+    shards (``rank``), their count (``size``) and this rank's rows."""
 
     def rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a global-batch tensor (dim 0)."""
-        if x.shape[0] % self.count:
+        if x.shape[0] % self.size:
             raise ValueError(f"a batch of {x.shape[0]} rows does not divide over "
-                             f"{self.count} batch shards")
-        n = x.shape[0] // self.count
-        return x[self.index * n:(self.index + 1) * n]
+                             f"{self.size} batch shards")
+        return x[self.part(x.shape[0])]
+
+
+def model_axes(model: Model, axes: sharding.MeshAxes) -> tuple:
+    """The mesh axes a mesh step keeps its parameters' shards over while it
+    computes: ``(axes.model,)`` for a family split over it, else ``()``."""
+    return (axes.model,) if axes.model and model.cfg.family in TP_FAMILIES else ()
 
 
 def _mesh_value_and_grad(model: Model, params, batch, bx: _BatchAxes):
     """:func:`_value_and_grad` of this rank's rows, normalised by the whole
     global batch: the CE loss's divisor ``max(mask.sum(), 1)`` becomes the
     mask sum over every batch shard (all-reduced before the backward), so
-    summing the ranks' gradients gives the global batch's.  Returns the
-    global loss and metrics and this rank's gradients."""
+    summing the ranks' gradients gives the global batch's.  An MoE family's
+    aux loss is a statistic of the global batch already (``moe_ffn`` sums
+    over the batch group), so it enters unweighted.  Returns the global loss
+    and metrics and this rank's gradients."""
     leaves = params.leaves()
     mask = batch.get("loss_mask")
     labels = batch["labels"]
     dev = labels.device
     local = (mask.float().sum() if mask is not None
              else torch.tensor(float(labels.numel()), device=dev))
-    total = bx.sum_(local.clone())
+    total = bx.all_reduce_sum(local)
     # exactly 1.0 on one batch shard (x / x), so the step is the plain one there
     w = torch.clamp(local, min=1.0) / torch.clamp(total, min=1.0)
     loss, metrics = model.train_loss(params, batch)
-    grads = torch.autograd.grad(loss * w, list(leaves.values()), allow_unused=True)
+    moe = model.cfg.is_moe and bx.size > 1
+    aux = model.cfg.router_aux_loss * metrics["moe_aux"] if moe else None
+    objective = metrics["loss"] * w + aux if moe else loss * w
+    grads = torch.autograd.grad(objective, list(leaves.values()), allow_unused=True)
     grads = {k: torch.zeros_like(p) if g is None else g
              for (k, p), g in zip(leaves.items(), grads)}
-    # the MoE aux loss runs on one batch shard only (jit_train_step): as it is
-    metrics = {k: bx.sum_(m.detach() * w) if k == "loss" else m.detach()
+    metrics = {k: bx.all_reduce_sum(m.detach() * w) if k == "loss" else m.detach()
                for k, m in metrics.items()}
-    return bx.sum_((loss.detach() * w)), metrics, grads
+    total = metrics["loss"] + aux.detach() if moe else bx.all_reduce_sum(loss.detach() * w)
+    return total, metrics, grads
 
 
 def jit_train_step(mesh, model: Model, optimizer: AdamW, shape, donate: bool = True,
@@ -263,23 +271,40 @@ def jit_train_step(mesh, model: Model, optimizer: AdamW, shape, donate: bool = T
     st_sh = state_shardings(mesh, model, optimizer, axes)
     b_sh = sharding.batch_shardings(mesh, _input_shapes(model, shape), axes)
     bx = _BatchAxes(mesh, axes.batch)
-    if model.cfg.is_moe and bx.count > 1:
-        raise NotImplementedError(_MOE_MESH)
-
-    slices: Dict[str, tuple] = {}  # each leaf's shard of its whole gradient, by path
+    keep = model_axes(model, axes)
+    tpg = tp.MeshGroup(mesh, keep)
+    slices: Dict[str, tuple] = {}  # each leaf's shard of its gradient, by path
 
     def step(state: TrainState, batch: Dict[str, Any]):
-        with logical_axes(mesh, axes.batch, axes.model, seq=model.cfg.sequence_parallel):
-            return _mesh_step(model, optimizer, microbatches, bx, slices, state, batch)
+        with logical_axes(mesh, axes.batch, axes.model, seq=model.cfg.sequence_parallel,
+                          tp=tpg, dp=bx):
+            return _mesh_step(model, optimizer, microbatches, bx, tpg, keep, slices, state,
+                              batch)
 
     return step, st_sh, b_sh
 
 
+def _grad_norm(grads: Dict[str, torch.Tensor], split, tpg: tp.Group) -> torch.Tensor:
+    """The clipping norm of the whole gradient from this rank's: each leaf's
+    sum of squares, those of the leaves ``split`` over the model group summed
+    over it (one all-reduce), each replicated leaf counted once; in the plain
+    step's leaf order, and its expressions where the group is of one."""
+    if tpg.size == 1 or not split:
+        return global_norm(grads)
+    sq = {k: torch.sum(torch.square(g.float())) for k, g in grads.items()}
+    keys = [k for k in grads if k in split]
+    sq.update(zip(keys, tpg.all_reduce_sum(torch.stack([sq[k] for k in keys])).unbind()))
+    return torch.sqrt(torch.sum(torch.stack(list(sq.values()))))
+
+
 def _mesh_step(model: Model, optimizer: AdamW, microbatches: int, bx: _BatchAxes,
-               slices: Dict[str, tuple], state: TrainState, batch):
+               tpg: tp.Group, keep: tuple, slices: Dict[str, tuple], state: TrainState, batch):
     leaves = state.params.leaves()  # path -> DTensor, in the plain tree's order
     with torch.no_grad():
-        full = {k: sharding.gather(p).detach().requires_grad_(True) for k, p in leaves.items()}
+        # each leaf whole but over the model axis: a leaf split there stays its shard
+        full = {k: sharding.gather(p, keep).detach().requires_grad_(True)
+                for k, p in leaves.items()}
+    split = {k for k, p in leaves.items() if full[k].shape != p.shape} if tpg.size > 1 else set()
     params = state.params.replace_leaves(full)
     batch = {k: sharding.gather(v) for k, v in batch.items()}  # the global batch
 
@@ -290,16 +315,17 @@ def _mesh_step(model: Model, optimizer: AdamW, microbatches: int, bx: _BatchAxes
     del params, full
     with torch.no_grad():
         for g in grads.values():
-            bx.sum_(g)
+            bx.all_reduce_sum(g, inplace=True)
         # the clipping norm of the whole summed gradient, in the plain step's leaf order
-        gnorm = global_norm({k: grads[k] for k in leaves})
+        gnorm = _grad_norm({k: grads[k] for k in leaves}, split, tpg)
         opt = state.opt_state
         local = {k: p.to_local() for k, p in leaves.items()}
         g_local = {}
         for k, p in leaves.items():
-            if k not in slices:
-                slices[k] = sharding.local_slice(p.shape, sharding.spec_of(p), p.device_mesh,
-                                                 p.device_mesh.get_coordinate())
+            if k not in slices:  # the gradient is whole but over the model axis
+                slices[k] = sharding.local_slice(grads[k].shape, sharding.spec_of(p),
+                                                 p.device_mesh, p.device_mesh.get_coordinate(),
+                                                 skip=keep)
             g_local[k] = grads[k][slices[k]]
         del grads
         updates, new_opt, opt_metrics = optimizer.update_shards(

@@ -8,6 +8,15 @@ reference's side runs here on one device: its single-device train step, its
 plain decode and its quantization, on the same seeded inputs, its weights
 carried into the port by ``models/convert.py::params_from_jax``.
 
+Every case whose mesh has a model axis of size > 1 runs tensor-parallel
+(``distributed/tensor_parallel.py``): the reference's cases on (4, 2),
+(2, 2, 2) and (2, 4), the checkpoint restore on (2, 2), and the MoE step on
+(2, 2), which is held to the reference's ``jit_train_step`` on four host
+devices (a jax subprocess).  The TP step is also held against the same
+mesh's step under ``MeshAxes.dp_over_model`` (no tensor parallelism), and a
+case records what a rank computes on: its compute tree's shapes and any
+gather over the model axis.
+
 Tolerances: the reference's (loss 1e-3, every leaf 2e-3; microbatching
 5e-4; decode logits 2e-3 / 3e-3), and 1e-5 against the port's own plain step
 on one process.  A first AdamW step moves a parameter by ``lr g / (|g| +
@@ -17,6 +26,7 @@ everywhere (``tests/test_torch_train.py``'s contract).
 """
 import json
 import os
+import pickle
 import subprocess
 import sys
 import textwrap
@@ -46,7 +56,8 @@ B, S = 8, 16
 S_PRE, S_MAX = 12, 16
 EPS = 1e-8
 CASES8 = ("rows", "step42", "rdp222", "micro", "ragged", "allreduce", "ckpt_save",
-          "seqdecode", "ringdecode")
+          "seqdecode", "ringdecode", "tpdp", "tptree")
+CASES4 = ("ckpt_restore", "moe22")
 ROW_SPECS = {
     ("pod", "data", "model"): {"batch": (("pod", "data"),), "model": (None, "model"),
                                "both": (("pod", "data"), "model"), "data": ("data",),
@@ -128,10 +139,58 @@ def ref():
     return out
 
 
+_JAX_MOE = """
+import pickle, sys, jax, jax.numpy as jnp, numpy as np
+from repro.configs import get_config
+from repro.configs.base import ShapeConfig
+from repro.launch.mesh import make_mesh
+from repro.models import build_model
+from repro.optim import AdamW
+from repro.runtime.train import init_state, jit_train_step
+cfg = get_config("qwen3-moe-235b-a22b", smoke=True, param_dtype="float32", compute_dtype="float32")
+model = build_model(cfg)
+opt = AdamW(learning_rate=1e-2, weight_decay=0.0)
+state0 = init_state(model, opt, jax.random.key(0))
+rng = np.random.default_rng(4)
+batch = {{"tokens": rng.integers(0, cfg.vocab_size, ({b}, {s}), dtype=np.int32),
+          "labels": rng.integers(0, cfg.vocab_size, ({b}, {s}), dtype=np.int32),
+          "loss_mask": (rng.random(({b}, {s})) > 0.2).astype(np.float32)}}
+mesh = make_mesh((2, 2), ("data", "model"))
+with mesh:
+    fn, st_sh, b_sh = jit_train_step(mesh, model, opt, ShapeConfig("t", {s}, {b}, "train"),
+                                     donate=False)
+    new, metrics = fn(jax.device_put(state0, st_sh), jax.device_put(batch, b_sh))
+host = lambda t: jax.tree.map(np.asarray, t)
+pickle.dump({{"params0": host(state0.params), "params": host(new.params),
+             "m": host(new.opt_state.m), "batch": batch,
+             "metrics": {{k: float(v) for k, v in metrics.items()}}}}, open(sys.argv[1], "wb"))
+"""
+
+
 @pytest.fixture(scope="module")
-def ranks(ref, tmp_path_factory):
+def moe_ref(tmp_path_factory):
+    """The reference's MoE step on a (2, 2) ("data", "model") mesh of four host devices."""
+    path = tmp_path_factory.mktemp("moe") / "moe.pkl"
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu")
+    r = subprocess.run([sys.executable, "-c", _JAX_MOE.format(b=B, s=S), str(path)],
+                       capture_output=True, text=True, env=env, cwd=REPO, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    with open(path, "rb") as f:
+        out = pickle.load(f)
+    cfg = get_config("qwen3-moe-235b-a22b", smoke=True, param_dtype="float32",
+                     compute_dtype="float32")
+    for name in ("params0", "params", "m"):
+        out[name] = convert.params_from_jax(out[name], cfg, device="cpu").leaves()
+    return out
+
+
+@pytest.fixture(scope="module")
+def ranks(ref, moe_ref, tmp_path_factory):
     work = tmp_path_factory.mktemp("mesh")
     torch.save({
+        "moe_params": moe_ref["params0"],
+        "moe_batch": {k: torch.from_numpy(v) for k, v in moe_ref["batch"].items()},
         "params": ref["params"],
         "batch": {k: torch.from_numpy(v) for k, v in ref["np_batch"].items()},
         "ragged_mask": torch.from_numpy(ref["ragged_mask"]),
@@ -142,7 +201,7 @@ def ranks(ref, tmp_path_factory):
         "row_specs": ROW_SPECS,
     }, work / "inputs.pt")
     out = run_ranks(CASES8, 8, str(work))
-    out.update(run_ranks(("ckpt_restore",), 4, str(work)))
+    out.update(run_ranks(CASES4, 4, str(work)))
     return out
 
 
@@ -168,15 +227,17 @@ def _plain_step(leaves: dict, batch: dict, microbatches: int = 1, state=None):
     return float(metrics["loss"]), full
 
 
-def _hold_state(got: dict, want: dict, tol: float) -> None:
-    """Every moment within ``tol``; every parameter within ``tol`` where its
-    first-step gradient is resolved (|g| >= 100 eps, g = m / (1 - b1))."""
+def _hold_state(got: dict, want: dict, tol: float, before: dict | None = None) -> None:
+    """Every moment within ``tol``; every parameter within ``tol`` where the
+    step's gradient is resolved (|g| >= 100 eps, g = (m - b1 m_before) / (1 - b1),
+    ``m_before`` zero on a first step, else from the state ``before`` the step)."""
     assert set(got) == set(want)
     held = total = 0
     for k, w in want.items():
         g = got[k]
         if k.startswith("params."):
-            grad = want["m." + k[len("params."):]] / 0.1
+            m = "m." + k[len("params."):]
+            grad = (want[m] - (0.9 * before[m] if before is not None else 0.0)) / 0.1
             sel = (grad.abs() >= 100 * EPS) | (grad == 0)
             held, total = held + int(sel.sum()), total + sel.numel()
             np.testing.assert_allclose(g[sel].numpy(), w[sel].numpy(), rtol=tol, atol=tol,
@@ -295,7 +356,8 @@ def test_compressed_allreduce(ref, ranks):
 
 def test_checkpoint_cross_mesh_restore(ref, ranks):
     """Saved on 8 ranks (4, 2), restored on 4 ranks (2, 2): bitwise the saved
-    state, and the next step the single-process step from it."""
+    state; the next step is, on every element, the step the same mesh takes
+    from that state placed in memory, and its loss the single-process step's."""
     saved = ok(ranks["ckpt_save"])
     assert saved[0]["wrote"] == ["step_00000001"]
     outs = ok(ranks["ckpt_restore"])
@@ -318,9 +380,15 @@ def test_checkpoint_cross_mesh_restore(ref, ranks):
     loss, plain = _plain_step(None, ref["np_batch"], state=state)
     assert np.isfinite(float(got["loss"]))
     assert abs(float(got["loss"]) - loss) < 1e-5
-    for k, w in plain.items():
+    # the restore alone: the (2, 2) step (tensor-parallel) from the restored
+    # state against the same step from the state placed with no checkpoint
+    assert abs(float(got["loss"]) - float(got["fresh_loss"])) < 1e-5
+    assert set(got["state"]) == set(got["fresh_state"])
+    for k, w in got["fresh_state"].items():
         np.testing.assert_allclose(np.asarray(got["state"][k], np.float64),
                                    np.asarray(w, np.float64), rtol=1e-5, atol=1e-5, err_msg=k)
+    # and against the single-process step, under the step-to-plain contract
+    _hold_state(got["state"], plain, 1e-5, before=want)
 
 
 def test_seq_sharded_kv_decode_matches_plain(ref, ranks):
@@ -370,6 +438,66 @@ def test_head_sharded_ring_decode_matches_plain(ref, ranks):
     seq = ok(ranks["seqdecode"])[0]
     for key in ("prefill", "decode0", "decode1", "decode2"):
         np.testing.assert_allclose(got[key].numpy(), seq[key].numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_tp_step_matches_dp_over_model(ranks):
+    """The tensor-parallel step on (4, 2) against the same mesh's step with the
+    model axis as data parallelism (``MeshAxes.dp_over_model``)."""
+    tp_out, dp_out = ok(ranks["step42"])[0], ok(ranks["tpdp"])[0]
+    assert dp_out["b_spec"]["tokens"] == "PartitionSpec(('data', 'model'), None)"
+    assert abs(float(tp_out["loss"]) - float(dp_out["loss"])) < 1e-5
+    assert abs(float(tp_out["grad_norm"]) - float(dp_out["grad_norm"])) < 1e-5
+    _hold_state(tp_out["state"], dp_out["state"], 1e-5)
+
+
+def test_tp_rank_computes_on_its_model_shards(ranks):
+    """A rank's compute tree (the train step on (4, 2)) holds its model shard of
+    every leaf the rules shard over "model" and the whole of every other; no
+    parameter and no plain-ring cache leaf is gathered over the model axis
+    (the train step, and the ring decode on (2, 4))."""
+    from repro_torch.distributed import sharding as port_sharding
+    from repro_torch.runtime.train import param_shapes
+
+    outs = ok(ranks["tptree"])
+    shapes = param_shapes(_port_model())
+    specs = port_sharding.param_shardings({"data": 4, "model": 2}, shapes)
+    split = 0
+    for k, leaf in shapes.items():
+        want = list(leaf.shape)
+        for d, part in enumerate(specs[k].spec):
+            if part == "model":
+                want[d] //= 2
+                split += 1
+        for out in outs:
+            assert out["tree"][k] == tuple(want), (k, out["tree"][k], want)
+    assert split >= 10  # wq, bq, wo, the MLP's three and the embedding, in both layers
+    for out in outs:
+        assert out["gathers"] > 0
+        assert out["train_over_model"] == 0 and out["serve_over_model"] == 0, out
+
+
+def test_moe_mesh_step_over_two_batch_shards_matches_reference(moe_ref, ranks):
+    """The MoE step on (2, 2): two batch shards (the aux loss's batch means
+    all-reduced) and the experts over the model axis, against the
+    reference's jit_train_step on the same mesh: loss, aux, grad norm, the
+    first moments (the clipped gradients times 1 - b1) everywhere and the
+    parameters where |g| >= 100 eps, within 1e-5."""
+    outs = ok(ranks["moe22"])
+    got, want = outs[0], moe_ref["metrics"]
+    for key in ("loss", "moe_aux", "grad_norm", "loss_total"):
+        _same_on_every_rank(outs, key)
+        assert abs(float(got[key]) - want[key]) < 1e-5, (key, float(got[key]), want[key])
+    assert want["moe_aux"] > 0
+    held = total = 0
+    for k, w in moe_ref["m"].items():
+        m = got["state"]["m." + k]
+        np.testing.assert_allclose(m.numpy(), w.numpy(), rtol=1e-5, atol=1e-5, err_msg=k)
+        sel = (w.abs() / 0.1 >= 100 * EPS) | (w == 0)
+        held, total = held + int(sel.sum()), total + sel.numel()
+        np.testing.assert_allclose(got["state"]["params." + k][sel].numpy(),
+                                   moe_ref["params"][k][sel].numpy(), rtol=1e-5, atol=1e-5,
+                                   err_msg=k)
+    assert held > 0.99 * total, (held, total)
 
 
 _JAX_ROWS = """

@@ -14,6 +14,7 @@ report.  Imports torch and the port only (no jax).  The tests call
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import subprocess
@@ -33,10 +34,11 @@ from repro_torch.core.planner import RedundancyPlan  # noqa: E402
 from repro_torch.distributed import axes, collectives, rdp, sharding  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.optim import AdamW  # noqa: E402
+from repro_torch.optim import AdamW, OptState  # noqa: E402
 from repro_torch.runtime.serve import jit_prefill, jit_serve_step  # noqa: E402
 from repro_torch.runtime.train import (  # noqa: E402
     TrainState, jit_init_state, jit_train_step, shard_state)
+from torch.distributed.tensor import DTensor  # noqa: E402
 
 B, S = 8, 16
 S_PRE, S_MAX = 12, 16
@@ -49,6 +51,11 @@ def train_cfg():
 def decode_cfg(seq_sharded: bool):
     return get_config("qwen2-1.5b", smoke=True, param_dtype="float32", compute_dtype="float32",
                       pad_heads_to=4, decode_kv_seq_sharded=seq_sharded)
+
+
+def moe_cfg():
+    return get_config("qwen3-moe-235b-a22b", smoke=True, param_dtype="float32",
+                      compute_dtype="float32")
 
 
 def optimizer() -> AdamW:
@@ -76,20 +83,33 @@ def full_state(state: TrainState) -> dict:
     return out
 
 
+def state_of(model, full: dict) -> TrainState:
+    """The single-process state holding ``full``'s leaves (``full_state``'s keys)."""
+    def part(prefix):
+        return {k[len(prefix):]: v.clone() for k, v in full.items() if k.startswith(prefix)}
+
+    params = params_of(model, part("params.")).trainable()
+    return TrainState(full["step"].clone(), params,
+                      OptState(full["count"].clone(), part("m."), part("v.")))
+
+
 def local_state(state: TrainState) -> dict:
     return {f"params.{k}": p.to_local().clone() for k, p in state.params.leaves().items()}
 
 
-def _step(inp, mesh, axes, batch_key="batch", microbatches=1):
+def _step(inp, mesh, axes, batch_key="batch", microbatches=1, model=None, mesh_axes=None,
+          params_key="params"):
     """One mesh step from the reference's weights; ``mesh``: a DeviceMesh, or
     a shape to make one of with ``axes``."""
-    model, opt = build_model(train_cfg()), optimizer()
+    model, opt = model or build_model(train_cfg()), optimizer()
     if axes is not None:
         mesh = make_mesh(mesh, axes, device_type="cpu")
+    mesh_axes = mesh_axes(mesh) if mesh_axes is not None else None
     step, st_sh, b_sh = jit_train_step(mesh, model, opt, ShapeConfig("t", S, B, "train"),
-                                       donate=False, microbatches=microbatches)
-    state = shard_state(plain_state(model, opt, inp["params"]), st_sh)
-    batch = dict(inp["batch"])
+                                       donate=False, microbatches=microbatches,
+                                       mesh_axes=mesh_axes)
+    state = shard_state(plain_state(model, opt, inp[params_key]), st_sh)
+    batch = dict(inp["batch" if params_key == "params" else "moe_batch"])
     if batch_key != "batch":
         batch["loss_mask"] = inp[batch_key]
     # half the leaves as DTensors placed by b_sh, half as the plain global batch
@@ -111,6 +131,61 @@ def case_rdp222(inp):
     new, metrics, b_spec = _step(inp, rdp.make_rdp_mesh(plan, 2, device_type="cpu"), None)
     return {"loss": metrics["loss"], "grad_norm": metrics["grad_norm"], "b_spec": b_spec,
             "state": full_state(new), "local": local_state(new)}
+
+
+def case_tpdp(inp):
+    """The step of ``case_step42``'s mesh with the model axis as more data
+    parallelism (``MeshAxes.dp_over_model``): no tensor parallelism."""
+    new, metrics, b_spec = _step(inp, (4, 2), ("data", "model"),
+                                 mesh_axes=sharding.MeshAxes.dp_over_model)
+    return {"loss": metrics["loss"], "grad_norm": metrics["grad_norm"], "b_spec": b_spec,
+            "state": full_state(new)}
+
+
+def _gathers_over_model(calls: list, x, keep) -> None:
+    """Record whether ``sharding.gather(x, keep)`` gathers over a "model" axis of size > 1."""
+    if isinstance(x, DTensor):
+        mesh, names = x.device_mesh, x.device_mesh.mesh_dim_names
+        calls.append(any(p.is_shard() and names[i] == "model" and mesh.size(i) > 1
+                         and "model" not in keep for i, p in enumerate(x.placements)))
+
+
+def case_tptree(inp):
+    """What a tensor-parallel rank computes on: the shapes of the train
+    step's compute tree on (4, 2), and whether the train step or the plain
+    ring's serving on (2, 4) gathers anything over the model axis."""
+    real, calls = sharding.gather, []
+
+    def spy(x, keep=()):
+        _gathers_over_model(calls, x, keep)
+        return real(x, keep)
+
+    seen = {}
+    model = build_model(train_cfg())
+
+    def train_loss(params, batch):
+        seen.update({k: tuple(v.shape) for k, v in params.leaves().items()})
+        return model.train_loss(params, batch)
+
+    sharding.gather = spy
+    try:
+        _step(inp, (4, 2), ("data", "model"), model=dataclasses.replace(model,
+                                                                      train_loss=train_loss))
+        train_calls, calls[:] = list(calls), []
+        _serve(inp, False)
+        serve_calls = list(calls)
+    finally:
+        sharding.gather = real
+    return {"tree": seen, "train_over_model": sum(train_calls),
+            "serve_over_model": sum(serve_calls), "gathers": len(train_calls) + len(serve_calls)}
+
+
+def case_moe22(inp):
+    """The MoE family's step on (2, 2): two batch shards, the experts over the model axis."""
+    model = build_model(moe_cfg())
+    new, metrics, _ = _step(inp, (2, 2), ("data", "model"), model=model, params_key="moe_params")
+    return {**{k: metrics[k] for k in ("loss", "moe_aux", "grad_norm", "loss_total")},
+            "state": full_state(new)}
 
 
 def case_micro(inp):
@@ -157,8 +232,11 @@ def case_ckpt_restore(inp):
     saved = full_state(restored)
     step, _, _ = jit_train_step(mesh, model, opt, ShapeConfig("t", S, B, "train"), donate=False)
     new, metrics = step(restored, inp["batch"])
+    # the same mesh's step from the same state placed in memory, with no checkpoint
+    fresh, fresh_metrics = step(shard_state(state_of(model, saved), st_sh), inp["batch"])
     return {"step": step_no, "placed": placed, "restored": saved, "loss": metrics["loss"],
-            "state": full_state(new)}
+            "state": full_state(new), "fresh_loss": fresh_metrics["loss"],
+            "fresh_state": full_state(fresh)}
 
 
 def _serve(inp, seq_sharded: bool):
