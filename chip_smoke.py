@@ -188,7 +188,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports
    (``TOL``, ``ROW_RTOL``) and its gradients to autograd through the plain
    version on the card (float32 2e-5, bf16 2**-6 of each tensor's
    largest), with the forward kernel's and the plain-torch backward's
-   device times beside their bounds; qwen2-1.5b at full width and depth
+   device times beside their bounds (the RMSNorm forwards over copies of
+   their inputs taken in turn, read from memory, not L2); qwen2-1.5b at
+   full width and depth
    trained through ``launch.train.train`` with the launcher's defaults
    (global batch 8, seq 128, 20 steps, no checkpoint), the counters set to
    0 just before and read just after (113 RMSNorm and 56 attention
@@ -230,7 +232,32 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports
    the rank shards; each path's launches by kernel; each rank-local
    attention shape the phase launched held against its plain version
    (``close_by_row``) and timed beside its bound;
-18. prints the kernels line, then, last, the one-line JSON result.
+18. runs tensor parallelism for the state-space and RG-LRU families: the
+   split-row RMSNorm (``rmsnorm_sumsq`` + ``rmsnorm_scaled``) against its
+   plain version at mamba2's rank shapes (d_inner 5120 over TP 2 and 4, 1024
+   rows and one, bf16 and float32; ``TOL``, ``ROW_RTOL``, and the ranks'
+   columns against the whole row's norm), timed beside its bound and
+   ``F.rms_norm`` on the whole row; mamba2-2.7b (64 layers) and
+   recurrentgemma-2b (26) served at TP 2 and 4 (the hybrid's TP 4 with
+   ``pad_heads_to=4``), bf16 whole and float32 at 16 and 5 layers, prompt
+   1024, 16 tokens, every rank's logits equal and float32 within 2e-3 +
+   2e-3 |want| of the plain path, launches by kernel checked (mamba2's gated norm two split-row
+   launches a layer); a TP 2 train step of each (mamba2 2 layers, the hybrid
+   3) under ``train_step_mismatches``; the hybrid's rank-local attention
+   shapes against their plain versions and timed;
+19. runs sequence parallelism: qwen2-1.5b whole at TP 2 with
+   ``sequence_parallel=True``, a prefill of 1024 tokens (512 rows a rank
+   between the regions) within the same bound of the plain path, and a
+   2-layer TP 2 train step with it under ``train_step_mismatches``;
+20. prints the kernels line, then, last, the one-line JSON result.
+
+Every device time is read from a ``torch.profiler`` trace, which can drop
+device events: a trace counts only if it holds as many events for each
+call, no fewer kernels than the calls launched (the runtime's and the
+driver's launch calls, the wrappers' counts) and no less time than the
+work's bound where that is given; else it is taken again, and after three
+the script fails.  Every record of the kernels line is checked at or above
+its bound before the line is printed.
 
 Any failed phase exits non-zero and prints no result; so does a run without
 a CUDA device or without the repo's sources beside the script.
@@ -260,6 +287,11 @@ CARD_BF16_FLOP_PER_S = 989e12
 # from each of an SM's 4 schedulers, 32 lanes, 132 SMs, 1980 MHz boost clock
 # (half the float32 rate, which counts an FMA as two operations)
 CARD_ISSUE_PER_S = 4 * 32 * 132 * 1.98e9
+
+# sentinel kernels either side of a timed profiler trace (see _trace_calls),
+# and what became of them over the run
+TRACE_PAD = 64
+TRACE_TALLY = {"traces": 0, "retaken": 0, "pad_lost_first": 0, "pad_lost_last": 0}
 
 N_REPS = 32768
 BUDGETS = (100, 720)
@@ -349,6 +381,19 @@ TP_SERVE = ((2, 0), (4, 4))
 TP_GEN = 16
 TP_MOE_ARCH, TP_MOE_DEPTH, TP_MOE_SIZE = "qwen3-moe-235b-a22b", 2, 4
 TP_TRAIN_SIZE = 2
+# tensor parallelism for the state-space and RG-LRU families: mamba2-2.7b and
+# recurrentgemma-2b served whole at (TP, pad_heads_to), prompt SERVE_PROMPT and
+# TP_GEN tokens; a train step of each at TP_TRAIN_SIZE, cut to 2 layers (the
+# hybrid to 3: one (R, R, A) group, so its attention layer is in the step)
+TP_REC = (("mamba2-2.7b", ((2, 0), (4, 0))), ("recurrentgemma-2b", ((2, 0), (4, 4))))
+TP_REC_TRAIN_LAYERS = {"mamba2-2.7b": 2, "recurrentgemma-2b": 3}
+# the float32 comparison's depth (bf16 runs whole): the whole script reached
+# 1048 s of its 1200 s on an H100 machine with both whole, and the
+# ranks' host loops scale with depth; recurrentgemma one (R, R, A) group and
+# its (R, R) tail
+TP_REC_F32_DEPTH = {"mamba2-2.7b": 16, "recurrentgemma-2b": 5}
+# sequence parallelism: qwen2-1.5b at TP SP_SIZE
+SP_SIZE = 2
 # tests/test_kernels.py's TOL (atol = rtol) by dtype name
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # attention and RMSNorm are also held element by element to a bound scaled by
@@ -467,19 +512,115 @@ def profile_device(fn, host: dict | None = None, counts: dict | None = None,
     return wall_ms, by_name
 
 
-def device_ms_per_call(fn, iters: int = 20) -> float:
+def _our_launches() -> int:
+    """Every kernel launch the repo's wrappers have counted so far."""
+    from repro_torch.kernels import cover, flash_attention, rmsnorm
+
+    return cover.launches + rmsnorm.launches + flash_attention.launches
+
+
+def _trace_calls(fn, iters: int, name_part: str | None = None) -> dict:
+    """One card-only ``torch.profiler`` trace of ``iters`` calls of ``fn``:
+    the device events (kernels, copies, sets; with ``name_part``, only the
+    kernels whose name holds it) counted and their microseconds summed; the
+    runtime's and the driver's kernel-launch calls counted; and the
+    launches the repo's wrappers counted meanwhile.  Late in a script a
+    trace came back short of 28 to 30 device events, the same count in
+    every retake: ``TRACE_PAD`` sentinel kernels (``torch.cuda._sleep``)
+    launched before and after the calls take that loss, are left out of
+    the counts, and the ones missing are tallied by end in
+    ``TRACE_TALLY``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    before = _our_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_PAD):
+            torch.cuda._sleep(0)
+        for _ in range(iters):
+            fn()
+        for _ in range(TRACE_PAD):
+            torch.cuda._sleep(0)
+        torch.cuda.synchronize()
+    got = {"events": 0, "kernels": 0, "us": 0.0, "runtime": 0, "driver": 0,
+           "ours": _our_launches() - before}
+    by_name: dict = {}
+    pads, starts = [], []
+    cuda = torch.autograd.DeviceType.CUDA
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == cuda:
+            if "spin_kernel" in name:
+                pads.append(e.start_ns())
+                continue
+            if "Sync" in name or "Wait" in name or (name_part and name_part not in name):
+                continue
+            got["events"] += 1
+            got["kernels"] += not name.startswith(("Memcpy", "Memset"))
+            got["us"] += e.duration_ns() / 1e3
+            by_name[name] = by_name.get(name, 0) + 1
+            starts.append(e.start_ns())
+        elif name in ("cudaLaunchKernel", "cudaLaunchKernelExC"):
+            got["runtime"] += 1
+        elif name in ("cuLaunchKernel", "cuLaunchKernelEx"):
+            got["driver"] += 1
+    got["runtime"] = max(0, got["runtime"] - 2 * TRACE_PAD)  # the sentinels' launches
+    first = min(starts, default=0)
+    n_first = sum(1 for t in pads if t < first)
+    got["pad_lost"] = [TRACE_PAD - n_first, TRACE_PAD - (len(pads) - n_first)]
+    TRACE_TALLY["traces"] += 1
+    TRACE_TALLY["pad_lost_first"] += got["pad_lost"][0]
+    TRACE_TALLY["pad_lost_last"] += got["pad_lost"][1]
+    # the device events that came a count no whole number of calls makes
+    got["uneven"] = {name[:48]: n for name, n in by_name.items() if n % iters}
+    return got
+
+
+def _whole_trace(got: dict, iters: int, floor_ms: float, name_part: str | None) -> bool:
+    """Whether a trace holds every kernel its calls launched: some device
+    events, as many for each call (a multiple of ``iters``), no fewer
+    kernels than the runtime's or the driver's launch calls or the repo's
+    wrappers' counts (with ``name_part``, which leaves other kernels out:
+    exactly the wrappers' count), and no fewer microseconds than the work's
+    bound ``floor_ms`` a call."""
+    if got["events"] == 0 or got["events"] % iters:
+        return False
+    if name_part is not None:
+        whole = got["kernels"] == got["ours"]
+    else:
+        whole = got["kernels"] >= max(got["runtime"], got["driver"], got["ours"])
+    return whole and got["us"] / 1e3 / iters >= floor_ms
+
+
+def device_ms_per_call(fn, iters: int = 20, floor_ms: float = 0.0,
+                       name_part: str | None = None, before=None) -> float:
     """The card's busy time per call of ``fn`` (kernels and copies, from a
     ``torch.profiler`` trace of ``iters`` calls after a warm-up): the
     kernel's own time, free of the host's launch overhead that CUDA events
-    around back-to-back calls also see when each call is short.  A trace
-    that shows no device time is taken again, and after three the phase fails."""
-    fn()
+    around back-to-back calls also see when each call is short.  With
+    ``name_part``, only the kernels whose name holds it (the repo's own, as
+    the wrappers count them); with ``before``, that is called ahead of each
+    call, and its device work is not counted (an L2 flush: then
+    ``name_part`` is needed).  The profiler can drop device events from a
+    trace, so a trace counts only if :func:`_whole_trace` holds for it: a
+    trace that misses kernels, or reads below ``floor_ms`` (the bound of
+    the call's work), is taken again, and after three the phase fails."""
+    import torch
+
+    call = fn if before is None else (lambda: (before(), fn()))
+    call()
+    torch.cuda.synchronize()
+    seen = []
     for _ in range(3):
-        _, by_name = profile_device(lambda: [fn() for _ in range(iters)])
-        busy_us = sum(by_name.values())
-        if busy_us > 0:
-            return busy_us / 1e3 / iters
-    check(False, f"three profiler traces of {iters} calls showed no device time")
+        got = _trace_calls(call, iters, name_part)
+        if _whole_trace(got, iters, floor_ms, name_part):
+            return got["us"] / 1e3 / iters
+        seen.append(got)
+        TRACE_TALLY["retaken"] += 1
+        print(f"a profiler trace of {iters} calls taken again: {got}, bound {floor_ms} ms a "
+              f"call", flush=True)
+    check(False, f"three profiler traces of {iters} calls each missed device events or read "
+                 f"below the bound {floor_ms} ms: {seen}")
 
 
 def kernel_ms_cold(fn, name_part: str, iters: int = 20) -> float:
@@ -488,19 +629,23 @@ def kernel_ms_cold(fn, name_part: str, iters: int = 20) -> float:
     call of ``fn``, as a layer of a served step finds it after the weights
     of the layers before it have streamed through."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and name_part in e.name]
-    return sum(us) / 1e3 / iters if us else float("nan")
+    return device_ms_per_call(fn, iters, name_part=name_part, before=flush.zero_)
+
+
+def from_memory(fn, *tensors, l2_bytes: int = 50 * 2**20):
+    """``fn`` over copies of ``tensors`` taken in turn, enough copies that
+    they pass twice the card's 50 MB L2 together: each call then reads its
+    inputs from memory, as a layer of a training step finds them, and not
+    from the L2 the previous call filled (where a read beats the memory
+    rate that the bound assumes)."""
+    import itertools
+
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    copies = [tuple(t.clone() for t in tensors) for _ in range(-(-2 * l2_bytes // n_bytes))]
+    turn = itertools.cycle(copies)
+    return lambda: fn(*next(turn))
 
 
 def device_busy_ms(fn) -> tuple[float, float]:
@@ -508,6 +653,21 @@ def device_busy_ms(fn) -> tuple[float, float]:
     in kernels and copies meanwhile (0 when the trace shows no device activity)."""
     wall_ms, by_name = profile_device(fn)
     return wall_ms, sum(by_name.values()) / 1e3
+
+
+def rows_at_or_above_bound(rec, where: str = "kernels") -> None:
+    """Fail unless every record in ``rec`` (the kernels line) that holds
+    both ``ms`` and ``bound_ms`` reads at or above its bound: a reading
+    below it is one the run did not measure."""
+    if isinstance(rec, dict):
+        ms, bnd = rec.get("ms"), rec.get("bound_ms")
+        if isinstance(ms, (int, float)) and isinstance(bnd, (int, float)):
+            check(ms >= bnd, f"{where}: {ms} ms below its bound {bnd} ms")
+        for key, sub in rec.items():
+            rows_at_or_above_bound(sub, f"{where}/{key}")
+    elif isinstance(rec, list):
+        for i, sub in enumerate(rec):
+            rows_at_or_above_bound(sub, f"{where}[{i}]")
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float) -> tuple[float, str]:
@@ -2178,25 +2338,26 @@ def phase_rmsnorm_vs_plain() -> dict:
                     check(ok, f"{what}: beyond ROW_RTOL ({row})")
         x = _randn(torch, (rows, d), dtype, SEED)
         w = _randn(torch, (d,), dtype, SEED + 1, 0.1)
-        ms = device_ms_per_call(lambda: rmsnorm.rms_norm_fused(x, w), iters=50)
-        call_ms = time_on_card(lambda: rmsnorm.rms_norm_fused(x, w), iters=50)
-        plain_ms = device_ms_per_call(lambda: rmsnorm.rms_norm_ref(x, w), iters=50)
-        lib_ms = device_ms_per_call(lambda: F.rms_norm(x, (d,), w, eps=1e-6), iters=50) \
-            if hasattr(F, "rms_norm") else None
         n_bytes = 2 * x.numel() * x.element_size() + d * w.element_size()
         bnd, by = bound_ms(n_bytes, 4 * x.numel(), CARD_F32_FLOP_PER_S)
+        ms = device_ms_per_call(lambda: rmsnorm.rms_norm_fused(x, w), iters=50, floor_ms=bnd)
+        call_ms = time_on_card(lambda: rmsnorm.rms_norm_fused(x, w), iters=50)
+        plain_ms = device_ms_per_call(lambda: rmsnorm.rms_norm_ref(x, w), iters=50, floor_ms=bnd)
+        lib_ms = device_ms_per_call(lambda: F.rms_norm(x, (d,), w, eps=1e-6), iters=50,
+                                    floor_ms=bnd) if hasattr(F, "rms_norm") else None
         lib = f"{lib_ms:.5f} ms" if lib_ms is not None else "not available"
         print(f"{name}: ({rows}, {d}) within TOL; device time per call: kernel {ms:.5f} ms, "
               f"plain {plain_ms:.5f} ms, F.rms_norm {lib}; bound {bnd:.5f} ms ({by}), kernel "
               f"at {bnd / ms:.1%} of bound; back-to-back wrapper calls (CUDA events, host "
               f"launch cost included) {call_ms:.5f} ms", flush=True)
         dx = _randn(torch, (1, d), dtype, SEED)
-        d_ms = device_ms_per_call(lambda: rmsnorm.rms_norm_fused(dx, w), iters=50)
-        d_plain = device_ms_per_call(lambda: rmsnorm.rms_norm_ref(dx, w), iters=50)
-        d_lib = device_ms_per_call(lambda: F.rms_norm(dx, (d,), w, eps=1e-6), iters=50) \
-            if hasattr(F, "rms_norm") else None
         d_bnd, d_by = bound_ms(2 * dx.numel() * dx.element_size() + d * w.element_size(),
                                4 * dx.numel(), CARD_F32_FLOP_PER_S)
+        d_ms = device_ms_per_call(lambda: rmsnorm.rms_norm_fused(dx, w), iters=50, floor_ms=d_bnd)
+        d_plain = device_ms_per_call(lambda: rmsnorm.rms_norm_ref(dx, w), iters=50,
+                                     floor_ms=d_bnd)
+        d_lib = device_ms_per_call(lambda: F.rms_norm(dx, (d,), w, eps=1e-6), iters=50,
+                                   floor_ms=d_bnd) if hasattr(F, "rms_norm") else None
         d_lib_s = f"{d_lib:.5f} ms" if d_lib is not None else "not available"
         print(f"{name}: decode (1, {d}) device time per call: kernel {d_ms:.5f} ms, plain "
               f"{d_plain:.5f} ms, F.rms_norm {d_lib_s}; bound {d_bnd:.5f} ms ({d_by})")
@@ -2594,6 +2755,7 @@ def _reset_counts() -> None:
     from repro_torch.kernels import cover, flash_attention, rmsnorm
 
     cover.launches = rmsnorm.launches = flash_attention.launches = 0
+    rmsnorm.sumsq_launches = rmsnorm.scaled_launches = 0
     cover.draws_launches = cover.philox_launches = 0
     flash_attention.splitkv_launches = flash_attention.wgmma_launches = 0
     flash_attention.simt_launches = 0
@@ -2650,12 +2812,14 @@ def phase_zoo_rmsnorm() -> dict:
                 if dtype != torch.bfloat16 or d != ZOO_D_INNER:
                     continue
                 w = _randn(torch, (d,), dtype, SEED + 8, 0.1)
-                ms = device_ms_per_call(lambda: rmsnorm.rms_norm_fused(x, w), iters=50)
-                plain_ms = device_ms_per_call(lambda: rmsnorm.rms_norm_ref(x, w), iters=50)
-                lib_ms = device_ms_per_call(lambda: F.rms_norm(x, (d,), w, eps=1e-6),
-                                            iters=50) if hasattr(F, "rms_norm") else None
                 bnd, by = bound_ms(2 * x.numel() * x.element_size() + w.numel() * w.element_size(),
                                    4 * x.numel(), CARD_F32_FLOP_PER_S)
+                ms = device_ms_per_call(lambda: rmsnorm.rms_norm_fused(x, w), iters=50,
+                                        floor_ms=bnd)
+                plain_ms = device_ms_per_call(lambda: rmsnorm.rms_norm_ref(x, w), iters=50,
+                                              floor_ms=bnd)
+                lib_ms = device_ms_per_call(lambda: F.rms_norm(x, (d,), w, eps=1e-6), iters=50,
+                                            floor_ms=bnd) if hasattr(F, "rms_norm") else None
                 lib = f"{lib_ms:.5f} ms" if lib_ms is not None else "not available"
                 print(f"rmsnorm {name} ({rows}, {d}) device time per call: kernel {ms:.5f} ms, "
                       f"plain {plain_ms:.5f} ms, F.rms_norm {lib}; bound {bnd:.5f} ms ({by}), "
@@ -2977,23 +3141,26 @@ def phase_train_kernels() -> dict:
         w = _randn(torch, (d,), dtype, SEED + 1, 0.1)
         g = _randn(torch, (b, s, d), dtype, SEED + 2)
         xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
-        fwd = device_ms_per_call(lambda: rmsnorm.rms_norm_fused(x, w), iters=50)
-        # x (3 MB in bf16) stays in the 50 MB L2 between back-to-back calls
-        cold = kernel_ms_cold(lambda: rmsnorm.rms_norm_fused(x, w), "rmsnorm_kernel")
-        plain = device_ms_per_call(lambda: rmsnorm.rms_norm_ref(x, w), iters=50)
-        lib = device_ms_per_call(lambda: F.rms_norm(x, (d,), w, eps=1e-6), iters=50) \
-            if hasattr(F, "rms_norm") else None
-        bwd = device_ms_per_call(lambda: rmsnorm.rms_norm_bwd(g, x, w), iters=50)
-        plain_bwd = device_ms_per_call(lambda: torch.autograd.grad(
-            rmsnorm.rms_norm_ref(xg, wg), (xg, wg), g), iters=50)
         size, n = x.element_size(), x.numel()
         f_bnd, f_by = bound_ms(2 * n * size + d * w.element_size(), 4 * n, CARD_F32_FLOP_PER_S)
         # backward: read g, x, w once, write dx, dw once; ~10 flops an element
         b_bnd, b_by = bound_ms(3 * n * size + 2 * d * w.element_size(), 10 * n,
                                CARD_F32_FLOP_PER_S)
+        # x (3 MB in bf16) would stay in the 50 MB L2 between back-to-back
+        # calls and beat the memory rate: the forwards read copies in turn
+        fwd = device_ms_per_call(from_memory(rmsnorm.rms_norm_fused, x, w), iters=50,
+                                 floor_ms=f_bnd)
+        cold = kernel_ms_cold(lambda: rmsnorm.rms_norm_fused(x, w), "rmsnorm_kernel")
+        plain = device_ms_per_call(from_memory(rmsnorm.rms_norm_ref, x, w), iters=50,
+                                   floor_ms=f_bnd)
+        lib = device_ms_per_call(from_memory(lambda x, w: F.rms_norm(x, (d,), w, eps=1e-6), x, w),
+                                 iters=50, floor_ms=f_bnd) if hasattr(F, "rms_norm") else None
+        bwd = device_ms_per_call(lambda: rmsnorm.rms_norm_bwd(g, x, w), iters=50, floor_ms=b_bnd)
+        plain_bwd = device_ms_per_call(lambda: torch.autograd.grad(
+            rmsnorm.rms_norm_ref(xg, wg), (xg, wg), g), iters=50, floor_ms=b_bnd)
         lib_s = f"{lib:.5f} ms" if lib is not None else "not available"
-        print(f"rmsnorm {name} ({b}, {s}, {d}): forward kernel {fwd:.5f} ms ({cold:.5f} ms with "
-              f"L2 flushed before each call; plain {plain:.5f}, "
+        print(f"rmsnorm {name} ({b}, {s}, {d}): forward kernel {fwd:.5f} ms, inputs read from "
+              f"memory ({cold:.5f} ms with L2 flushed before each call; plain {plain:.5f}, "
               f"F.rms_norm {lib_s}; bound {f_bnd:.5f} ms, {f_by}); backward rms_norm_bwd "
               f"{bwd:.5f} ms (plain version's forward + autograd {plain_bwd:.5f}; bound "
               f"{b_bnd:.5f} ms, {b_by})  [{CARD}]", flush=True)
@@ -3717,25 +3884,160 @@ def _tp_attention_shapes(cfg, size: int) -> tuple:
     return hl, (hl - 1) // lay.g_pad + 1, cfg.head_dim
 
 
+# the kernels a TP phase counts by path: RMSNorm (the split row's two apart)
+# and attention (by kernel)
+_TP_KERNELS = ("rmsnorm", "sumsq", "scaled", "flash_attention", "splitkv", "wgmma", "simt")
+
+
+def _launch_counter(total: dict):
+    """``counted(fn, *args) -> (fn(*args), its launches)``: every count set to
+    0 just before ``fn`` and read just after (synchronised), and added into
+    ``total`` by kernel."""
+    import torch
+
+    from repro_torch.kernels import rmsnorm
+
+    def counted(fn, *args):
+        _reset_counts()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        got = dict(_counts(), sumsq=rmsnorm.sumsq_launches, scaled=rmsnorm.scaled_launches)
+        for k in _TP_KERNELS:
+            total[k] += got[k]
+        return out, {k: got[k] for k in _TP_KERNELS}
+
+    return counted
+
+
+def _tp_train_check(cfg, size: int, counted, seq: bool = False) -> dict:
+    """One train step of ``cfg`` (float32, batch TRAIN_CHECK_BATCH x TRAIN_SEQ)
+    on ``size`` thread ranks (``seq``: sequence parallelism on), every
+    gradient, moment and parameter assembled from the rank shards and held
+    to the plain step under ``train_step_mismatches``; the ranks' launches
+    (through ``counted``, the plain step's not counted)."""
+    import torch
+    import torch_tp_threads as th
+    from test_torch_train_cuda import LOSS_RTOL, step_record, train_step_mismatches
+
+    from repro_torch.data import PipelineConfig, SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, apply_updates, cosine_with_warmup, global_norm
+    from repro_torch.runtime.train import TrainState, _grad_norm, _value_and_grad
+
+    model = build_model(cfg)
+    opt = AdamW(cosine_with_warmup(3e-3, 1, TRAIN_STEPS))
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED)).trainable()
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in SyntheticLM(PipelineConfig(
+        cfg.vocab_size, TRAIN_SEQ, TRAIN_CHECK_BATCH, seed=SEED)).global_batch(0).items()}
+    state = TrainState(torch.zeros((), dtype=torch.int32, device="cuda"), params,
+                       opt.init(params))
+    want = step_record(state, batch, model, opt)
+    want_norm = float(global_norm(want["grads"]))
+    dims = th.sharded_dims(params.leaves(), size)
+
+    def rank_step(r, group):
+        p = th.rank_params(params, size, r, trainable=True)
+        loss, _, grads = _value_and_grad(model, p, batch)
+        gnorm = _grad_norm(grads, set(dims), group)
+        updates, new, om = opt.update_shards(grads, opt.init(p), p, gnorm)
+        return {"loss": loss, "grads": grads, "params": apply_updates(p.leaves(), updates),
+                "m": new.m, "v": new.v, "old": p.leaves(), "count": new.count, "lr": om["lr"],
+                "gnorm": gnorm}
+
+    ranks, counts = counted(lambda: th.run_ranks(size, rank_step, seq=seq))
+    got = {k: th.assemble([r[k] for r in ranks], dims) for k in ("grads", "params", "m", "v",
+                                                                  "old")}
+    got.update(loss=ranks[0]["loss"], count=ranks[0]["count"], lr=ranks[0]["lr"], opt=opt)
+    stats: dict = {}
+    bad = train_step_mismatches(got, want, stats)
+    gnorm = float(ranks[0]["gnorm"])
+    same = all(float(r["loss"]) == float(ranks[0]["loss"]) and float(r["gnorm"]) == gnorm
+               for r in ranks)
+    what = f"train step TP {size}{' with sequence parallelism' if seq else ''}"
+    print(f"{what}: {cfg.name} full width, {cfg.n_layers} layers, float32, batch "
+          f"{TRAIN_CHECK_BATCH} x {TRAIN_SEQ}: loss {float(got['loss']):.7f} vs plain "
+          f"{float(want['loss']):.7f}, grad norm {gnorm:.7f} vs {want_norm:.7f}; {len(dims)} "
+          f"leaves split over the ranks, every gradient assembled from the shards and held "
+          f"with the moments and parameters under train_step_mismatches "
+          f"({stats.get('beyond_param_tol')} elements held by their allowance); launches "
+          f"{counts}  [{CARD}]", flush=True)
+    check(not bad, f"{cfg.name} {what} against the plain step: {bad[:6]}")
+    check(same and abs(gnorm - want_norm) <= LOSS_RTOL * want_norm,
+          f"{cfg.name} {what}: grad norm {gnorm} (every rank the same: {same}) vs the plain "
+          f"{want_norm}")
+    del params, state, want, got, ranks
+    return counts
+
+
+def _tp_attention_vs_plain(seen_shapes, shapes_rec: dict, n: int) -> float:
+    """Each rank-local attention shape ``(arch, size, pad, heads, kv_heads,
+    head_dim, window)`` a TP run launched, prefill over SERVE_PROMPT keys and
+    decode against the ``n``-slot ring, bf16 and float32, against its plain
+    version (``close_by_row``) on the kernel the path takes; the bf16 shapes
+    timed beside their bound into ``shapes_rec``.  Returns the max |err|."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as flash
+
+    max_err = 0.0
+    for arch, size, pad, h, kh, hd, window in sorted(seen_shapes, key=str):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).removeprefix("torch.")
+            for label, sq in (("prefill", SERVE_PROMPT), ("decode", 1)):
+                q = _randn(torch, (1, sq, h, hd), dtype, SEED + 2)
+                k = _randn(torch, (1, n if sq == 1 else sq, kh, hd), dtype, SEED + 3)
+                v = _randn(torch, tuple(k.shape), dtype, SEED + 4)
+                if sq == 1:
+                    kv_pos = _ring_positions(torch, n, n - 1, n)
+                    q_pos = torch.full((1, 1), n - 1, dtype=torch.int32, device="cuda")
+                else:
+                    q_pos = torch.arange(sq, dtype=torch.int32, device="cuda")[None]
+                    kv_pos = q_pos.clone()
+                want = flash.attention_ref(q, k, v, q_pos, kv_pos, True, window)
+                before = (flash.splitkv_launches, flash.wgmma_launches, flash.simt_launches)
+                got = flash.attention(q, k, v, q_pos, kv_pos, True, window)
+                path = _attention_path(flash, before)
+                want_path = "splitkv" if sq == 1 else ("wgmma" if name == "bfloat16" else "simt")
+                ok, row = close_by_row(got, want, name)
+                err = float((got.float() - want.float()).abs().max())
+                max_err = max(max_err, err)
+                tag = f"{arch} TP {size} {label} q {tuple(q.shape)} kv {tuple(k.shape)} {name}"
+                check(ok and path == want_path, f"attention {tag}: on {path} (want {want_path}),"
+                                                f" |err| / (|want| + row RMS) {row}")
+                if name == "bfloat16":
+                    ms = device_ms_per_call(
+                        lambda: flash.attention(q, k, v, q_pos, kv_pos, True, window), iters=20)
+                    plain_ms = device_ms_per_call(
+                        lambda: flash.attention_ref(q, k, v, q_pos, kv_pos, True, window),
+                        iters=5)
+                    bnd, by = _attention_bound(torch, q, k, q_pos, kv_pos, True, window)
+                    shapes_rec[f"{arch} tp{size} {label}"] = {
+                        "shape": [list(q.shape), list(k.shape)], "path": path, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                        "max_abs_err": err}
+                    print(f"{tag} on {path}: within ROW_RTOL ({row:.2e}); device ms kernel "
+                          f"{ms:.5f}, plain {plain_ms:.5f}; bound {bnd:.5f} ({by}), kernel at "
+                          f"{bnd / ms:.2%} of bound  [{CARD}]", flush=True)
+                else:
+                    print(f"{tag} on {path}: within ROW_RTOL ({row:.2e})", flush=True)
+                del q, k, v, want, got
+    _free()
+    return max_err
+
+
 def phase_tensor_parallel() -> dict:
     """Tensor parallelism over "model": size 1 through the mesh serve step;
     then qwen2-1.5b's serving at TP 2 and TP 4, qwen3-moe's at TP 4 and a
     qwen2-1.5b train step at TP 2, every rank a thread on the one card; the
     rank-local attention shapes against their plain versions."""
     import torch
-    import torch_tp_threads as th
-    from test_torch_train_cuda import LOSS_RTOL, step_record, train_step_mismatches
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.data import PipelineConfig, SyntheticLM
     from repro_torch.distributed import sharding
-    from repro_torch.kernels import flash_attention as flash
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
-    from repro_torch.optim import AdamW, apply_updates, cosine_with_warmup, global_norm
     from repro_torch.runtime.serve import jit_prefill, jit_serve_step
-    from repro_torch.runtime.train import TrainState, _grad_norm, _value_and_grad
 
     t_phase = time.perf_counter()
     n = SERVE_PROMPT + TP_GEN
@@ -3745,18 +4047,10 @@ def phase_tensor_parallel() -> dict:
           "thread on the one card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    names = ("rmsnorm", "flash_attention", "splitkv", "wgmma", "simt")
-    rec: dict = {"launches": dict.fromkeys(names, 0), "shapes": {}, "serve": {}}
+    rec: dict = {"launches": dict.fromkeys(_TP_KERNELS, 0), "shapes": {}, "serve": {}}
     seen_shapes: set = set()
 
-    def counted(fn, *args):
-        _reset_counts()
-        out = fn(*args)
-        torch.cuda.synchronize()
-        got = _counts()
-        for k in names:
-            rec["launches"][k] += got[k]
-        return out, {k: got[k] for k in names}
+    counted = _launch_counter(rec["launches"])
 
     # size 1: the plain ring through the mesh serve step, bitwise the plain model
     cfg = get_config(SERVE_ARCH)
@@ -3807,7 +4101,7 @@ def phase_tensor_parallel() -> dict:
                            "splitkv": size * (TP_GEN - 1) * cfg.n_layers,
                            "wgmma" if dtype == "bfloat16" else "simt": size * cfg.n_layers}
             shape = _tp_attention_shapes(cfg, size)
-            seen_shapes.add((SERVE_ARCH, size, pad) + shape)
+            seen_shapes.add((SERVE_ARCH, size, pad) + shape + (None,))
             print(f"{what}: {shape[0]} query slots over {shape[1]} KV head(s) a rank; max "
                   f"|TP - plain| {worst:.3e} over {TP_GEN} steps' {cfg.padded_vocab} logits; "
                   f"launches {counts} (expected {want_counts}); host s: plain {plain_s:.2f}, "
@@ -3829,7 +4123,7 @@ def phase_tensor_parallel() -> dict:
         what = f"{TP_MOE_ARCH} {TP_MOE_DEPTH} layers {dtype} TP {TP_MOE_SIZE}"
         worst = _tp_check_ranks(outs, want, dtype, what)
         shape = _tp_attention_shapes(cfg, TP_MOE_SIZE)
-        seen_shapes.add((TP_MOE_ARCH, TP_MOE_SIZE, 0) + shape)
+        seen_shapes.add((TP_MOE_ARCH, TP_MOE_SIZE, 0) + shape + (None,))
         experts = cfg.n_experts // TP_MOE_SIZE
         print(f"{what}: {shape[0]} query slots over {shape[1]} KV head(s) and {experts} experts "
               f"a rank; max |TP - plain| {worst:.3e}; launches {counts}  [{CARD}]", flush=True)
@@ -3843,96 +4137,279 @@ def phase_tensor_parallel() -> dict:
     # one train step at TP 2: full width, 2 layers, float32
     cfg = dataclasses.replace(get_config(TRAIN_ARCH, param_dtype="float32",
                                          compute_dtype="float32"), n_layers=TRAIN_CHECK_LAYERS)
-    model = build_model(cfg)
-    opt = AdamW(cosine_with_warmup(3e-3, 1, TRAIN_STEPS))
-    params = model.init(torch.Generator(device="cuda").manual_seed(SEED)).trainable()
-    batch = {k: torch.from_numpy(v).to("cuda") for k, v in SyntheticLM(PipelineConfig(
-        cfg.vocab_size, TRAIN_SEQ, TRAIN_CHECK_BATCH, seed=SEED)).global_batch(0).items()}
-    state = TrainState(torch.zeros((), dtype=torch.int32, device="cuda"), params,
-                       opt.init(params))
-    want = step_record(state, batch, model, opt)
-    want_norm = float(global_norm(want["grads"]))
-    dims = th.sharded_dims(params.leaves(), TP_TRAIN_SIZE)
-
-    def rank_step(r, group):
-        p = th.rank_params(params, TP_TRAIN_SIZE, r, trainable=True)
-        loss, _, grads = _value_and_grad(model, p, batch)
-        gnorm = _grad_norm(grads, set(dims), group)
-        updates, new, om = opt.update_shards(grads, opt.init(p), p, gnorm)
-        return {"loss": loss, "grads": grads, "params": apply_updates(p.leaves(), updates),
-                "m": new.m, "v": new.v, "old": p.leaves(), "count": new.count, "lr": om["lr"],
-                "gnorm": gnorm}
-
-    ranks, counts = counted(th.run_ranks, TP_TRAIN_SIZE, rank_step)
-    got = {k: th.assemble([r[k] for r in ranks], dims) for k in ("grads", "params", "m", "v",
-                                                                  "old")}
-    got.update(loss=ranks[0]["loss"], count=ranks[0]["count"], lr=ranks[0]["lr"], opt=opt)
-    stats: dict = {}
-    bad = train_step_mismatches(got, want, stats)
-    gnorm = float(ranks[0]["gnorm"])
-    same = all(float(r["loss"]) == float(ranks[0]["loss"]) and float(r["gnorm"]) == gnorm
-               for r in ranks)
-    print(f"train step TP {TP_TRAIN_SIZE}: {TRAIN_ARCH} full width, {cfg.n_layers} layers, "
-          f"float32, batch {TRAIN_CHECK_BATCH} x {TRAIN_SEQ}: loss {float(got['loss']):.7f} vs "
-          f"plain {float(want['loss']):.7f}, grad norm {gnorm:.7f} vs {want_norm:.7f}; "
-          f"{len(dims)} leaves split over the ranks, every gradient assembled from the shards "
-          f"and held with the moments and parameters under train_step_mismatches "
-          f"({stats.get('beyond_param_tol')} elements held by their allowance); launches "
-          f"{counts}  [{CARD}]", flush=True)
-    check(not bad, f"TP train step against the plain step: {bad[:6]}")
-    check(same and abs(gnorm - want_norm) <= LOSS_RTOL * want_norm,
-          f"TP grad norm {gnorm} (every rank the same: {same}) vs the plain {want_norm}")
+    counts = _tp_train_check(cfg, TP_TRAIN_SIZE, counted)
     check(counts["flash_attention"] == TP_TRAIN_SIZE * 2 * cfg.n_layers
           and counts["rmsnorm"] == TP_TRAIN_SIZE * (4 * cfg.n_layers + 1),
           f"TP train step launches {counts}")
-    del params, state, want, got, ranks
     _free()
 
     # the rank-local attention shapes, against their plain versions
-    max_err = 0.0
-    for arch, size, pad, h, kh, hd in sorted(seen_shapes):
-        for dtype in (torch.bfloat16, torch.float32):
-            name = str(dtype).removeprefix("torch.")
-            for label, sq in (("prefill", SERVE_PROMPT), ("decode", 1)):
-                q = _randn(torch, (1, sq, h, hd), dtype, SEED + 2)
-                k = _randn(torch, (1, n if sq == 1 else sq, kh, hd), dtype, SEED + 3)
-                v = _randn(torch, tuple(k.shape), dtype, SEED + 4)
-                if sq == 1:
-                    kv_pos = _ring_positions(torch, n, n - 1, n)
-                    q_pos = torch.full((1, 1), n - 1, dtype=torch.int32, device="cuda")
-                else:
-                    q_pos = torch.arange(sq, dtype=torch.int32, device="cuda")[None]
-                    kv_pos = q_pos.clone()
-                want = flash.attention_ref(q, k, v, q_pos, kv_pos, True, None)
-                before = (flash.splitkv_launches, flash.wgmma_launches, flash.simt_launches)
-                got = flash.attention(q, k, v, q_pos, kv_pos, True, None)
-                path = _attention_path(flash, before)
-                want_path = "splitkv" if sq == 1 else ("wgmma" if name == "bfloat16" else "simt")
-                ok, row = close_by_row(got, want, name)
-                err = float((got.float() - want.float()).abs().max())
-                max_err = max(max_err, err)
-                tag = f"{arch} TP {size} {label} q {tuple(q.shape)} kv {tuple(k.shape)} {name}"
-                check(ok and path == want_path, f"attention {tag}: on {path} (want {want_path}),"
-                                                f" |err| / (|want| + row RMS) {row}")
-                if name == "bfloat16":
-                    ms = device_ms_per_call(
-                        lambda: flash.attention(q, k, v, q_pos, kv_pos, True, None), iters=20)
-                    plain_ms = device_ms_per_call(
-                        lambda: flash.attention_ref(q, k, v, q_pos, kv_pos, True, None), iters=5)
-                    bnd, by = _attention_bound(torch, q, k, q_pos, kv_pos, True, None)
-                    rec["shapes"][f"{arch} tp{size} {label}"] = {
-                        "shape": [list(q.shape), list(k.shape)], "path": path, "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-                        "max_abs_err": err}
-                    print(f"{tag} on {path}: within ROW_RTOL ({row:.2e}); device ms kernel "
-                          f"{ms:.5f}, plain {plain_ms:.5f}; bound {bnd:.5f} ({by}), kernel at "
-                          f"{bnd / ms:.2%} of bound  [{CARD}]", flush=True)
-                else:
-                    print(f"{tag} on {path}: within ROW_RTOL ({row:.2e})", flush=True)
-                del q, k, v, want, got
-    rec["max_abs_err"] = max_err
+    rec["max_abs_err"] = _tp_attention_vs_plain(seen_shapes, rec["shapes"], n)
     _free()
     print(f"tensor parallelism: {time.perf_counter() - t_phase:.1f} s; the TP path's launches "
+          f"{rec['launches']}", flush=True)
+    return rec
+
+
+def _split_norm_vs_plain() -> dict:
+    """The split-row RMSNorm (``rmsnorm_sumsq`` then ``rmsnorm_scaled``) at
+    mamba2-2.7b's rank shapes: d_inner 5120 over TP 2 and 4 (2560 and 1280
+    columns a rank), a prefill's 1024 rows and a decode's one, bf16 and
+    float32, plain and ``plus_one``.  Each rank's row sums against the plain
+    version's (relative ``TOL``), its normalised columns against the plain
+    version on the same totals (``TOL`` and ``ROW_RTOL``), and the ranks'
+    columns together against ``rms_norm_ref`` of the whole row; the bf16
+    pair timed beside its bytes bound, its plain version and ``F.rms_norm``
+    on the whole row."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rmsnorm
+
+    out: dict = {"max_abs_err": 0.0, "shapes": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        for rows in (SERVE_PROMPT, 1):
+            x = _randn(torch, (rows, ZOO_D_INNER), dtype, SEED + 11)
+            for size in (2, 4):
+                d = ZOO_D_INNER // size
+                parts = [x[:, r * d:(r + 1) * d].contiguous() for r in range(size)]
+                sums = [rmsnorm.row_sumsq(xp) for xp in parts]
+                for r, (xp, ss) in enumerate(zip(parts, sums)):
+                    want = rmsnorm.row_sumsq_ref(xp)
+                    rel = float(((ss - want).abs() / want.abs().clamp_min(1e-30)).max())
+                    check(rel <= TOL["float32"], f"rmsnorm_sumsq {name} ({rows}, {d}) rank {r}: "
+                                                 f"relative |err| {rel}")
+                total = sum(sums)
+                for w_dtype in (dtype, torch.float32):
+                    w = _randn(torch, (ZOO_D_INNER,), w_dtype, SEED + 12, 0.1)
+                    for plus_one in (False, True):
+                        got = [rmsnorm.rms_norm_scaled(xp, w[r * d:(r + 1) * d].contiguous(),
+                                                       total, ZOO_D_INNER, plus_one=plus_one)
+                               for r, xp in enumerate(parts)]
+                        what = (f"split-row rmsnorm {name} ({rows}, {d}) of {ZOO_D_INNER} w "
+                                f"{w_dtype} plus_one={plus_one}")
+                        for r, (g, xp) in enumerate(zip(got, parts)):
+                            want = rmsnorm.rms_norm_split_ref(
+                                xp, w[r * d:(r + 1) * d], total, ZOO_D_INNER, plus_one=plus_one)
+                            ok, err = close_to(g, want, name)
+                            out["max_abs_err"] = max(out["max_abs_err"], err)
+                            check(ok, f"{what} rank {r}: max |err| {err} beyond TOL")
+                            ok, row = close_by_row(g, want, name)
+                            check(ok, f"{what} rank {r}: beyond ROW_RTOL ({row})")
+                        whole = rmsnorm.rms_norm_ref(x, w, plus_one=plus_one)
+                        ok, row = close_by_row(torch.cat(got, -1), whole, name)
+                        check(ok, f"{what}: the ranks' columns against the whole row's norm, "
+                                  f"beyond ROW_RTOL ({row})")
+                if dtype != torch.bfloat16:
+                    continue
+                xp, wp = parts[0], _randn(torch, (d,), dtype, SEED + 12, 0.1)
+
+                def kernel_pair(xp=xp, wp=wp, total=total):
+                    rmsnorm.row_sumsq(xp)
+                    return rmsnorm.rms_norm_scaled(xp, wp, total, ZOO_D_INNER)
+
+                def plain_pair(xp=xp, wp=wp, total=total):
+                    rmsnorm.row_sumsq_ref(xp)
+                    return rmsnorm.rms_norm_split_ref(xp, wp, total, ZOO_D_INNER)
+
+                # x read once, w read once, the rank's columns written once; the
+                # row sums written and read back (float32)
+                n_bytes = 2 * xp.numel() * xp.element_size() + d * wp.element_size() + 8 * rows
+                bnd, by = bound_ms(n_bytes, 6 * xp.numel(), CARD_F32_FLOP_PER_S)
+                ms = device_ms_per_call(kernel_pair, iters=50, floor_ms=bnd)
+                plain_ms = device_ms_per_call(plain_pair, iters=50, floor_ms=bnd)
+                ww = _randn(torch, (ZOO_D_INNER,), dtype, SEED + 12, 0.1)
+                whole_bnd = bound_ms(2 * x.numel() * x.element_size() + ZOO_D_INNER
+                                     * ww.element_size(), 4 * x.numel(), CARD_F32_FLOP_PER_S)[0]
+                lib_ms = device_ms_per_call(lambda: F.rms_norm(x, (ZOO_D_INNER,), ww, eps=1e-6),
+                                            iters=50, floor_ms=whole_bnd) \
+                    if hasattr(F, "rms_norm") else None
+                lib = f"{lib_ms:.5f} ms" if lib_ms is not None else "not available"
+                key = f"({rows}, {d})"
+                out["shapes"][key] = {"shape": [rows, d], "width": ZOO_D_INNER, "ms": ms,
+                                      "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                                      "library_ms": lib_ms}
+                print(f"split-row rmsnorm bf16 {key} of {ZOO_D_INNER} (TP {size}): device time "
+                      f"per call, rmsnorm_sumsq + rmsnorm_scaled {ms:.5f} ms, plain {plain_ms:.5f}"
+                      f" ms, F.rms_norm on the whole ({rows}, {ZOO_D_INNER}) row {lib}; bound "
+                      f"{bnd:.5f} ms ({by}), the pair at {bnd / ms:.1%} of bound  [{CARD}]",
+                      flush=True)
+        print(f"{name}: split-row rmsnorm at TP 2 and 4, 1024 rows and one, every weight dtype "
+              f"and plus_one within TOL and ROW_RTOL", flush=True)
+    _free()
+    return out
+
+
+def _tp_rec_counts(cfg, size: int) -> dict:
+    """The launches of a served run (a prefill and TP_GEN - 1 decode steps)
+    of ``cfg`` on ``size`` thread ranks: mamba2's norm1 a layer and the final
+    norm fused, its gated norm a split row (``rmsnorm_sumsq`` +
+    ``rmsnorm_scaled``) a layer; the hybrid's norms fused and its attention
+    layers' kernels."""
+    per = size * TP_GEN
+    if cfg.family == "ssm":
+        split = per * cfg.n_layers
+        return {"rmsnorm": per * (cfg.n_layers + 1) + 2 * split, "sumsq": split,
+                "scaled": split, "flash_attention": 0}
+    rms, n_attn = _zoo_per_forward(cfg)
+    dt = cfg.dtype("compute")
+    return {"rmsnorm": per * rms, "sumsq": 0, "scaled": 0, "flash_attention": per * n_attn,
+            "splitkv": size * (TP_GEN - 1) * n_attn,
+            "wgmma" if str(dt) == "torch.bfloat16" else "simt": size * n_attn}
+
+
+def phase_tp_recurrent() -> dict:
+    """Tensor parallelism for the state-space and hybrid families: the
+    split-row RMSNorm against its plain version at mamba2's rank shapes;
+    mamba2-2.7b and recurrentgemma-2b served whole at TP 2 and 4 (the hybrid's
+    TP 4 with ``pad_heads_to=4``), float32 and bf16, every rank a thread on the
+    one card; a TP 2 train step of each; the hybrid's rank-local attention
+    shapes against their plain versions."""
+    import torch
+
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    n = SERVE_PROMPT + TP_GEN
+    phase(f"tensor parallelism for the state-space and RG-LRU families: the split-row RMSNorm "
+          f"at d_inner {ZOO_D_INNER} / TP; {[a for a, _ in TP_REC]} served at TP "
+          f"{[s for s, _ in TP_REC[0][1]]} (bf16 whole, float32 at {TP_REC_F32_DEPTH} layers; "
+          f"prompt {SERVE_PROMPT}, {TP_GEN} tokens); a train step of each at TP {TP_TRAIN_SIZE}; "
+          "every rank a thread on the one card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec: dict = {"launches": dict.fromkeys(_TP_KERNELS, 0), "shapes": {}, "serve": {},
+                 "split": _split_norm_vs_plain()}
+    print(f"split-row RMSNorm checks: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    counted = _launch_counter(rec["launches"])
+    seen_shapes: set = set()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    vocab = min(_zoo_config(arch).vocab_size for arch, _ in TP_REC)
+    tokens = torch.randint(0, vocab, (1, n), generator=gen, device="cuda", dtype=torch.int32)
+    for arch, layouts in TP_REC:
+        for dtype in ("float32", "bfloat16"):
+            plain = None  # (pad, cfg, model, params, want, plain_s), reused across TP sizes
+            for size, pad in layouts:
+                if plain is None or plain[0] != pad:
+                    plain = None
+                    _free()
+                    t_made = time.perf_counter()
+                    depth = TP_REC_F32_DEPTH[arch] if dtype == "float32" else None
+                    cfg = _zoo_config(arch, depth, compute_dtype=dtype, pad_heads_to=pad)
+                    model = build_model(cfg)
+                    params = model.for_serving(model.init(
+                        torch.Generator(device="cuda").manual_seed(SEED)))
+                    t0 = time.perf_counter()
+                    want = _tp_serve(model, params, tokens, 1)
+                    plain = (pad, cfg, model, params, want, time.perf_counter() - t0)
+                    print(f"{arch} {dtype} weights made and served plain: "
+                          f"{time.perf_counter() - t_made:.1f} s", flush=True)
+                _, cfg, model, params, want, plain_s = plain
+                t0 = time.perf_counter()
+                outs, counts = counted(_tp_serve, model, params, tokens, size)
+                tp_s = time.perf_counter() - t0
+                what = f"{arch} {dtype} {cfg.n_layers} layers TP {size} (pad_heads_to={pad})"
+                worst = _tp_check_ranks(outs, want, dtype, what)
+                want_counts = _tp_rec_counts(cfg, size)
+                if cfg.family == "hybrid":
+                    heads = _tp_attention_shapes(cfg, size)
+                    seen_shapes.add((arch, size, pad) + heads + (cfg.window,))
+                    shape = f"{heads[0]} query slots over {heads[1]} KV head(s) a rank; "
+                else:
+                    shape = (f"{cfg.ssm_expand * cfg.d_model // size} d_inner channels and "
+                             f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim // size} heads "
+                             "a rank; ")
+                print(f"{what}: {shape}max |TP - plain| {worst:.3e} over {TP_GEN} steps' "
+                      f"{cfg.padded_vocab} logits; launches {counts} (expected {want_counts}); "
+                      f"host s: plain {plain_s:.2f}, {size} ranks {tp_s:.2f}  [{CARD}]",
+                      flush=True)
+                check(all(counts[k] == v for k, v in want_counts.items()),
+                      f"{what}: launches {counts}, expected {want_counts}")
+                rec["serve"][f"{arch} tp{size} {dtype}"] = worst
+                del params, want, outs, model
+            del plain
+            _free()
+    for arch, _ in TP_REC:
+        cfg = dataclasses.replace(_zoo_config(arch, param_dtype="float32",
+                                              compute_dtype="float32"),
+                                  n_layers=TP_REC_TRAIN_LAYERS[arch])
+        t0 = time.perf_counter()
+        counts = _tp_train_check(cfg, TP_TRAIN_SIZE, counted)
+        print(f"{arch} train step check: {time.perf_counter() - t0:.1f} s", flush=True)
+        remat = 2 if cfg.remat else 1  # each layer's forward again in the backward
+        if cfg.family == "ssm":
+            split = TP_TRAIN_SIZE * remat * cfg.n_layers
+            check(counts["sumsq"] == counts["scaled"] == split
+                  and counts["rmsnorm"] == 2 * split + TP_TRAIN_SIZE * (
+                      remat * cfg.n_layers + 1),
+                  f"{arch} TP train step launches {counts}")
+        else:
+            check(counts["flash_attention"] > 0 and counts["sumsq"] == 0,
+                  f"{arch} TP train step launches {counts}")
+        _free()
+    rec["max_abs_err"] = max(_tp_attention_vs_plain(seen_shapes, rec["shapes"], n),
+                             rec["split"]["max_abs_err"])
+    print(f"tensor parallelism, state-space and RG-LRU: {time.perf_counter() - t_phase:.1f} s; "
+          f"the path's launches {rec['launches']}", flush=True)
+    return rec
+
+
+def phase_sequence_parallel() -> dict:
+    """Sequence parallelism: qwen2-1.5b whole at TP SP_SIZE with
+    ``sequence_parallel=True``, a prefill of SERVE_PROMPT tokens (the rows
+    split over the ranks) within 2e-3 + 2e-3 |want| of the plain path
+    (float32), every rank's logits the same; and a train step at 2 layers
+    under ``train_step_mismatches``."""
+    import torch
+    import torch_tp_threads as th
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    phase(f"sequence parallelism: {SERVE_ARCH} whole at TP {SP_SIZE} with "
+          f"sequence_parallel=True, a prefill of {SERVE_PROMPT} tokens (float32) against the "
+          f"plain path, and a train step at {TRAIN_CHECK_LAYERS} layers")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec: dict = {"launches": dict.fromkeys(_TP_KERNELS, 0)}
+    counted = _launch_counter(rec["launches"])
+    cfg = get_config(SERVE_ARCH, compute_dtype="float32", sequence_parallel=True)
+    model = build_model(cfg)
+    params = model.for_serving(model.init(torch.Generator(device="cuda").manual_seed(SEED)))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    tokens = torch.randint(0, cfg.vocab_size, (1, SERVE_PROMPT), generator=gen, device="cuda",
+                           dtype=torch.int32)
+
+    def prefill(p):
+        with torch.inference_mode():
+            logits, _, _ = model.prefill(p, {"tokens": tokens}, SERVE_PROMPT)
+        torch.cuda.synchronize()
+        return [logits]
+
+    want = prefill(params)  # no context: the plain path
+    trees = [th.rank_params(params, SP_SIZE, r) for r in range(SP_SIZE)]
+    outs, counts = counted(lambda: th.run_ranks(SP_SIZE, lambda r, g: prefill(trees[r]),
+                                                seq=True))
+    worst = _tp_check_ranks(outs, want, "float32", f"{SERVE_ARCH} TP {SP_SIZE} SP prefill")
+    per = SP_SIZE * (2 * cfg.n_layers + 1)
+    print(f"{SERVE_ARCH} float32 TP {SP_SIZE} with sequence parallelism: a prefill of "
+          f"{SERVE_PROMPT} tokens, {SERVE_PROMPT // SP_SIZE} rows a rank between the regions; "
+          f"max |SP - plain| {worst:.3e} over {cfg.padded_vocab} logits; launches {counts}  "
+          f"[{CARD}]", flush=True)
+    check(counts["rmsnorm"] == per and counts["flash_attention"] == SP_SIZE * cfg.n_layers,
+          f"SP prefill launches {counts}, expected {per} RMSNorm")
+    rec["prefill_max_abs"] = worst
+    del params, trees, want, outs, model
+    _free()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH, param_dtype="float32",
+                                         compute_dtype="float32", sequence_parallel=True),
+                              n_layers=TRAIN_CHECK_LAYERS)
+    counts = _tp_train_check(cfg, SP_SIZE, counted, seq=True)
+    check(counts["flash_attention"] == SP_SIZE * 2 * cfg.n_layers,
+          f"SP train step launches {counts}")
+    _free()
+    print(f"sequence parallelism: {time.perf_counter() - t_phase:.1f} s; the path's launches "
           f"{rec['launches']}", flush=True)
     return rec
 
@@ -3991,6 +4468,8 @@ def main() -> int:
             phase_mesh_allreduce()
             phase_mesh_checkpoint()
             tp_rec = phase_tensor_parallel()
+            rec_rec = phase_tp_recurrent()
+            sp_rec = phase_sequence_parallel()
         finally:
             torch.distributed.destroy_process_group()
         print(f"\nmesh paths: {time.perf_counter() - t_mesh:.1f} s; the whole script "
@@ -4001,7 +4480,10 @@ def main() -> int:
     # the mesh train steps' launches, and the seq-sharded serving path's (both dtypes)
     mesh_launches = {k: mesh_train["launches"][k] + sum(mesh_serve[d][k] for d in mesh_serve)
                      for k in ("rmsnorm", "flash_attention")}
-    tp_launches = tp_rec["launches"]
+    # tensor parallelism: the transformer families', the state-space and
+    # hybrid families', and sequence parallelism's paths
+    tp_launches = {k: tp_rec["launches"][k] + rec_rec["launches"][k] + sp_rec["launches"][k]
+                   for k in _TP_KERNELS}
     rows = [
         # name, record, launches on the main paths, replaces
         ("masked_cover", cover_rec,
@@ -4010,13 +4492,14 @@ def main() -> int:
          "cover.cu", "src/repro/kernels/cover.py:47"),
         ("rmsnorm", dict(rms_rec, max_abs_err=max(rms_rec["max_abs_err"],
                                                   zoo_rms_rec["max_abs_err"],
-                                                  train_rec["rmsnorm"]["max_abs_err"])),
+                                                  train_rec["rmsnorm"]["max_abs_err"],
+                                                  rec_rec["split"]["max_abs_err"])),
          serve_launches["rmsnorm"] + zoo_launches["rmsnorm"] + train_launches["rmsnorm"]
          + mesh_launches["rmsnorm"] + tp_launches["rmsnorm"],
          "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:31"),
         ("flash_attention", dict(att_rec, max_abs_err=max(
             att_rec["max_abs_err"], train_rec["flash_attention"]["max_abs_err"],
-            tp_rec["max_abs_err"])),
+            tp_rec["max_abs_err"], rec_rec["max_abs_err"])),
          serve_launches["flash_attention"] + zoo_launches["flash_attention"]
          + train_launches["flash_attention"] + mesh_launches["flash_attention"]
          + tp_launches["flash_attention"],
@@ -4052,14 +4535,23 @@ def main() -> int:
                                       "zoo": zoo_launches["rmsnorm"],
                                       "train": train_launches["rmsnorm"],
                                       "mesh": mesh_launches["rmsnorm"],
-                                      "tp": tp_launches["rmsnorm"]}
+                                      "tp": tp_rec["launches"]["rmsnorm"],
+                                      "tp_recurrent": rec_rec["launches"]["rmsnorm"],
+                                      "sp": sp_rec["launches"]["rmsnorm"]}
+    # the split row (mamba2's gated norm over a rank's d_inner): its two
+    # kernels' launches on the TP paths, and its rank shapes against the plain
+    # version, the bound and F.rms_norm on the whole row
+    kernels[1]["split"] = dict(rec_rec["split"]["shapes"],
+                               launches={k: tp_launches[k] for k in ("sumsq", "scaled")})
     kernels[2]["launches_by_path"] = {"serve": serve_launches["flash_attention"],
                                       "zoo": zoo_launches["flash_attention"],
                                       "train": train_launches["flash_attention"],
                                       "mesh": mesh_launches["flash_attention"],
-                                      "tp": tp_launches["flash_attention"]}
-    # the rank-local attention shapes of tensor parallelism
-    kernels[2]["tp"] = tp_rec["shapes"]
+                                      "tp": tp_rec["launches"]["flash_attention"],
+                                      "tp_recurrent": rec_rec["launches"]["flash_attention"],
+                                      "sp": sp_rec["launches"]["flash_attention"]}
+    # the rank-local attention shapes of tensor parallelism (the hybrid's too)
+    kernels[2]["tp"] = dict(tp_rec["shapes"], **rec_rec["shapes"])
     # the training shapes: the forward kernel and the plain-torch backward
     kernels[1]["train"] = train_rec["rmsnorm"]
     kernels[2]["train"] = train_rec["flash_attention"]
@@ -4069,6 +4561,15 @@ def main() -> int:
     kernels[0]["launches_by_kernel"] = {
         k: sum(d[k] for d in path_launches) + serve_launches["masked_cover_by_kernel"][k]
         + zoo_launches[k] for k in ("draws", "philox")}
+    print(f"timed profiler traces: {TRACE_TALLY['traces']}, {TRACE_TALLY['retaken']} taken "
+          f"again; of their {TRACE_PAD} sentinel kernels each side, "
+          f"{TRACE_TALLY['pad_lost_first']} missing before the calls and "
+          f"{TRACE_TALLY['pad_lost_last']} after", flush=True)
+    try:
+        rows_at_or_above_bound(kernels)
+    except PhaseFailed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
     print()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

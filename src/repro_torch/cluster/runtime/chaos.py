@@ -120,7 +120,8 @@ class FaultInjector:
     def payload_raise(self, job: int, batch: int) -> bool:
         """Whether this dispatch of (job, batch) should raise mid-payload.
         Counts deliveries, so the first ``n_raises`` dispatches fail and
-        later ones run clean.
+        later ones run clean (a delivery lost with its worker is given back:
+        :meth:`rearm_raise`).
         """
         for j, b, n in self.plan.payload_errors:
             if int(j) == int(job) and int(b) == int(batch):
@@ -130,11 +131,26 @@ class FaultInjector:
                     return True
         return False
 
+    def rearm_raise(self, job: int, batch: int) -> None:
+        """Give back a raise delivered to a worker that died before the
+        payload raised (the master failed the worker with it in flight): the plan
+        asks for ``n_raises`` payload failures of (job, batch), and a raise
+        lost with its worker is none, so the next dispatch carries it.  The
+        master journals each give-back as a ``chaos`` event of kind
+        ``rearm``, which :meth:`restore` counts back.  The port's own; the
+        reference's injector spends a raise on delivery, so there whether it
+        happens depends on which of the raise and a scheduled kill of its
+        worker lands first."""
+        key = (int(job), int(batch))
+        if self._raises.get(key, 0) > 0:
+            self._raises[key] -= 1
+
     # -- crash recovery ------------------------------------------------------
 
     def restore(self, chaos_events: Iterable[dict]) -> None:
         """Rebuild delivered-fault state from journaled ``chaos`` events so a
-        recovered master does not re-deliver scheduled faults.
+        recovered master does not re-deliver scheduled faults, and does
+        re-deliver a raise given back (``rearm``) before the crash.
         """
         for e in chaos_events:
             kind = e.get("kind")
@@ -143,5 +159,7 @@ class FaultInjector:
             elif kind == "raise":
                 key = (int(e["job"]), int(e["batch"]))
                 self._raises[key] = self._raises.get(key, 0) + 1
+            elif kind == "rearm":
+                self.rearm_raise(int(e["job"]), int(e["batch"]))
             elif kind == "hb_stall":
                 self._stalls_stamped.add(int(e["window"]))

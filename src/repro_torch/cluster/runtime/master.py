@@ -136,6 +136,8 @@ class _LiveWorker:
     pid: int
     alive: bool = True
     assignment: Optional[Tuple[int, int]] = None  # (job_id, batch)
+    # the assignment's dispatch carries an injected payload raise (FaultPlan)
+    raise_pending: bool = False
     epoch: int = 0
     busy_since: float = 0.0
     scheduled_end: float = math.inf
@@ -573,9 +575,14 @@ class RuntimeMaster:
                 if not w.alive or w.writer is None:
                     self._chaos.mark_killed(wid)  # already dead: kill is a no-op
                     continue
-                self._chaos.mark_killed(wid)
-                self.recorder.record("chaos", self.recorder.stamp(), kind="kill", wid=wid)
-                w.writer.close()
+                self._deliver_kill(w)
+
+    def _deliver_kill(self, w: _LiveWorker) -> None:
+        """Kill ``w`` as the FaultPlan does: mark the kill delivered, stamp
+        it, and tear the connection."""
+        self._chaos.mark_killed(w.wid)
+        self.recorder.record("chaos", self.recorder.stamp(), kind="kill", wid=w.wid)
+        w.writer.close()
 
     # -- speculative backups (reactive replication, engine-aligned) ----------
 
@@ -722,6 +729,14 @@ class RuntimeMaster:
         self._n_failures += 1
         if worker.assignment is not None:
             job_id, batch = worker.assignment
+            if worker.raise_pending:
+                # the injected raise died with its worker before it ran out:
+                # the plan's next dispatch of this batch carries it (journaled,
+                # so a recovered master gives it back too)
+                worker.raise_pending = False
+                self._chaos.rearm_raise(job_id, batch)
+                self.recorder.record("chaos", now, kind="rearm", job=job_id, batch=batch,
+                                     wid=worker.wid)
             self._ws += now - worker.busy_since
             jexec = self.active.get(job_id)
             if jexec is not None:
@@ -949,10 +964,12 @@ class RuntimeMaster:
             factor = self._chaos.slow_factor(worker.wid, now)
             if factor != 1.0:
                 frame["chaos_factor"] = factor
-            if self._chaos.payload_raise(jexec.job.job_id, batch):
+            worker.raise_pending = self._chaos.payload_raise(jexec.job.job_id, batch)
+            if worker.raise_pending:
                 frame["chaos_raise"] = True
                 self.recorder.record(
-                    "chaos", now, kind="raise", job=jexec.job.job_id, batch=batch
+                    "chaos", now, kind="raise", job=jexec.job.job_id, batch=batch,
+                    wid=worker.wid,
                 )
         self._send(worker, frame)
 
@@ -1182,6 +1199,7 @@ class RuntimeMaster:
             elif kind == "dispatch":
                 w = self.workers[e["wid"]]
                 w.assignment = (int(e["job"]), int(e["batch"]))
+                w.raise_pending = False
                 w.busy_since = t
                 w.scheduled_end = t + float(e["planned"])
                 jexec = self.active[e["job"]]
@@ -1262,6 +1280,10 @@ class RuntimeMaster:
                 w.scheduled_end = math.inf
             elif kind == "chaos":
                 chaos_events.append(e)
+                if e.get("kind") == "raise" and "wid" in e:
+                    # the dispatch just journaled carries it: a crash-fail of
+                    # its worker below gives it back
+                    self.workers[e["wid"]].raise_pending = True
         self._n_jobs_expected = sum(1 for e in events if e["ev"] == "submit")
         if self._chaos is not None:
             self._chaos.restore(chaos_events)

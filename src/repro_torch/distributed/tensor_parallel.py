@@ -23,6 +23,18 @@ and :func:`scatter` (the slice forward, all-gather backward) move a dim
 between its shards and the whole where a region computes whole on every
 rank.  A rank's part of a dim is a contiguous chunk by its index, the
 reference's element order (``sharding.local_slice``).
+
+Sequence parallelism (``cfg.sequence_parallel``: the reference's
+``"residual"`` role, Megatron-SP): under a ``logical_axes`` context with
+``seq=True`` and a model group that divides the sequence
+(:func:`sequence_group`), the residual stream between the regions is each
+rank's ``S / TP`` rows.  A rank-local region is entered from them with
+:func:`enter_from_shards` (all-gather forward, reduce-scatter backward) and
+left to them with :func:`leave_to_shards` (:meth:`Group.reduce_scatter`
+forward, all-gather backward); :func:`region_in` / :func:`region_out` pick
+these, ``gather`` / ``scatter`` (a region that computes whole on every
+rank) or plain ``enter`` / ``leave`` (no sequence split).  The norms and
+residual adds between the regions run on the rank's rows.
 """
 from __future__ import annotations
 
@@ -34,8 +46,9 @@ import torch.distributed as dist
 
 from . import axes, sharding
 
-__all__ = ["Group", "MeshGroup", "SINGLE", "batch_group", "enter", "gather", "leave",
-           "model_group", "scatter"]
+__all__ = ["Group", "MeshGroup", "SINGLE", "batch_group", "enter", "enter_from_shards",
+           "gather", "leave", "leave_to_shards", "model_group", "region_in", "region_out",
+           "scatter", "sequence_group"]
 
 
 class Group:
@@ -55,6 +68,11 @@ class Group:
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """Every rank's ``x`` concatenated on ``dim``, in rank order."""
+        return x
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's chunk (:meth:`part`) of the sum of ``x`` over the group
+        on ``dim``: the transpose of :meth:`all_gather`."""
         return x
 
     def over(self, n: int) -> "Group":
@@ -107,11 +125,28 @@ class MeshGroup(Group):
             x = torch.cat(parts, dim=dim)
         return x
 
+    def reduce_scatter(self, x, dim):
+        for g, n in self._groups:  # the major axis first: all_gather's order, inverted
+            xt = x.movedim(dim, 0).contiguous()
+            out = torch.empty((xt.shape[0] // n, *xt.shape[1:]), dtype=x.dtype, device=x.device)
+            dist.reduce_scatter_tensor(out, xt, op=dist.ReduceOp.SUM, group=g)
+            x = out.movedim(0, dim)
+        return x
+
 
 def model_group() -> Group:
     """The group that splits the model's compute (``"model"``), or :data:`SINGLE`."""
     ctx = axes.current()
     return ctx.tp if ctx is not None and ctx.tp is not None else SINGLE
+
+
+def sequence_group(s: int) -> Group:
+    """The group the residual stream's ``s`` rows split over: the model
+    group under sequence parallelism where it divides ``s``, else
+    :data:`SINGLE` (plain TP; decode's one row among them, as the
+    reference's ``"residual"`` role leaves a dim it does not divide)."""
+    ctx = axes.current()
+    return model_group().over(s) if ctx is not None and ctx.seq else SINGLE
 
 
 def batch_group() -> Group:
@@ -165,6 +200,28 @@ class _Scatter(torch.autograd.Function):
         return ctx.group.all_gather(g, ctx.dim), None, None
 
 
+class _LeaveToShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.reduce_scatter(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_gather(g, ctx.dim), None, None
+
+
+class _EnterFromShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.reduce_scatter(g, ctx.dim), None, None
+
+
 def enter(x: torch.Tensor, group: Group) -> torch.Tensor:
     """``x`` into a rank-local region: identity forward, the gradient summed
     over ``group`` backward."""
@@ -185,3 +242,37 @@ def gather(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
 def scatter(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
     """This rank's slice of a whole dim; backward gathers the slices' gradients."""
     return x if group.size == 1 else _Scatter.apply(x, group, dim)
+
+
+def leave_to_shards(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """A rank's partial result out of its region onto its shard of ``dim``:
+    the sum over ``group`` reduce-scattered forward, the shards' gradients
+    all-gathered backward."""
+    return x if group.size == 1 else _LeaveToShards.apply(x, group, dim)
+
+
+def enter_from_shards(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """The whole of a dim split over ``group`` into a rank-local region:
+    all-gathered forward, the ranks' partial gradients reduce-scattered
+    backward."""
+    return x if group.size == 1 else _EnterFromShards.apply(x, group, dim)
+
+
+def region_in(x: torch.Tensor, group: Group, seq: Group = SINGLE, dim: int = 1) -> torch.Tensor:
+    """The input of a region split over ``group`` (rank-local where its size
+    is above 1, else whole on every rank) from a residual stream whose rows
+    (``dim``) split over ``seq`` (:func:`sequence_group`): :func:`enter`
+    where the rows are whole, else the whole rows by :func:`enter_from_shards`
+    or, for a region that is not rank-local, :func:`gather`."""
+    if seq.size == 1:
+        return enter(x, group)
+    return enter_from_shards(x, seq, dim) if group.size > 1 else gather(x, seq, dim)
+
+
+def region_out(x: torch.Tensor, group: Group, seq: Group = SINGLE, dim: int = 1) -> torch.Tensor:
+    """A region's output onto the residual stream: :func:`leave` where the
+    rows are whole, else this rank's rows by :func:`leave_to_shards` or, for
+    a region that is not rank-local, :func:`scatter`."""
+    if seq.size == 1:
+        return leave(x, group)
+    return leave_to_shards(x, seq, dim) if group.size > 1 else scatter(x, seq, dim)

@@ -16,6 +16,18 @@ Prefill and decode write it IN PLACE.  :func:`train_loss` is the
 reference's (CE only); with ``cfg.remat`` each full group runs under a
 non-reentrant checkpoint while autograd records (the tail does not, as in
 the reference, which checkpoints only its scanned groups).
+
+Over a model group (``tensor_parallel.model_group``) each rank computes on
+its shards: attention head-parallel (``transformer.attention_apply``, the
+ring in the rank's heads where the group divides ``K_pad``), the GeGLU
+column / row parallel over ``d_ff``, the RG-LRU blocks on the rank's
+channels (``rglru.py``; the cache's ``conv`` and ``h`` are its ``D / TP``
+channels), the embedding, unembedding and cross-entropy vocab-parallel;
+``prefill`` / ``decode_step`` gather the logits whole.  Under sequence
+parallelism (``tensor_parallel.sequence_group``) the residual stream is the
+rank's rows, as in ``transformer.py``; the RG-LRU block enters by the same
+all-gather (the scan needs the whole sequence), and its summed output is
+cut back to the rank's rows.
 """
 from __future__ import annotations
 
@@ -25,7 +37,8 @@ import torch
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
-from .common import Params, cast_for_compute, cross_entropy_loss, dense_init
+from ..distributed import tensor_parallel as tp
+from .common import Params, cast_for_compute, dense_init
 from .layers import gated_mlp, init_gated_mlp
 from .rglru import init_rglru_block, recurrent_block_apply, recurrent_block_step
 from .transformer import (
@@ -34,10 +47,12 @@ from .transformer import (
     _layout,
     _norm,
     _unembed,
+    _whole_vocab,
     attention_apply,
     init_attention,
     init_norm,
     kv_cache,
+    lm_loss,
     remat_layer,
 )
 
@@ -94,10 +109,16 @@ def init_params(generator: torch.Generator, cfg: ArchConfig) -> Params:
 def _layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, dev) -> dict:
     if kind == "attn":
         return kv_cache(cfg, batch, max_len, dev)
+    d = cfg.d_model // _rnn_group(cfg).size  # the rank's channels
     return {
-        "conv": torch.zeros((batch, 3, cfg.d_model), dtype=cfg.dtype("compute"), device=dev),
-        "h": torch.zeros((batch, cfg.d_model), dtype=torch.float32, device=dev),
+        "conv": torch.zeros((batch, 3, d), dtype=cfg.dtype("compute"), device=dev),
+        "h": torch.zeros((batch, d), dtype=torch.float32, device=dev),
     }
+
+
+def _rnn_group(cfg: ArchConfig) -> tp.Group:
+    """The model group where it splits the RG-LRU's channels (d_rnn = d_model)."""
+    return tp.model_group().over(cfg.d_model)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None) -> dict:
@@ -125,13 +146,16 @@ def _apply_layer(
     positions: torch.Tensor,
     cache: Optional[dict],
     decode: bool,
+    seq: tp.Group = tp.SINGLE,
 ) -> torch.Tensor:
-    h_in = _norm(p, cfg, x, "norm1")
+    """One layer; over a ``seq`` group ``x`` is this rank's rows."""
+    h_in = _norm(p, cfg, x, "norm1", seq)
     if kind == "attn":
-        h, _ = attention_apply(p["attn"], cfg, layout, h_in, positions, None, cache, cfg.window)
+        h, _ = attention_apply(p["attn"], cfg, layout, h_in, positions, None, cache, cfg.window,
+                               seq)
     elif decode:
         h, conv, hid = recurrent_block_step(
-            p["rglru"], h_in, cfg.rglru_c, cache["conv"], cache["h"]
+            p["rglru"], h_in, cfg.rglru_c, cache["conv"], cache["h"], _rnn_group(cfg)
         )
         cache["conv"].copy_(conv)
         cache["h"].copy_(hid)
@@ -139,13 +163,15 @@ def _apply_layer(
         h0 = None if cache is None else cache["h"]
         tail_in = None if cache is None else cache["conv"]
         h, (conv, hid) = recurrent_block_apply(
-            p["rglru"], h_in, cfg.rglru_c, tail_in, h0, return_state=True
+            p["rglru"], h_in, cfg.rglru_c, tail_in, h0, return_state=True,
+            group=_rnn_group(cfg), seq=seq,
         )
         if cache is not None:
             cache["conv"].copy_(conv)
             cache["h"].copy_(hid)
     x = x + h
-    y = gated_mlp(p["mlp"], _norm(p, cfg, x, "norm2"), cfg.act)
+    y = gated_mlp(p["mlp"], _norm(p, cfg, x, "norm2", seq), cfg.act,
+                  tp.model_group().over(cfg.d_ff), seq)
     return x + y
 
 
@@ -160,8 +186,9 @@ def forward(
     pat, n_groups, tail = _pattern_layers(cfg)
     layout = _layout(cfg)
     compute = cfg.dtype("compute")
-    x = _embed(params, cfg, tokens)
-    b, s = x.shape[:2]
+    b, s = tokens.shape[:2]
+    seq = tp.sequence_group(s)
+    x = _embed(params, cfg, tokens, seq=seq)
     decode = s == 1 and cache is not None
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device).repeat(b, 1)
@@ -171,7 +198,7 @@ def forward(
         for i, kind in enumerate(pat):
             name = f"{kind}_{i}"
             lc = None if group_cache is None else group_cache[name]
-            x = _apply_layer(group_p[name], cfg, kind, layout, x, positions, lc, decode)
+            x = _apply_layer(group_p[name], cfg, kind, layout, x, positions, lc, decode, seq)
         return x
 
     for g, group_p in enumerate(params["groups"]):
@@ -181,17 +208,15 @@ def forward(
             x = group_fn(x, group_p, None if cache is None else cache["groups"][g])
     for i, kind in enumerate(tail):
         lc = None if cache is None else cache["tail"][i]
-        tp = cast_for_compute(params["tail"][i], compute)
-        x = _apply_layer(tp, cfg, kind, layout, x, positions, lc, decode)
-    return _unembed(params, cfg, x), cache
+        tail_p = cast_for_compute(params["tail"][i], compute)
+        x = _apply_layer(tail_p, cfg, kind, layout, x, positions, lc, decode, seq)
+    return _unembed(params, cfg, x, seq), cache
 
 
 def train_loss(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
     """batch: tokens, labels, loss_mask -> (loss, {"loss"})."""
     logits, _ = forward(params, cfg, batch["tokens"])
-    loss = cross_entropy_loss(
-        logits, batch["labels"], batch.get("loss_mask"), real_vocab=cfg.vocab_size
-    )
+    loss = lm_loss(cfg, logits, batch)
     return loss, {"loss": loss}
 
 
@@ -200,7 +225,7 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], max_len: in
     tokens = batch["tokens"]
     cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
     logits, cache = forward(params, cfg, tokens, cache=cache)
-    return logits[:, -1], cache, tokens.shape[1]
+    return _whole_vocab(cfg, logits[:, -1]), cache, tokens.shape[1]
 
 
 def decode_step(params, cfg: ArchConfig, cache: dict, tokens: torch.Tensor, t: int):
@@ -208,4 +233,4 @@ def decode_step(params, cfg: ArchConfig, cache: dict, tokens: torch.Tensor, t: i
     b = tokens.shape[0]
     positions = torch.full((b, 1), t, dtype=torch.int32, device=tokens.device)
     logits, cache = forward(params, cfg, tokens, positions=positions, cache=cache)
-    return logits[:, -1], cache, t + 1
+    return _whole_vocab(cfg, logits[:, -1]), cache, t + 1

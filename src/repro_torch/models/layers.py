@@ -157,13 +157,17 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def gated_mlp(params, x: torch.Tensor, act: str = "silu", group: tp.Group = tp.SINGLE):
+def gated_mlp(params, x: torch.Tensor, act: str = "silu", group: tp.Group = tp.SINGLE,
+              seq: tp.Group = tp.SINGLE):
     """SwiGLU (silu) / GeGLU (gelu) feed-forward.  Over a ``group`` of more
     than one rank, ``w_gate`` / ``w_up`` are this rank's column shards and
-    ``w_down`` its row shard: the rank's partial product is summed."""
+    ``w_down`` its row shard: the rank's partial product is summed.  Over a
+    ``seq`` group (sequence parallelism) ``x`` and the output are this rank's
+    rows (``tensor_parallel.region_in`` / ``region_out``)."""
     fn = F.silu if act == "silu" else _gelu_tanh
-    x = tp.enter(x, group)
-    return tp.leave((fn(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"], group)
+    x = tp.region_in(x, group, seq)
+    return tp.region_out((fn(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"],
+                         group, seq)
 
 
 def init_mlp(generator: torch.Generator, d_model: int, d_ff: int, dtype, bias: bool = True):
@@ -178,17 +182,18 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int, dtype, bias: b
     return p
 
 
-def mlp(params, x: torch.Tensor, act: str = "gelu", group: tp.Group = tp.SINGLE):
+def mlp(params, x: torch.Tensor, act: str = "gelu", group: tp.Group = tp.SINGLE,
+        seq: tp.Group = tp.SINGLE):
     """Over a ``group`` of more than one rank, ``w_in`` / ``b_in`` are this
     rank's column shards and ``w_out`` its row shard; ``b_out`` (whole) is
-    added once, after the sum."""
+    added once, after the sum (on the rank's rows under a ``seq`` group)."""
     fn = _gelu_tanh if act == "gelu" else F.relu
-    x = tp.enter(x, group)
+    x = tp.region_in(x, group, seq)
     h = x @ params["w_in"]
     if "b_in" in params:
         h = h + params["b_in"]
-    y = tp.leave(fn(h) @ params["w_out"], group)
-    if "b_out" in params:
-        y = y + params["b_out"]
+    y = tp.region_out(fn(h) @ params["w_out"], group, seq)
+    if "b_out" in params:  # on the rank's rows under a seq group: its gradient is partial
+        y = y + tp.enter(params["b_out"], seq)
     return y
 

@@ -139,8 +139,13 @@ def moe_ffn(
     n_experts_per_tok: int,
     capacity_factor: float = 1.25,
     act: str = "silu",
+    seq: tp.Group = tp.SINGLE,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (y, aux_loss).  Routing and aux math in float32."""
+    """x: (B, S, d) -> (y, aux_loss).  Routing and aux math in float32.  Over
+    a ``seq`` group (sequence parallelism) ``x`` and ``y`` are this rank's
+    rows: the whole rows are gathered first (the routing, the aux loss and
+    the per-row capacity see the whole sequence, as without it)."""
+    x = tp.gather(x, seq, 1)
     b, s, d = x.shape
     e = params["router"].shape[-1]
     k = n_experts_per_tok
@@ -172,7 +177,7 @@ def moe_ffn(
     y = torch.einsum("becf,efd->becd", fn(g) * u, params["w_down"])
     out = _combine_rows(y.reshape(b, width, d), meta, tp.enter(weights, eg), s,
                         None if eg.size == 1 else first)
-    return tp.leave(out, eg).to(x.dtype), aux
+    return tp.region_out(out, eg, seq).to(x.dtype), aux
 
 
 def moe_ffn_reference(params, x: torch.Tensor, n_experts_per_tok: int, act: str = "silu"):

@@ -14,6 +14,17 @@ float32, so a 1024-token prefill is 10 steps, not 1024.  The temporal-mixing
 block is Griffin's: ``out = W_o(GeLU(W_y x) * RGLRU(conv4(W_x x)))``.
 Everything here is plain torch: the reference computes it in jnp and reaches
 no Pallas kernel.
+
+Tensor parallelism over ``"model"`` (the block's ``group``, the model group
+where it splits ``d_rnn``; the reference's rules): a rank holds its
+``d_rnn / TP`` columns of ``w_y`` / ``w_x`` (column-parallel), its channels
+of ``conv_w`` / ``conv_b`` / ``b_a`` / ``b_i`` / ``lam``, its rows of
+``w_out`` (row-parallel, one sum at the end), and its ``nb / TP`` whole
+blocks of ``w_a`` / ``w_i`` (``("model", None, None)``): a block's gates
+read only its own channels, so the recurrence runs on the rank's channels
+with no collective.  Where the group does not divide the block count (the
+rules leave ``w_a`` / ``w_i`` whole), the gates and the scan run whole on
+every rank over the gathered channels, and each rank keeps its own.
 """
 from __future__ import annotations
 
@@ -22,6 +33,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed import tensor_parallel as tp
 from .common import dense_init
 from .layers import _gelu_tanh
 
@@ -101,6 +113,23 @@ def rglru_step(params, x_t: torch.Tensor, h: torch.Tensor, c: float):
     return h_new.to(x_t.dtype), h_new
 
 
+def _recur(params, x: torch.Tensor, h: Optional[torch.Tensor], c: float, group: tp.Group, fn):
+    """``fn(params, x, h, c)`` (:func:`rglru_scan` or :func:`rglru_step`) on
+    this rank's channels ``x`` and state ``h``.  Where ``w_a`` holds the
+    rank's blocks (or the group is of one), directly; where it is whole, on
+    the gathered channels with the split gate leaves gathered, each output
+    cut back to the rank's channels."""
+    w_a = params["w_a"]
+    if group.size == 1 or w_a.shape[0] * w_a.shape[1] == x.shape[-1]:
+        return fn(params, x, h, c)
+    whole = dict(params)
+    for k in ("b_a", "b_i", "lam"):
+        whole[k] = tp.gather(params[k], group, -1)
+    y, h_new = fn(whole, tp.gather(x, group, -1),
+                  None if h is None else tp.gather(h, group, -1), c)
+    return tp.scatter(y, group, -1), tp.scatter(h_new, group, -1)
+
+
 def rglru_reference(params, x: torch.Tensor, c: float, h0: Optional[torch.Tensor] = None):
     """Sequential oracle."""
     xf = x.float()
@@ -120,8 +149,15 @@ def recurrent_block_apply(
     conv_tail: Optional[torch.Tensor] = None,
     h0: Optional[torch.Tensor] = None,
     return_state: bool = False,
+    group: tp.Group = tp.SINGLE,
+    seq: tp.Group = tp.SINGLE,
 ):
-    """Griffin temporal-mixing block (the RG-LRU branch x gated GeLU branch)."""
+    """Griffin temporal-mixing block (the RG-LRU branch x gated GeLU branch).
+    Over a ``group`` of more than one rank, on this rank's channels: the
+    tail and state in and out are its own.  Over a ``seq`` group (sequence
+    parallelism) ``x`` and the output are this rank's rows: the whole rows
+    are gathered, and the output leaves as the rank's rows of the sum."""
+    x = tp.region_in(x, group, seq)
     y_branch = _gelu_tanh(x @ params["w_y"])
     xr = x @ params["w_x"]
     # causal depthwise conv, kernel d_conv, in the reference's term order
@@ -134,22 +170,25 @@ def recurrent_block_apply(
     xr = sum(xp[:, i : i + s] * params["conv_w"][i] for i in range(k))
     xr = xr + params["conv_b"]
     new_tail = xp[:, -(k - 1) :] if k > 1 else conv_tail
-    rec, h_last = rglru_scan(params, xr, c, h0)
-    out = (rec * y_branch) @ params["w_out"]
+    rec, h_last = _recur(params, xr, h0, c, group,
+                         lambda p, x, h, c: rglru_scan(p, x, c, h))
+    out = tp.region_out((rec * y_branch) @ params["w_out"], group, seq)
     if return_state:
         return out, (new_tail, h_last)
     return out
 
 
 def recurrent_block_step(params, x_t: torch.Tensor, c: float, conv_tail: torch.Tensor,
-                         h: torch.Tensor):
-    """Decode step.  x_t: (B,1,d_model) -> (out, new conv tail, new h)."""
+                         h: torch.Tensor, group: tp.Group = tp.SINGLE):
+    """Decode step.  x_t: (B,1,d_model) -> (out, new conv tail, new h); over a
+    ``group``, on this rank's channels."""
+    x_t = tp.enter(x_t, group)
     y_branch = _gelu_tanh(x_t @ params["w_y"])
     xr = x_t @ params["w_x"]  # (B,1,D)
     k = params["conv_w"].shape[0]
     xp = torch.cat([conv_tail, xr], dim=1)  # (B,k,D)
     xc = sum(xp[:, -(k - i)] * params["conv_w"][i] for i in range(k)) + params["conv_b"]
     new_tail = xp[:, 1:]
-    rec, h_new = rglru_step(params, xc, h, c)
-    out = (rec[:, None] * y_branch) @ params["w_out"]
+    rec, h_new = _recur(params, xc, h, c, group, rglru_step)
+    out = tp.leave((rec[:, None] * y_branch) @ params["w_out"], group)
     return out, new_tail, h_new

@@ -14,6 +14,26 @@ before ``out_proj``; the projections are stored separately (``w_z``,
 ``w_x``, ``w_bc``, ``w_dt``), as the reference stores them.  The gated
 RMSNorm goes to the RMSNorm kernel at width d_inner; everything else is
 plain torch, as the reference leaves it to XLA.
+
+The chunk's decay masks its upper triangle before the exp, where the
+reference masks after it: once a chunk's log-decay spans more than
+float32's exp range the reference's masked entries are inf and its backward
+NaN (mamba2-2.7b's full-width training); the forward values are the same.
+
+Tensor parallelism over ``"model"`` (:func:`_groups`; the reference's rules,
+``distributed/sharding.py``): where the model group splits the heads, a
+rank holds its ``nh / TP`` heads' columns of ``w_z`` / ``w_x`` / ``w_dt``
+(column-parallel), its channels of ``conv_x`` / ``conv_x_b`` / ``norm_w``,
+its heads of ``A_log`` / ``dt_bias`` / ``D`` and its rows of ``out_proj``
+(row-parallel, one sum at the end); ``w_bc`` / ``conv_bc`` stay whole on
+every rank (entered: B and C are shared across heads, so each rank's
+gradient of them is partial).  The SSD scan runs on the rank's heads with
+no collective; the gated norm is a row split over the group
+(``kernels/rmsnorm.py::rms_norm_split``: one sum of the rows' squares).
+Where the group splits ``d_inner`` but not the heads, the rules split the
+channel leaves alone: the rank's channels are gathered whole after the conv
+and the mixer runs whole on every rank, then each rank multiplies its
+channels by its row shard of ``out_proj``.
 """
 from __future__ import annotations
 
@@ -23,8 +43,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import tensor_parallel as tp
+from ..kernels.rmsnorm import rms_norm_split
 from .common import dense_init
-from .layers import rms_norm
 
 __all__ = [
     "SSMDims",
@@ -133,8 +154,12 @@ def ssd_chunked(
         cum = torch.cumsum(a, dim=1)  # inclusive
         # intra-chunk dual form
         cb = torch.einsum("bqn,bkn->bqk", cq, bq)  # (B,Q,Q)
-        decay = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])  # (B,Q,Q,nh): i,j
-        decay = torch.where(tri[None, :, :, None], decay, 0.0)
+        # (B,Q,Q,nh): i,j; the upper triangle masked before the exp, not after
+        # (the reference's order), whose exp overflows to inf once a chunk's
+        # log-decay spans more than float32's range, and inf * 0 makes the
+        # backward NaN; the forward's values are the same
+        diff = cum[:, :, None, :] - cum[:, None, :, :]
+        decay = torch.exp(torch.where(tri[None, :, :, None], diff, -math.inf))
         dtx = dtq[..., None] * xq  # (B,Q,nh,hp)
         y = torch.einsum("bqk,bqkh,bkhp->bqhp", cb, decay, dtx)
         # inter-chunk contribution from the carried state
@@ -164,9 +189,52 @@ def ssd_reference(x, dt, a_neg, bmat, cmat, d_skip, h0=None):
     return torch.stack(ys, dim=1), h
 
 
-def _project(params, x_in: torch.Tensor):
-    return x_in @ params["w_z"], x_in @ params["w_x"], x_in @ params["w_bc"], \
-        x_in @ params["w_dt"]
+def _groups(dims: SSMDims) -> Tuple[tp.Group, tp.Group]:
+    """``(inner, heads)``: the model group where it splits ``d_inner`` (the
+    channel leaves are then this rank's), and where it also splits the
+    heads (the mixer then runs on the rank's heads; else it is
+    :data:`~repro_torch.distributed.tensor_parallel.SINGLE` and the mixer runs whole)."""
+    inner = tp.model_group().over(dims.d_inner)
+    return inner, inner.over(dims.n_heads)
+
+
+def _front(params, dims: SSMDims, x_in: torch.Tensor, tail_x, tail_bc,
+           seq: tp.Group = tp.SINGLE):
+    """The projections, both causal convs and the gates, on the rank's
+    channels and heads where the group splits the heads, or gathered whole
+    where it splits ``d_inner`` alone.  Returns ``(z, xr, bmat, cmat, dt,
+    a_neg, norm_w, (tail_x, tail_bc), heads, inner)``, the tails of the
+    rank's channels.  Over a ``seq`` group ``x_in`` is this rank's rows."""
+    inner, heads = _groups(dims)
+    # column-parallel products: each rank's input gradient is partial; the
+    # shared ones (B, C, dt) too where the mixer is per head, else whole
+    xc = tp.region_in(x_in, inner, seq)
+    xs = xc if heads is inner else tp.gather(x_in, seq, 1)
+    z = xc @ params["w_z"]
+    xr = xc @ params["w_x"]
+    bcmat = xs @ tp.enter(params["w_bc"], heads)
+    dt_raw = xs @ params["w_dt"]
+    xr, new_tail_x = _causal_conv(xr, params["conv_x"], params["conv_x_b"], tail_x)
+    bcmat, new_tail_bc = _causal_conv(bcmat, tp.enter(params["conv_bc"], heads),
+                                      tp.enter(params["conv_bc_b"], heads), tail_bc)
+    norm_w = params["norm_w"]
+    if heads is not inner:  # only d_inner splits: the mixer runs whole on every rank
+        z, xr, norm_w = (tp.gather(t, inner, -1) for t in (z, xr, norm_w))
+    bmat, cmat = torch.chunk(bcmat, 2, dim=-1)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    a_neg = -torch.exp(params["A_log"])
+    return z, xr, bmat, cmat, dt, a_neg, norm_w, (new_tail_x, new_tail_bc), heads, inner
+
+
+def _back(params, y: torch.Tensor, z: torch.Tensor, norm_w: torch.Tensor, heads: tp.Group,
+          inner: tp.Group) -> torch.Tensor:
+    """The gated norm (a row split over ``heads``) and the row-parallel
+    ``out_proj`` (the rank's channels of a whole ``y`` where only ``d_inner``
+    splits): the rank's partial product, which the caller sums over ``inner``."""
+    y = rms_norm_split(y * F.silu(z), norm_w, heads)
+    if heads is not inner:
+        y = tp.scatter(y, inner, -1)
+    return y @ params["out_proj"]
 
 
 def ssm_layer_apply(
@@ -177,22 +245,20 @@ def ssm_layer_apply(
     conv_tail_bc: Optional[torch.Tensor] = None,
     h0: Optional[torch.Tensor] = None,
     return_state: bool = False,
+    seq: tp.Group = tp.SINGLE,
 ):
-    """Full mamba2 mixer.  Returns y (B,S,d) [+ (tails, h) if requested]."""
-    z, xr, bcmat, dt_raw = _project(params, x_in)
-    xr, new_tail_x = _causal_conv(xr, params["conv_x"], params["conv_x_b"], conv_tail_x)
-    bcmat, new_tail_bc = _causal_conv(bcmat, params["conv_bc"], params["conv_bc_b"],
-                                      conv_tail_bc)
-    bmat, cmat = torch.chunk(bcmat, 2, dim=-1)
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])
-    a_neg = -torch.exp(params["A_log"])
-    xh = xr.reshape(*xr.shape[:-1], dims.n_heads, dims.headdim)
+    """Full mamba2 mixer.  Returns y (B,S,d) [+ (tails, h) if requested];
+    over a model group, the rank's tails and state (its channels and heads).
+    Over a ``seq`` group (sequence parallelism) ``x_in`` and ``y`` are this
+    rank's rows: the whole rows are gathered, the sum reduce-scattered back."""
+    z, xr, bmat, cmat, dt, a_neg, norm_w, tails, heads, inner = _front(
+        params, dims, x_in, conv_tail_x, conv_tail_bc, seq)
+    xh = xr.reshape(*xr.shape[:-1], -1, dims.headdim)
     y, h = ssd_chunked(xh, dt, a_neg, bmat, cmat, params["D"], dims.chunk, h0)
-    y = y.reshape(*y.shape[:-2], dims.d_inner).to(x_in.dtype)
-    y = rms_norm(y * F.silu(z), params["norm_w"])
-    out = y @ params["out_proj"]
+    y = y.reshape(*y.shape[:-2], -1).to(x_in.dtype)
+    out = tp.region_out(_back(params, y, z, norm_w, heads, inner), inner, seq)
     if return_state:
-        return out, (new_tail_x, new_tail_bc, h)
+        return out, (*tails, h)
     return out
 
 
@@ -204,21 +270,17 @@ def ssm_decode_step(
     conv_tail_bc: torch.Tensor,
     h: torch.Tensor,
 ):
-    """Single-token update.  Returns (y (B,1,d), new tails, new h)."""
-    z, xr, bcmat, dt_raw = _project(params, x_in)
-    xr, new_tail_x = _causal_conv(xr, params["conv_x"], params["conv_x_b"], conv_tail_x)
-    bcmat, new_tail_bc = _causal_conv(bcmat, params["conv_bc"], params["conv_bc_b"],
-                                      conv_tail_bc)
-    bmat, cmat = torch.chunk(bcmat, 2, dim=-1)
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])[:, 0]  # (B,nh)
-    a_neg = -torch.exp(params["A_log"])
+    """Single-token update.  Returns (y (B,1,d), new tails, new h); over a
+    model group, the rank's tails and state."""
+    z, xr, bmat, cmat, dt, a_neg, norm_w, (new_tail_x, new_tail_bc), heads, inner = _front(
+        params, dims, x_in, conv_tail_x, conv_tail_bc)
+    dt = dt[:, 0]  # (B,nh)
     b = x_in.shape[0]
-    xh = xr[:, 0].reshape(b, dims.n_heads, dims.headdim).float()
+    xh = xr[:, 0].reshape(b, -1, dims.headdim).float()
     a_t = torch.exp(dt * a_neg)  # (B,nh)
     upd = torch.einsum("bn,bh,bhp->bhnp", bmat[:, 0].float(), dt, xh)
     h = a_t[:, :, None, None] * h + upd
     y = torch.einsum("bn,bhnp->bhp", cmat[:, 0].float(), h)
     y = y + params["D"][None, :, None] * xh
-    y = y.reshape(b, 1, dims.d_inner).to(x_in.dtype)
-    y = rms_norm(y * F.silu(z), params["norm_w"])
-    return y @ params["out_proj"], new_tail_x, new_tail_bc, h
+    y = y.reshape(b, 1, -1).to(x_in.dtype)
+    return tp.leave(_back(params, y, z, norm_w, heads, inner), inner), new_tail_x, new_tail_bc, h

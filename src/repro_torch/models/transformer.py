@@ -46,14 +46,21 @@ decode step is :func:`_seq_sharded_decode`.  Under a mesh
 the ``"model"`` axis, and each model rank attends over its chunk; the ranks
 combine their partial softmax statistics with all-reduces.
 
+Sequence parallelism (``cfg.sequence_parallel`` under a mesh step, where
+the model group divides the sequence: ``tensor_parallel.sequence_group``):
+the residual stream between the regions is each rank's ``S / TP`` rows.
+The embedding leaves onto them (its sum reduce-scattered), each region
+(attention, the MLPs, the MoE, the unembedding) enters by an all-gather of
+the rows and the rank-local ones leave by a reduce-scatter, and the norms
+and residual adds run on the rank's rows; values are the plain TP path's.
+Decode (one row) and a sequence the group does not divide run plain TP.
+
 Training: :func:`train_loss` is the reference's (CE plus the MoE router's
 aux loss).  With ``cfg.remat`` and autograd recording, each block runs
 under ``torch.utils.checkpoint`` (non-reentrant), its weights cast for
 compute inside it, so its backward recomputes it; on one card the
 reference's ``"full"`` and ``"block_outs"`` policies differ only in the
 collectives they skip re-running, so both take this per-block checkpoint.
-``sequence_parallel`` annotates a mesh the port does not have: it is
-accepted and changes nothing, as the reference's does without a mesh.
 """
 from __future__ import annotations
 
@@ -171,6 +178,7 @@ def attention_apply(
     mrope_positions: Optional[torch.Tensor] = None,  # (B,S,3) for vlm
     cache: Optional[Dict[str, torch.Tensor]] = None,  # {"k","v": (B,W,K_pad,hd), "pos": (W,)}
     window: Optional[int] = None,
+    seq: tp.Group = tp.SINGLE,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """One attention layer.  With a cache, S > 1 tokens are a prefill on a
     fresh cache: they attend over their own k/v only, so a warm cache must be
@@ -181,12 +189,14 @@ def attention_apply(
     Where the group divides ``wq``'s columns but not the slots, or the ring is
     the sequence-sharded one, ``q`` is gathered whole, the attention runs
     whole on every rank, and each rank multiplies its columns of ``o`` by its
-    row shard of ``wo``."""
+    row shard of ``wo``.  Over a ``seq`` group (sequence parallelism) ``x``
+    and the output are this rank's rows; ``positions`` are whole."""
     grp = tp.model_group().over(layout.h_pad * cfg.head_dim)
     seq_ring = cache is not None and "ks" in cache
     if not seq_ring and grp.over(layout.h_pad).size > 1:
         return _attention_heads(p, cfg, layout, grp, x, positions, mrope_positions, cache,
-                                window)
+                                window, seq)
+    x = tp.gather(x, seq, 1)  # every product below reads the whole rows
     b, s, _ = x.shape
     hd = cfg.head_dim
     q = tp.enter(x, grp) @ p["wq"]
@@ -216,7 +226,7 @@ def attention_apply(
                                 window=window)
         if layout.h_pad != layout.n_heads:
             o = o * layout.head_mask(o.device)[None, None, :, None].to(o.dtype)
-        return _out(p, o.reshape(b, s, layout.h_pad * hd), grp), cache
+        return _out(p, o.reshape(b, s, layout.h_pad * hd), grp, seq), cache
 
     k = repeat_kv(k, layout.repeat)
     v = repeat_kv(v, layout.repeat)
@@ -224,7 +234,7 @@ def attention_apply(
     o = flash_attention(q, k_att, v_att, positions, kv_pos, causal=cfg.is_causal, window=window)
     if layout.h_pad != layout.n_heads:
         o = o * layout.head_mask(o.device)[None, None, :, None].to(o.dtype)
-    return _out(p, o.reshape(b, s, layout.h_pad * hd), grp), new_cache
+    return _out(p, o.reshape(b, s, layout.h_pad * hd), grp, seq), new_cache
 
 
 def _rotary(cfg: ArchConfig, q, k, positions, mrope_positions):
@@ -234,10 +244,10 @@ def _rotary(cfg: ArchConfig, q, k, positions, mrope_positions):
     return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta)
 
 
-def _out(p, o: torch.Tensor, grp: tp.Group) -> torch.Tensor:
+def _out(p, o: torch.Tensor, grp: tp.Group, seq: tp.Group = tp.SINGLE) -> torch.Tensor:
     """``o @ wo``; over a group, this rank's columns of a whole ``o`` by its
-    row shard of ``wo``, summed."""
-    return tp.leave(tp.scatter(o, grp, -1) @ p["wo"], grp)
+    row shard of ``wo``, summed (onto the rank's rows over a ``seq`` group)."""
+    return tp.region_out(tp.scatter(o, grp, -1) @ p["wo"], grp, seq)
 
 
 def _ring(cache, k_write, v_write, k, v, positions):
@@ -262,7 +272,7 @@ def _ring(cache, k_write, v_write, k, v, positions):
 
 
 def _attention_heads(p, cfg: ArchConfig, layout: HeadLayout, grp: tp.Group, x, positions,
-                     mrope_positions, cache, window):
+                     mrope_positions, cache, window, seq: tp.Group = tp.SINGLE):
     """Head-parallel attention: this rank's ``H_pad / TP`` query slots (its
     ``wq`` / ``bq`` columns) over the repeated KV heads they map to, then its
     row shard of ``wo`` and a sum over the group.
@@ -273,7 +283,8 @@ def _attention_heads(p, cfg: ArchConfig, layout: HeadLayout, grp: tp.Group, x, p
     replicas agree).  A sharded ring holds the rank's ``K_pad / TP`` repeated
     heads.  Where the slots do not split evenly over their KV heads, each
     slot gets its own copy of its head (a group size of one)."""
-    b, s, _ = x.shape
+    xi = tp.region_in(x, grp, seq)
+    b, s, _ = xi.shape
     hd, r, g_pad = cfg.head_dim, layout.repeat, layout.g_pad
     hl = layout.h_pad // grp.size
     s0 = grp.rank * hl
@@ -281,7 +292,6 @@ def _attention_heads(p, cfg: ArchConfig, layout: HeadLayout, grp: tp.Group, x, p
     ring_whole = cache is not None and cache["k"].shape[2] == layout.k_pad
     t0, t1 = (0, layout.n_kv) if ring_whole else (kc0 // r, (kc1 - 1) // r + 1)
     cols = slice(t0 * hd, t1 * hd)
-    xi = tp.enter(x, grp)
     q = xi @ p["wq"]
     k = xi @ tp.enter(p["wk"], grp)[:, cols]
     v = xi @ tp.enter(p["wv"], grp)[:, cols]
@@ -307,7 +317,7 @@ def _attention_heads(p, cfg: ArchConfig, layout: HeadLayout, grp: tp.Group, x, p
     o = flash_attention(q, k_att, v_att, positions, kv_pos, causal=cfg.is_causal, window=window)
     if layout.h_pad != layout.n_heads:
         o = o * layout.head_mask(o.device)[s0:s0 + hl][None, None, :, None].to(o.dtype)
-    return tp.leave(o.reshape(b, s, hl * hd) @ p["wo"], grp), new_cache
+    return tp.region_out(o.reshape(b, s, hl * hd) @ p["wo"], grp, seq), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -389,10 +399,12 @@ def _seq_sharded_decode(cfg: ArchConfig, layout: HeadLayout, q, k_new, v_new, ca
 # --------------------------------------------------------------------------
 
 
-def _norm(p, cfg: ArchConfig, x, name: str):
+def _norm(p, cfg: ArchConfig, x, name: str, seq: tp.Group = tp.SINGLE):
+    """The block's norm ``name`` of ``x``; over a ``seq`` group ``x`` is this
+    rank's rows, so the weights' gradient is partial (entered: summed)."""
     if cfg.norm_type == "rms":
-        return rms_norm(x, p[name], plus_one=cfg.norm_plus_one)
-    return layer_norm(x, p[name + "_w"], p[name + "_b"])
+        return rms_norm(x, tp.enter(p[name], seq), plus_one=cfg.norm_plus_one)
+    return layer_norm(x, tp.enter(p[name + "_w"], seq), tp.enter(p[name + "_b"], seq))
 
 
 def init_norm(cfg: ArchConfig, d: int, dtype, name: str, device) -> dict:
@@ -427,21 +439,24 @@ def block_apply(
     positions: torch.Tensor,
     mrope_positions=None,
     cache=None,
+    seq: tp.Group = tp.SINGLE,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], torch.Tensor]:
+    """One block; over a ``seq`` group ``x`` is this rank's rows."""
     h, new_cache = attention_apply(
-        p["attn"], cfg, layout, _norm(p, cfg, x, "norm1"), positions, mrope_positions,
-        cache, cfg.window,
+        p["attn"], cfg, layout, _norm(p, cfg, x, "norm1", seq), positions, mrope_positions,
+        cache, cfg.window, seq,
     )
     x = x + h
-    y_in = _norm(p, cfg, x, "norm2")
+    y_in = _norm(p, cfg, x, "norm2", seq)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ff = tp.model_group().over(cfg.d_ff)  # the rules shard the MLP's d_ff where it divides
     if cfg.is_moe:
-        y, aux = moe_ffn(p["moe"], y_in, cfg.n_experts_per_tok, cfg.capacity_factor, cfg.act)
+        y, aux = moe_ffn(p["moe"], y_in, cfg.n_experts_per_tok, cfg.capacity_factor, cfg.act,
+                         seq)
     elif cfg.gated_mlp:
-        y = gated_mlp(p["mlp"], y_in, cfg.act, ff)
+        y = gated_mlp(p["mlp"], y_in, cfg.act, ff, seq)
     else:
-        y = mlp(p["mlp"], y_in, cfg.act, ff)
+        y = mlp(p["mlp"], y_in, cfg.act, ff, seq)
     return x + y, new_cache, aux
 
 
@@ -498,17 +513,22 @@ def _vocab_group(cfg: ArchConfig) -> tp.Group:
     return tp.model_group().over(cfg.padded_vocab)
 
 
-def _embed(params, cfg: ArchConfig, tokens=None, embeds=None) -> torch.Tensor:
+def _embed(params, cfg: ArchConfig, tokens=None, embeds=None,
+           seq: tp.Group = tp.SINGLE) -> torch.Tensor:
+    """The residual stream's input (over a ``seq`` group, this rank's rows)."""
     if embeds is None:
         vg = _vocab_group(cfg)
         if vg.size == 1:
-            embeds = params["embed"][tokens.long()]
+            embeds = tp.scatter(params["embed"][tokens.long()], seq, 1)
         else:  # this rank's rows; an id outside them gives zeros; then the sum
             table = params["embed"]
             ids = tokens.long() - vg.rank * table.shape[0]
             hit = (ids >= 0) & (ids < table.shape[0])
             rows = table[ids.clamp(0, table.shape[0] - 1)]
-            embeds = tp.leave(torch.where(hit[..., None], rows, torch.zeros_like(rows)), vg)
+            embeds = tp.region_out(torch.where(hit[..., None], rows, torch.zeros_like(rows)), vg,
+                                   seq)
+    else:
+        embeds = tp.scatter(embeds, seq, 1)
     x = embeds.to(cfg.dtype("compute"))
     if cfg.embed_scale:
         # sqrt(d) rounded to the compute dtype first, as the reference does
@@ -516,9 +536,10 @@ def _embed(params, cfg: ArchConfig, tokens=None, embeds=None) -> torch.Tensor:
     return x
 
 
-def _unembed(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    """Float32 logits: over a vocabulary group, this rank's columns."""
-    x = tp.enter(_norm(params, cfg, x, "final_norm"), _vocab_group(cfg))
+def _unembed(params, cfg: ArchConfig, x: torch.Tensor, seq: tp.Group = tp.SINGLE) -> torch.Tensor:
+    """Float32 logits of every row: over a vocabulary group, this rank's
+    columns (over a ``seq`` group ``x`` is this rank's rows, gathered)."""
+    x = tp.region_in(_norm(params, cfg, x, "final_norm", seq), _vocab_group(cfg), seq)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return (x @ w.to(x.dtype)).float()
 
@@ -537,9 +558,9 @@ def remat_layer(fn, *args):
 
 
 def _block_fn(layer_p, cfg: ArchConfig, layout: HeadLayout, x, positions, mrope_positions,
-              layer_cache):
+              layer_cache, seq: tp.Group = tp.SINGLE):
     layer_p = cast_for_compute(layer_p, cfg.dtype("compute"))
-    x, _, aux = block_apply(layer_p, cfg, layout, x, positions, mrope_positions, layer_cache)
+    x, _, aux = block_apply(layer_p, cfg, layout, x, positions, mrope_positions, layer_cache, seq)
     return x, aux
 
 
@@ -555,18 +576,19 @@ def forward(
     """Returns (logits fp32, cache written in place, moe_aux); over a model
     group that splits the vocabulary, the logits are this rank's columns."""
     layout = _layout(cfg)
-    x = _embed(params, cfg, tokens, embeds)
-    b, s = x.shape[:2]
+    b, s = (tokens if embeds is None else embeds).shape[:2]
+    seq = tp.sequence_group(s)
+    x = _embed(params, cfg, tokens, embeds, seq)
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device).repeat(b, 1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer_p in enumerate(params["layers"]):
         args = (layer_p, cfg, layout, x, positions, mrope_positions,
-                None if cache is None else cache[i])
+                None if cache is None else cache[i], seq)
         x, a = remat_layer(_block_fn, *args) if cfg.remat and cache is None \
             else _block_fn(*args)
         aux = aux + a
-    logits = _unembed(params, cfg, x)
+    logits = _unembed(params, cfg, x, seq)
     return logits, cache, aux
 
 
@@ -617,13 +639,19 @@ def train_loss(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
         params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
         mrope_positions=batch.get("mrope_positions"),
     )
+    loss = lm_loss(cfg, logits, batch)
+    total = loss + cfg.router_aux_loss * aux if cfg.is_moe else loss
+    return total, {"loss": loss, "moe_aux": aux}
+
+
+def lm_loss(cfg: ArchConfig, logits: torch.Tensor, batch: Dict[str, torch.Tensor]):
+    """The cross-entropy of ``forward``'s logits: vocab-parallel over a model
+    group that splits the vocabulary (the logits are then this rank's columns)."""
     vg = _vocab_group(cfg)
-    loss = cross_entropy_loss(
+    return cross_entropy_loss(
         logits, batch["labels"], batch.get("loss_mask"), real_vocab=cfg.vocab_size,
         group=vg, vocab_offset=vg.rank * logits.shape[-1],
     )
-    total = loss + cfg.router_aux_loss * aux if cfg.is_moe else loss
-    return total, {"loss": loss, "moe_aux": aux}
 
 
 def prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], max_len: int):

@@ -8,17 +8,17 @@ are DTensors placed by ``sharding.param_shardings``, and the cache's leaves
 are DTensors placed by ``sharding.cache_shardings``: the plain ring sharded
 on heads over ``"model"``, the sequence-sharded true-KV ring
 (``decode_kv_seq_sharded``) on its sequence.  Compute is data-parallel over
-the batch axes and, for the transformer families, tensor-parallel over
-``"model"`` (``runtime/train.py``): a call gathers each parameter over every
-axis but ``"model"``, each model rank computes on its shards, and the
-plain ring stays in its head shards, each rank prefilling and decoding its
-own heads in place.  In the true-KV mode the model axis carries the ring's
-sequence: the attention is whole-head on every rank and each rank attends
-over its own chunk (``models/transformer.py::_seq_sharded_decode``), while
-the MLPs and the vocabulary stay tensor-parallel.  The hybrid and
-state-space families gather their parameters whole, gather each cache leaf
-over the model axis, decode on it and write this rank's part back.  The
-logits come back whole, the same on every rank.
+the batch axes and tensor-parallel over ``"model"`` (``runtime/train.py``):
+a call gathers each parameter over every axis but ``"model"``, each model
+rank computes on its shards, and every cache leaf the rules split over
+``"model"`` stays this rank's part, prefilled and decoded in place: the
+plain ring in its head shards, the state-space mixer's ``conv_x`` channels
+and ``h`` heads, the RG-LRU's ``conv`` and ``h`` channels.  In the true-KV
+mode the model axis carries the ring's sequence: the attention is
+whole-head on every rank and each rank attends over its own chunk
+(``models/transformer.py::_seq_sharded_decode``), while the MLPs and the
+vocabulary stay tensor-parallel.  The logits come back whole, the same on
+every rank.
 """
 from __future__ import annotations
 
@@ -172,8 +172,10 @@ def jit_serve_step(mesh, model: Model, shape: ShapeConfig, donate: bool = True):
         return x if name in _SEQ_KEYS else sharding.gather(x, keep)
 
     def serve_step(params, cache, tokens, t):
-        with logical_axes(mesh, axes.batch, axes.model, seq=model.cfg.sequence_parallel,
-                          tp=tpg):
+        # no autograd: the cache's local tensors (views DTensor.to_local made)
+        # are written in place
+        with torch.no_grad(), logical_axes(mesh, axes.batch, axes.model,
+                                           seq=model.cfg.sequence_parallel, tp=tpg):
             compute = _map(view, cache, c_sh)
             logits, _, t1 = model.decode_step(_compute_params(params, kept, tp_keep), compute,
                                               _rows(tokens, tok_sh, bx), t)

@@ -18,19 +18,19 @@ shards.  It has the reference's global-batch semantics: the cross-entropy
 divides by the mask sum of the whole global batch (all-reduced before the
 backward), and the clipping norm is taken over the whole summed gradient.
 
-Tensor parallelism over ``"model"`` (the transformer families: dense, MoE,
-VLM, encoder), as XLA's partitioner splits the reference: each model rank
-keeps its model shard of every leaf the rules shard there and computes on
-it (head-parallel attention, column / row MLPs, expert-parallel MoE,
-vocab-parallel embedding, unembedding and cross-entropy;
+Tensor parallelism over ``"model"`` (every family), as XLA's partitioner
+splits the reference: each model rank keeps its model shard of every leaf
+the rules shard there and computes on it (head-parallel attention, column /
+row MLPs, expert-parallel MoE, the state-space mixer on its heads and the
+RG-LRU on its blocks with their gated norm a split row, vocab-parallel
+embedding, unembedding and cross-entropy;
 ``distributed/tensor_parallel.py``), the model group reached through the
 step's ``logical_axes`` context.  A model-sharded leaf's gradient is its
 model shard; a replicated leaf's is whole (summed over the group inside the
 model where a rank-local region read it).  The clipping norm sums each
 shard's squares over the group and counts each replicated leaf once.  On a
 model axis of size 1 no collective runs and the step is the plain
-step, bitwise.  The hybrid and state-space families compute whole on every
-model rank, as before (``ROADMAP.md`` §1).
+step, bitwise.
 
 The MoE router's aux loss takes its two batch means over the global batch
 (sums over the batch group inside ``models/moe.py``); it enters the
@@ -54,8 +54,8 @@ __all__ = ["TP_FAMILIES", "TrainState", "default_microbatches", "init_state", "j
            "jit_train_step", "make_train_step", "model_axes", "param_shapes", "shard_state",
            "state_shardings"]
 
-# the families whose compute is split over "model" (models/transformer.py)
-TP_FAMILIES = ("dense", "moe", "vlm", "encoder")
+# the families whose compute is split over "model": every one
+TP_FAMILIES = ("dense", "moe", "vlm", "encoder", "ssm", "hybrid")
 
 
 class TrainState(NamedTuple):

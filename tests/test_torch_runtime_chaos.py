@@ -87,6 +87,19 @@ def missing_before_crash(events) -> list:
     return missing
 
 
+async def wait_for(master, run_task, missing_fn) -> None:
+    """Wait until ``missing_fn(master.recorder.events)`` names nothing more
+    (polled, not timed), failing if the run ends first."""
+    for _ in range(3000):
+        missing = missing_fn(master.recorder.events)
+        if not missing:
+            return
+        if run_task.done():
+            raise AssertionError(f"the run ended before the crash, missing {missing}")
+        await asyncio.sleep(0.01)
+    raise TimeoutError(f"never seen before the crash: {missing}")
+
+
 async def crash_mid_run(rt, sc, journal, **kw):
     """Run two jobs under a journaling master and crash it once the journal
     holds what the assertions need (:func:`missing_before_crash`: waited on,
@@ -94,6 +107,7 @@ async def crash_mid_run(rt, sc, journal, **kw):
     master = rt.RuntimeMaster(3, sc, journal=journal, **KW)
     port = await master.start()
     threads = [rt.spawn_worker_thread(master.host, port, **kw) for _ in range(3)]
+    crashed = False
     try:
         await master.wait_for_workers(30.0)
         jobs = [
@@ -101,15 +115,7 @@ async def crash_mid_run(rt, sc, journal, **kw):
             rt.LiveJob(job_id=1, costs=(0.6, 0.6, 0.6), arrival=0.05, name="later"),
         ]
         run_task = asyncio.ensure_future(master.run(jobs, timeout_s=60.0))
-        for _ in range(3000):
-            missing = missing_before_crash(master.recorder.events)
-            if not missing:
-                break
-            if run_task.done():
-                raise AssertionError(f"the run ended before the crash, missing {missing}")
-            await asyncio.sleep(0.01)
-        else:
-            raise TimeoutError(f"never seen before the crash: {missing}")
+        await wait_for(master, run_task, missing_before_crash)
         run_task.cancel()
         try:
             await run_task
@@ -117,8 +123,11 @@ async def crash_mid_run(rt, sc, journal, **kw):
             pass
         alive = [w.wid for w in master.workers if w.alive]
         last_t = master.recorder.events[-1]["t"]
+        crashed = True
         await master.crash()
     finally:
+        if not crashed:  # a failed wait: wave the workers off, so the failure is the wait's
+            await master.close()
         await join_threads(threads, 5.0)
     return alive, last_t
 
@@ -164,6 +173,140 @@ def test_chaos_kill_retry_crash_recover_exact_twin(tmp_path, seed):
     assert any(e["ev"] == "retry" for e in events)
     assert sum(1 for e in events if e["ev"] == "recover") == 1
     assert "PayloadError" in report.task_errors[0][3]
+    assert_exact_twin(report, events)
+
+
+# one raise of (job 0, batch 1), 1.5 s into its dispatch; the kill lands
+# first, since it is delivered as soon as the raise's dispatch is journaled
+LOST = Scenario(
+    n_batches=3,
+    retry=Retry(max_attempts=2, backoff_s=0.05, max_backoff_s=0.2),
+    faults=FaultPlan(seed=0, payload_errors=((0, 1, 1),)),
+)
+LOST_JOBS = [LiveJob(job_id=0, costs=(3.0, 3.0, 3.0), name="lost")]
+
+
+def raise_delivered(events) -> list:
+    return [] if any(e["ev"] == "chaos" and e["kind"] == "raise" for e in events) \
+        else ["the raise's dispatch"]
+
+
+def raise_given_back(events) -> list:
+    kinds = {(e["ev"], e.get("kind"), e.get("cause")) for e in events}
+    return [] if {("chaos", "rearm", None), ("fail", None, "eof")} <= kinds \
+        else ["the killed worker's eof and the give-back"]
+
+
+async def kill_the_raise_holder(master, run_task) -> int:
+    """Kill, through the master's chaos path, the worker whose dispatch
+    carries the raise, once that dispatch is journaled; returns its wid."""
+    await wait_for(master, run_task, raise_delivered)
+    carried = next(e for e in master.recorder.events
+                   if e["ev"] == "chaos" and e["kind"] == "raise")
+    master._deliver_kill(master.workers[carried["wid"]])
+    return carried["wid"]
+
+
+def test_raise_lost_with_its_worker_goes_to_the_next_dispatch():
+    """The port's injector gives back a payload raise whose worker died
+    before it raised (a kill lands mid-payload): the plan's one raise of
+    (job 0, batch 1) still fails a task, on the rescue dispatch, and the
+    retry follows.  This is the race the acceptance scenario's kill of
+    worker 1 (0.35 s on the master's clock, which starts before the workers
+    join) ran against its raise (0.25 s into worker 1's first dispatch) on a
+    loaded host: the raise died with the worker, and no ``task_fail`` came.
+    Here the kill follows the raise's dispatch by construction."""
+
+    async def run():
+        master = RuntimeMaster(3, LOST, **KW)
+        port = await master.start()
+        threads = [spawn_worker_thread(master.host, port, **CPU) for _ in range(3)]
+        try:
+            await master.wait_for_workers(30.0)
+            run_task = asyncio.ensure_future(master.run(LOST_JOBS, timeout_s=60.0))
+            killed = await kill_the_raise_holder(master, run_task)
+            return killed, await run_task
+        finally:
+            await master.close()
+            await join_threads(threads, 5.0)
+
+    killed, report = asyncio.run(run())
+    events = list(report.trace)
+    raises = [e for e in events if e["ev"] == "chaos" and e["kind"] == "raise"]
+    kill = next(e for e in events if e["ev"] == "chaos" and e["kind"] == "kill")
+    assert kill["wid"] == killed == raises[0]["wid"] and kill["t"] > raises[0]["t"]
+    assert any(e["ev"] == "fail" and e["cause"] == "eof" and e["wid"] == killed for e in events)
+    rearms = [e for e in events if e["ev"] == "chaos" and e["kind"] == "rearm"]
+    assert [(e["job"], e["batch"], e["wid"]) for e in rearms] == [(0, 1, killed)]
+    fails = [e for e in events if e["ev"] == "task_fail"]
+    assert [(e["job"], e["batch"]) for e in fails] == [(0, 1)]
+    assert fails[0]["t"] > kill["t"]  # the kill beat the first raise
+    assert fails[0]["wid"] != killed  # the rescue dispatch raised, not the killed worker's
+    assert len(raises) == 2  # delivered to the killed worker, lost with it, delivered again
+    assert report.n_task_failures == 1 and report.n_retries == 1
+    assert report.records[0].finish < float("inf")
+    assert_exact_twin(report)
+
+
+@pytest.mark.parametrize("lost_by", ["kill", "crash"])
+def test_crash_after_a_lost_raise_recovers_the_give_back(tmp_path, lost_by):
+    """A raise lost with its worker, then a crash before the rescue dispatch
+    that would carry it.  ``kill``: the worker is killed mid-payload and the
+    journal holds the give-back (``rearm``) before the crash.  ``crash``: the
+    crash itself takes the worker, and recovery's ``crash`` fail gives the
+    raise back.  Either way the recovered master delivers the raise again, as
+    the uncrashed run does, and the one journal still replays exactly."""
+    journal = str(tmp_path / "lost.jsonl")
+
+    async def crash():
+        master = RuntimeMaster(3, LOST, journal=journal, **KW)
+        port = await master.start()
+        threads = [spawn_worker_thread(master.host, port, **CPU) for _ in range(3)]
+        crashed = False
+        try:
+            await master.wait_for_workers(30.0)
+            run_task = asyncio.ensure_future(master.run(LOST_JOBS, timeout_s=60.0))
+            if lost_by == "kill":
+                await kill_the_raise_holder(master, run_task)
+                await wait_for(master, run_task, raise_given_back)
+            else:
+                await wait_for(master, run_task, raise_delivered)
+            run_task.cancel()
+            try:
+                await run_task
+            except asyncio.CancelledError:
+                pass
+            crashed = True
+            await master.crash()
+        finally:
+            if not crashed:
+                await master.close()
+            await join_threads(threads, 5.0)
+
+    asyncio.run(crash())
+    mid = read_journal(journal)
+    carried = next(e for e in mid if e["ev"] == "chaos" and e["kind"] == "raise")
+    # the crash fell before the batch's next dispatch, and before any task failed
+    assert max(i for i, e in enumerate(mid) if e["ev"] == "dispatch"
+               and (e["job"], e["batch"]) == (0, 1)) < mid.index(carried)
+    assert not any(e["ev"] == "task_fail" for e in mid)
+
+    report = asyncio.run(recover_and_resume(journal))
+    events = read_journal(journal)
+    after = events[len(mid):]
+    assert sum(1 for e in after if e["ev"] == "recover") == 1
+    rearms = [e for e in events if e["ev"] == "chaos" and e["kind"] == "rearm"]
+    assert [(e["job"], e["batch"], e["wid"]) for e in rearms] == [(0, 1, carried["wid"])]
+    assert (rearms[0] in after) == (lost_by == "crash")
+    if lost_by == "crash":
+        assert any(e["ev"] == "fail" and e["cause"] == "crash" and e["wid"] == carried["wid"]
+                   for e in after[:after.index(rearms[0])])
+    raises = [e for e in events if e["ev"] == "chaos" and e["kind"] == "raise"]
+    assert len(raises) == 2 and raises[1] in after  # recovery delivers the raise given back
+    fails = [e for e in events if e["ev"] == "task_fail"]
+    assert [(e["job"], e["batch"]) for e in fails] == [(0, 1)] and fails[0] in after
+    assert report.n_task_failures == 1 and report.n_retries == 1
+    assert report.records[0].finish < float("inf")
     assert_exact_twin(report, events)
 
 

@@ -109,7 +109,7 @@ def _step(inp, mesh, axes, batch_key="batch", microbatches=1, model=None, mesh_a
                                        donate=False, microbatches=microbatches,
                                        mesh_axes=mesh_axes)
     state = shard_state(plain_state(model, opt, inp[params_key]), st_sh)
-    batch = dict(inp["batch" if params_key == "params" else "moe_batch"])
+    batch = dict(inp[params_key.replace("params", "batch")])  # moe_params: moe_batch
     if batch_key != "batch":
         batch["loss_mask"] = inp[batch_key]
     # half the leaves as DTensors placed by b_sh, half as the plain global batch
@@ -199,6 +199,105 @@ def case_ragged(inp):
             "state": full_state(new)}
 
 
+REC_ARCHS = {"ssm": "mamba2-2.7b", "hyb": "recurrentgemma-2b"}
+REC_PRE = {"ssm": 12, "hyb": 8}  # the hybrid's prompt no longer than its window (8)
+
+
+def rec_cfg(fam: str, **kw):
+    return get_config(REC_ARCHS[fam], smoke=True, param_dtype="float32", compute_dtype="float32",
+                      **kw)
+
+
+def _rec(inp, fam: str, shape) -> dict:
+    """The state-space or hybrid family's mesh train step and serving on a
+    ("data", "model") mesh of ``shape``, tensor-parallel over "model": the
+    step's metrics and state, the prefill and three decode steps' logits,
+    the shapes of the train step's compute tree and of this rank's cache,
+    and how many parameter or cache gathers crossed the model axis."""
+    real, calls = sharding.gather, []
+
+    def spy(x, keep=()):
+        _gathers_over_model(calls, x, keep)
+        return real(x, keep)
+
+    seen = {}
+    model = build_model(rec_cfg(fam))
+
+    def train_loss(params, batch):
+        seen.update({k: tuple(v.shape) for k, v in params.leaves().items()})
+        return model.train_loss(params, batch)
+
+    sharding.gather = spy
+    try:
+        mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
+        new, metrics, _ = _step(inp, mesh, None, model=dataclasses.replace(
+            model, train_loss=train_loss), params_key=f"{fam}_params")
+        train_calls, calls[:] = sum(calls), []
+        out, cache = _serve_model(model, mesh, inp[f"{fam}_params"],
+                                  inp[f"{fam}_batch"]["tokens"], REC_PRE[fam])
+        out["local_cache"] = {path: tuple(x.to_local().shape)
+                              for path, x in _cache_leaves(cache)}
+        serve_calls = sum(calls)
+    finally:
+        sharding.gather = real
+    return {**{k: metrics[k] for k in ("loss", "grad_norm")}, "state": full_state(new),
+            "tree": seen, "train_over_model": train_calls, "serve_over_model": serve_calls,
+            **out}
+
+
+def _serve_model(model, mesh, leaves: dict, tokens, n_pre: int):
+    """``jit_prefill`` of ``n_pre`` tokens and three ``jit_serve_step`` calls:
+    ``({"prefill", "decode0".."decode2": logits, "c_spec"}, the cache)``."""
+    prefill, p_sh, _, c_sh = jit_prefill(mesh, model, ShapeConfig("p", S_MAX, B, "prefill"))
+    step, _, _, _ = jit_serve_step(mesh, model, ShapeConfig("d", S_MAX, B, "decode"),
+                                   donate=False)
+    params = params_of(model, leaves)
+    params = params.replace_leaves({k: sharding.distribute(p, p_sh[k])
+                                    for k, p in params.leaves().items()})
+    logits, cache, t = prefill(params, {"tokens": tokens[:, :n_pre]})
+    out = {"prefill": logits, "c_spec": sharding.describe(c_sh)}
+    for i in range(3):
+        logits, cache, t = step(params, cache, tokens[:, n_pre + i:n_pre + i + 1], t)
+        out[f"decode{i}"] = logits
+    return out, cache
+
+
+def _cache_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _cache_leaves(v, f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _cache_leaves(v, f"{prefix}{i}.")]
+    return [(prefix.rstrip("."), tree)]
+
+
+def case_rec_ssm22(inp):
+    return _rec(inp, "ssm", (2, 2))
+
+
+def case_rec_ssm14(inp):
+    return _rec(inp, "ssm", (1, 4))
+
+
+def case_rec_hyb22(inp):
+    return _rec(inp, "hyb", (2, 2))
+
+
+def case_rec_hyb14(inp):
+    return _rec(inp, "hyb", (1, 4))
+
+
+def case_sp22(inp):
+    """qwen2 smoke's step on (2, 2) with ``sequence_parallel=True``, and the
+    same mesh's step without it."""
+    out = {}
+    for name, seq in (("sp", True), ("tp", False)):
+        model = build_model(dataclasses.replace(train_cfg(), sequence_parallel=seq))
+        new, metrics, _ = _step(inp, (2, 2), ("data", "model"), model=model)
+        out[name] = {"loss": metrics["loss"], "grad_norm": metrics["grad_norm"],
+                     "state": full_state(new)}
+    return out
+
+
 def case_allreduce(inp):
     mesh = make_mesh((dist.get_world_size(),), ("pod",), device_type="cpu")
     group = mesh.get_group("pod")
@@ -240,21 +339,10 @@ def case_ckpt_restore(inp):
 
 
 def _serve(inp, seq_sharded: bool):
-    model = build_model(decode_cfg(seq_sharded))
     mesh = make_mesh((2, 4), ("data", "model"), device_type="cpu")
-    shape = ShapeConfig("d", S_MAX, B, "decode")
-    prefill, p_sh, b_sh, c_sh = jit_prefill(mesh, model, ShapeConfig("p", S_MAX, B, "prefill"))
-    step, p_sh2, c_sh2, tok_sh = jit_serve_step(mesh, model, shape, donate=False)
-    params = params_of(model, inp["dec_params"])
-    params = params.replace_leaves({k: sharding.distribute(p, p_sh[k])
-                                    for k, p in params.leaves().items()})
-    toks = inp["dec_tokens"]
-    logits, cache, t = prefill(params, {"tokens": toks[:, :S_PRE]})
-    out = {"prefill": logits, "c_spec": sharding.describe(c_sh),
-           "local_cache": {k: v.to_local().clone() for k, v in cache[0].items()}}
-    for i in range(3):
-        logits, cache, t = step(params, cache, toks[:, S_PRE + i:S_PRE + i + 1], t)
-        out[f"decode{i}"] = logits
+    out, cache = _serve_model(build_model(decode_cfg(seq_sharded)), mesh, inp["dec_params"],
+                              inp["dec_tokens"], S_PRE)
+    out["local_cache"] = {k: v.to_local().clone() for k, v in cache[0].items()}
     out["cache"] = {k: v.full_tensor() for k, v in cache[0].items()}
     return out
 

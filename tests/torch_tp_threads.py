@@ -30,7 +30,7 @@ import torch
 from repro_torch.distributed import axes, sharding
 from repro_torch.distributed import tensor_parallel as tp
 
-__all__ = ["ThreadGroup", "assemble", "rank_params", "run_ranks", "sharded_dims"]
+__all__ = ["ThreadGroup", "assemble", "rank_cache", "rank_params", "run_ranks", "sharded_dims"]
 
 
 class _Shared:
@@ -78,14 +78,23 @@ class ThreadGroup(tp.Group):
     def all_gather(self, x, dim):
         return torch.cat(self._exchange(x), dim=dim)
 
+    def reduce_scatter(self, x, dim):
+        parts = self._exchange(x)
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + p
+        n = out.shape[dim]
+        return out.narrow(dim, self.part(n).start, n // self.size).contiguous()
+
 
 def run_ranks(size: int, fn: Callable[[int, ThreadGroup], object], role: str = "tp",
-              timeout: float = 300.0) -> List[object]:
+              timeout: float = 300.0, seq: bool = False) -> List[object]:
     """``[fn(rank, group) for every rank]``, the ranks run at once, one
     thread each, each inside ``logical_axes`` with its group as the model
-    group (``role="tp"``) or as the batch group (``role="dp"``: each rank
-    holds its rows of the batch).  A rank that raises breaks the barrier (the
-    others raise too) and the first error is raised here."""
+    group (``role="tp"``; ``seq``: sequence parallelism on) or as the batch
+    group (``role="dp"``: each rank holds its rows of the batch).  A rank
+    that raises breaks the barrier (the others raise too) and the first
+    error is raised here."""
     shared = _Shared(size, timeout)
     out: list = [None] * size
     errors: list = []
@@ -93,7 +102,8 @@ def run_ranks(size: int, fn: Callable[[int, ThreadGroup], object], role: str = "
     def body(rank: int) -> None:
         group = ThreadGroup(shared, rank)
         try:
-            ctx = (axes.logical_axes({"model": size}, (), "model", tp=group) if role == "tp"
+            ctx = (axes.logical_axes({"model": size}, (), "model", seq=seq, tp=group)
+                   if role == "tp"
                    else axes.logical_axes({"data": size}, ("data",), None, dp=group))
             with torch.autograd.set_multithreading_enabled(False), ctx:
                 out[rank] = fn(rank, group)
@@ -143,6 +153,24 @@ def rank_params(params, size: int, rank: int, trainable: bool = False):
             t = t.contiguous()
         leaves[k] = t
     return params.replace_leaves(leaves)
+
+
+def rank_cache(cache, size: int, rank: int):
+    """Rank ``rank``'s part of a whole decode cache (the same structure): each
+    leaf the cache rules split over ``"model"`` cut to its shard (a ring's
+    heads, a state-space ``conv_x``'s channels and ``h``'s heads, an RG-LRU
+    ``conv``'s and ``h``'s channels), every other leaf whole."""
+    mesh = {"model": size}
+    specs = sharding.cache_shardings(mesh, cache)
+
+    def cut(x, sh):
+        if isinstance(x, dict):
+            return {k: cut(v, sh[k]) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [cut(v, s) for v, s in zip(x, sh)]
+        return x[sharding.local_slice(x.shape, sh.spec, mesh, (rank,))]
+
+    return cut(cache, specs)
 
 
 def assemble(per_rank: List[dict], dims: dict) -> dict:
