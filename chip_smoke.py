@@ -249,7 +249,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It imports
    ``sequence_parallel=True``, a prefill of 1024 tokens (512 rows a rank
    between the regions) within the same bound of the plain path, and a
    2-layer TP 2 train step with it under ``train_step_mismatches``;
-20. prints the kernels line, then, last, the one-line JSON result.
+20. holds the dry run (``launch/dryrun.py``) against the card: qwen2-1.5b
+   whole at phase 15's training shape through ``jit_train_step`` on (1, 1),
+   the prediction on ``meta`` tensors against one step on the card -- the
+   launches by kernel (profiler trace and wrappers' counts) and the FLOPs
+   (``FlopCounterMode``) exactly, the peak of live bytes beside
+   ``torch.cuda.max_memory_allocated()`` -- the device memory constant the
+   dry run holds cells to, a TP 2 thread-rank step (2 layers, float32)
+   under ``remat_policy="block_outs"`` bitwise ``"full"``'s with no sum over
+   the model group in its recompute, and each custom operator's host µs a
+   call against the direct launch it wraps;
+21. prints the kernels line, then, last, the one-line JSON result.
 
 Every device time is read from a ``torch.profiler`` trace, which can drop
 device events: a trace counts only if it holds as many events for each
@@ -4414,6 +4424,213 @@ def phase_sequence_parallel() -> dict:
     return rec
 
 
+DRY_TP_LAYERS = 2  # the TP 2 remat-policy step: layers at full width, float32
+OP_HOST_CALLS = 2000  # calls a host-time reading of a custom operator takes
+
+
+def _op_host_us(fn, calls: int) -> float:
+    """Host microseconds a call of ``fn`` (launched back to back in batches
+    of 200, each batch ended by a synchronise outside the clock)."""
+    import torch
+
+    total = 0.0
+    for _ in range(calls // 200):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / (calls // 200 * 200) * 1e6
+
+
+def _custom_op_host_cost() -> dict:
+    """Host µs a call of each of the four custom operators through the
+    dispatcher, of its public wrapper (which launches directly where no
+    dispatch mode is on: ``flash_attention.unobserved``) and of the direct
+    ctypes launch (``_launch``), at decode shapes (the host-bound path), in
+    the order direct, operator, wrapper, wrapper, operator, direct; medians."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import rmsnorm
+
+    dev = "cuda"
+    x = _randn(torch, (1, 2560), torch.bfloat16, 31)
+    w = _randn(torch, (2560,), torch.bfloat16, 32)
+    total = rmsnorm.row_sumsq(x) * 2
+    q = _randn(torch, (1, 1, 12, 128), torch.bfloat16, 33)
+    k = _randn(torch, (1, 1056, 2, 128), torch.bfloat16, 34)
+    qpos = torch.full((1, 1), 1055, dtype=torch.int32, device=dev)
+    kpos = torch.arange(1056, dtype=torch.int32, device=dev)[None]
+    out = torch.empty_like(q)
+    ops = torch.ops.repro_torch
+    cases = {
+        "attention": (lambda: ops.attention(q, k, k, qpos, kpos, True, None, None, False),
+                      lambda: flash.attention(q, k, k, qpos, kpos),
+                      lambda: flash._launch(q, k, k, qpos, kpos, out, True, None, None)),
+        "rms_norm": (lambda: ops.rms_norm(x, w, 1e-6, False),
+                     lambda: rmsnorm.rms_norm_fused(x, w),
+                     lambda: rmsnorm._launch(x, w, 1e-6, False)),
+        "row_sumsq": (lambda: ops.row_sumsq(x), lambda: rmsnorm.row_sumsq(x),
+                      lambda: rmsnorm._launch_sumsq(x)),
+        "rms_norm_scaled": (lambda: ops.rms_norm_scaled(x, w, total, 5120, 1e-6, False),
+                            lambda: rmsnorm.rms_norm_scaled(x, w, total, 5120),
+                            lambda: rmsnorm._launch(x, w, 1e-6, False, total, 5120)),
+    }
+    rec = {}
+    for name, (op, wrapper, direct) in cases.items():
+        for fn in (op, wrapper, direct):  # warm every path
+            fn()
+        runs = {"direct": [], "op": [], "wrapper": []}
+        for which in ("direct", "op", "wrapper", "wrapper", "op", "direct"):
+            fn = {"direct": direct, "op": op, "wrapper": wrapper}[which]
+            runs[which].append(_op_host_us(fn, OP_HOST_CALLS))
+        rec[name] = {f"{k}_us": statistics.median(v) for k, v in runs.items()}
+        rec[name]["runs"] = runs
+        print(f"  custom op {name}: host µs a call, through the dispatcher "
+              f"{rec[name]['op_us']:.2f} {runs['op']}, the wrapper {rec[name]['wrapper_us']:.2f} "
+              f"{runs['wrapper']}, the direct launch {rec[name]['direct_us']:.2f} "
+              f"{runs['direct']}; {OP_HOST_CALLS} calls each  [{CARD}]", flush=True)
+    return rec
+
+
+def phase_dryrun_vs_card() -> dict:
+    """The dry run against the card (world of one, inside the mesh phases'
+    NCCL group): qwen2-1.5b whole at phase 15's training shape (batch
+    TRAIN_BATCH x TRAIN_SEQ, bf16 compute, f32 master weights, remat) through
+    ``jit_train_step`` on (1, 1).  ``launch/dryrun.py::predict_step`` on
+    ``meta`` tensors predicts the step; the same step then runs on the card
+    (one warm-up step first) under ``FlopCounterMode`` and a profiler trace:
+    the predicted launches by kernel equal the trace's kernels and the
+    wrappers' counts exactly, the predicted FLOPs equal ``FlopCounterMode``'s
+    exactly, and the predicted peak of live bytes is printed beside
+    ``torch.cuda.max_memory_allocated()``.  Then a TP 2 thread-rank step
+    (DRY_TP_LAYERS layers, float32) under ``remat_policy="block_outs"``:
+    gradients bitwise ``"full"``'s, no sum over the model group in the
+    recompute; and the custom operators' host µs a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+    from test_torch_dryrun_cuda import kernel_counts, remat_sums, smoke_batch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import rmsnorm
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    phase(f"the dry run against the card: {TRAIN_ARCH} whole ({cfg.n_layers} layers, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {cfg.compute_dtype} compute, f32 master, remat) "
+          "through jit_train_step on (1, 1): the meta prediction against one step on the card; "
+          f"block_outs at TP 2 ({DRY_TP_LAYERS} layers, float32); the custom ops' host cost")
+    props = torch.cuda.get_device_properties(0)
+    print(f"device memory: torch.cuda.get_device_properties(0).total_memory = "
+          f"{props.total_memory} bytes; the dry run holds cells to "
+          f"{dryrun.H100_MEMORY_BYTES}; {props.multi_processor_count} SMs  [{CARD}]", flush=True)
+    check(props.total_memory == dryrun.H100_MEMORY_BYTES,
+          f"the card reads {props.total_memory} bytes of device memory, the dry run's "
+          f"constant is {dryrun.H100_MEMORY_BYTES}")
+    check(props.multi_processor_count == flash.H100_SM_COUNT,
+          f"the card has {props.multi_processor_count} SMs, the split-KV plan of a "
+          f"meta tensor assumes {flash.H100_SM_COUNT}")
+    model = build_model(cfg)
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    t0 = time.perf_counter()
+    pred = dryrun.predict_step(model, shape, mesh)
+    pred_s = time.perf_counter() - t0
+    want = pred["step_stats"]
+    _free()
+    step, args, roots, mem = dryrun.build_step(model, shape, mesh, device="cuda")
+    del roots
+    out = step(*args)  # warm-up: cuBLAS workspaces, the kernels' libraries
+    del out
+    torch.cuda.synchronize()
+    measured = None
+    for attempt in range(3):
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_PAD):
+                torch.cuda._sleep(0)
+            with FlopCounterMode(display=False) as fc:
+                out = step(*args)
+            for _ in range(TRACE_PAD):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        del out
+        wrappers = dict(_counts(), sumsq=rmsnorm.sumsq_launches, scaled=rmsnorm.scaled_launches)
+        wrappers["rmsnorm"] -= wrappers["sumsq"] + wrappers["scaled"]
+        cuda = torch.autograd.DeviceType.CUDA
+        traced = kernel_counts(e.name() for e in prof.profiler.kineto_results.events()
+                               if e.device_type() == cuda)
+        counted = {k: wrappers[k] for k in traced}
+        if traced == counted:
+            measured = traced
+            break
+        print(f"  the trace's kernels {traced} fall short of the wrappers' {counted}: the "
+              "step traced again", flush=True)
+    check(measured is not None, "three profiler traces of the step lost kernel events")
+    flops = fc.get_total_flops()
+    gap = (want["peak_bytes"] - peak) / peak * 100
+    print(f"prediction ({pred_s:.2f} s on meta tensors): launches {want['launches_by_kernel']}, "
+          f"FLOPs {want['flops']:.0f} (attention {want['attention_flops']:.0f}), peak "
+          f"{want['peak_bytes'] / 1e9:.3f} GB of live bytes (state {mem['state_bytes'] / 1e9:.3f} "
+          f"GB, batch {mem['batch_bytes']} B)", flush=True)
+    print(f"the card: launches {measured} (profiler) and {counted} (wrappers), FLOPs "
+          f"{flops:.0f} (FlopCounterMode), torch.cuda.max_memory_allocated() "
+          f"{peak / 1e9:.3f} GB; the prediction's peak {gap:+.2f} % of the measured  [{CARD}]",
+          flush=True)
+    check(measured == want["launches_by_kernel"],
+          f"launches by kernel: predicted {want['launches_by_kernel']}, the card {measured}")
+    check(flops == want["flops"], f"FLOPs: predicted {want['flops']}, FlopCounterMode {flops}")
+    rec = {"launches": {"rmsnorm": measured["rmsnorm"] + measured["sumsq"] + measured["scaled"],
+                        "flash_attention": sum(measured[k] for k in ("splitkv", "wgmma", "simt")),
+                        **measured},
+           "flops": flops, "peak_bytes": peak, "predicted_peak_bytes": want["peak_bytes"],
+           "peak_gap_pct": gap}
+    del step, args, pred
+    _free()
+
+    # the remat policy at TP 2 on thread ranks
+    out = {}
+    for policy in ("full", "block_outs"):
+        tcfg = dataclasses.replace(get_config(TRAIN_ARCH, param_dtype="float32",
+                                              compute_dtype="float32", remat_policy=policy),
+                                   n_layers=DRY_TP_LAYERS)
+        tmodel = build_model(tcfg)
+        params = tmodel.init(torch.Generator(device="cuda").manual_seed(SEED))
+        out[policy] = remat_sums(tmodel, params, smoke_batch(tcfg, TRAIN_CHECK_BATCH, TRAIN_SEQ,
+                                                             "cuda", SEED), 2)
+        del params, tmodel
+    sums = {p: [r[1] for r in out[p]] for p in out}
+    differ = [k for f, b in zip(out["full"], out["block_outs"]) for k, g in f[3].items()
+              if not torch.equal(g, b[3][k])]
+    same_loss = all(torch.equal(f[2], b[2]) for f, b in zip(out["full"], out["block_outs"]))
+    print(f"remat policy at TP 2 ({DRY_TP_LAYERS} layers, float32, batch {TRAIN_CHECK_BATCH} x "
+          f"{TRAIN_SEQ}): sums over the model group in the backward's recompute, by rank: "
+          f"'full' {sums['full']}, 'block_outs' {sums['block_outs']}; forward sums "
+          f"{[r[0] for r in out['full']]}; gradients "
+          f"{'bitwise equal' if not differ else differ[:4]}, loss "
+          f"{'bitwise equal' if same_loss else 'differs'}  [{CARD}]", flush=True)
+    check(not differ and same_loss, f"block_outs against full at TP 2: {differ[:4]}")
+    check(all(n == 0 for n in sums["block_outs"]) and all(n == DRY_TP_LAYERS
+                                                            for n in sums["full"]),
+          f"recompute sums: full {sums['full']}, block_outs {sums['block_outs']}")
+    rec["remat_sums"] = sums
+    del out
+    _free()
+    rec["op_host_us"] = _custom_op_host_cost()
+    print(f"dry run against the card: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -4470,6 +4687,7 @@ def main() -> int:
             tp_rec = phase_tensor_parallel()
             rec_rec = phase_tp_recurrent()
             sp_rec = phase_sequence_parallel()
+            dry_rec = phase_dryrun_vs_card()
         finally:
             torch.distributed.destroy_process_group()
         print(f"\nmesh paths: {time.perf_counter() - t_mesh:.1f} s; the whole script "
@@ -4484,6 +4702,8 @@ def main() -> int:
     # hybrid families', and sequence parallelism's paths
     tp_launches = {k: tp_rec["launches"][k] + rec_rec["launches"][k] + sp_rec["launches"][k]
                    for k in _TP_KERNELS}
+    # the dry run's real step on the card (phase 20)
+    dry_launches = dry_rec["launches"]
     rows = [
         # name, record, launches on the main paths, replaces
         ("masked_cover", cover_rec,
@@ -4495,14 +4715,14 @@ def main() -> int:
                                                   train_rec["rmsnorm"]["max_abs_err"],
                                                   rec_rec["split"]["max_abs_err"])),
          serve_launches["rmsnorm"] + zoo_launches["rmsnorm"] + train_launches["rmsnorm"]
-         + mesh_launches["rmsnorm"] + tp_launches["rmsnorm"],
+         + mesh_launches["rmsnorm"] + tp_launches["rmsnorm"] + dry_launches["rmsnorm"],
          "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:31"),
         ("flash_attention", dict(att_rec, max_abs_err=max(
             att_rec["max_abs_err"], train_rec["flash_attention"]["max_abs_err"],
             tp_rec["max_abs_err"], rec_rec["max_abs_err"])),
          serve_launches["flash_attention"] + zoo_launches["flash_attention"]
          + train_launches["flash_attention"] + mesh_launches["flash_attention"]
-         + tp_launches["flash_attention"],
+         + tp_launches["flash_attention"] + dry_launches["flash_attention"],
          "flash_attention.cu", "src/repro/kernels/flash_attention.py:104"),
     ]
     kernels = [{
@@ -4526,7 +4746,7 @@ def main() -> int:
     kernels[2]["launches_by_kernel"] = {
         k: serve_launches["flash_attention_by_kernel"][k] + zoo_launches[k]
         + (train_launches["wgmma"] + mesh_train["launches"]["wgmma"] if k == "wgmma" else 0)
-        + sum(mesh_serve[d][k] for d in mesh_serve) + tp_launches[k]
+        + sum(mesh_serve[d][k] for d in mesh_serve) + tp_launches[k] + dry_launches[k]
         for k in ("splitkv", "wgmma", "simt")}
     # the model zoo's new shapes: RMSNorm at d_inner 5120, attention at hd 80
     kernels[1]["zoo"] = {k: zoo_rms_rec[k] for k in ("prefill", "decode")}
@@ -4537,21 +4757,28 @@ def main() -> int:
                                       "mesh": mesh_launches["rmsnorm"],
                                       "tp": tp_rec["launches"]["rmsnorm"],
                                       "tp_recurrent": rec_rec["launches"]["rmsnorm"],
-                                      "sp": sp_rec["launches"]["rmsnorm"]}
+                                      "sp": sp_rec["launches"]["rmsnorm"],
+                                      "dryrun": dry_launches["rmsnorm"]}
     # the split row (mamba2's gated norm over a rank's d_inner): its two
     # kernels' launches on the TP paths, and its rank shapes against the plain
     # version, the bound and F.rms_norm on the whole row
     kernels[1]["split"] = dict(rec_rec["split"]["shapes"],
-                               launches={k: tp_launches[k] for k in ("sumsq", "scaled")})
+                               launches={k: tp_launches[k] + dry_launches[k]
+                                         for k in ("sumsq", "scaled")})
     kernels[2]["launches_by_path"] = {"serve": serve_launches["flash_attention"],
                                       "zoo": zoo_launches["flash_attention"],
                                       "train": train_launches["flash_attention"],
                                       "mesh": mesh_launches["flash_attention"],
                                       "tp": tp_rec["launches"]["flash_attention"],
                                       "tp_recurrent": rec_rec["launches"]["flash_attention"],
-                                      "sp": sp_rec["launches"]["flash_attention"]}
+                                      "sp": sp_rec["launches"]["flash_attention"],
+                                      "dryrun": dry_launches["flash_attention"]}
     # the rank-local attention shapes of tensor parallelism (the hybrid's too)
     kernels[2]["tp"] = dict(tp_rec["shapes"], **rec_rec["shapes"])
+    # the custom operators' host cost a call against the direct launch (phase 20)
+    kernels[1]["op_host_us"] = {k: dry_rec["op_host_us"][k]
+                                for k in ("rms_norm", "row_sumsq", "rms_norm_scaled")}
+    kernels[2]["op_host_us"] = dry_rec["op_host_us"]["attention"]
     # the training shapes: the forward kernel and the plain-torch backward
     kernels[1]["train"] = train_rec["rmsnorm"]
     kernels[2]["train"] = train_rec["flash_attention"]

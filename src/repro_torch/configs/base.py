@@ -84,7 +84,8 @@ class ArchConfig:
     # the TP axis (cuts saved-activation memory TP-fold -> fewer microbatches)
     sequence_parallel: bool = False
     # decode KV cache lives in the layer-scan carry (in-place ring-buffer
-    # updates alias; avoids the xs/ys double-buffer)
+    # updates alias; avoids the xs/ys double-buffer).  A no-op in the port by
+    # design: its cache is written in place always (models/transformer.py)
     cache_in_carry: bool = False
     # decode KV cache stores TRUE kv heads sharded over the TP axis by
     # SEQUENCE (shard_map partial-softmax combine) instead of repeated heads:

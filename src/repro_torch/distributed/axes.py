@@ -31,7 +31,8 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from .sharding import PartitionSpec, mesh_sizes
 
-__all__ = ["LogicalAxes", "UNCONSTRAINED", "current", "logical_axes", "shard", "shard_spec"]
+__all__ = ["LogicalAxes", "UNCONSTRAINED", "current", "entered", "logical_axes", "shard",
+           "shard_spec"]
 
 _LOCAL = threading.local()
 
@@ -66,6 +67,21 @@ def logical_axes(mesh, batch: Tuple[str, ...], model: Optional[str], seq: bool =
                  tp=None, dp=None):
     stack = _stack()
     stack.append(LogicalAxes(mesh, tuple(batch), model, seq, tp, dp))
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+@contextlib.contextmanager
+def entered(ctx: Optional[LogicalAxes]):
+    """Run under ``ctx`` again (a context taken with :func:`current`), as in
+    a checkpoint's recompute on another thread; ``None`` does nothing."""
+    if ctx is None:
+        yield
+        return
+    stack = _stack()
+    stack.append(ctx)
     try:
         yield
     finally:

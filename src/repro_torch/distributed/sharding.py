@@ -368,10 +368,14 @@ def local_slice(shape, spec: Sequence, mesh, coord: Sequence[int],
 def distribute(full: torch.Tensor, sh: NamedSharding) -> DTensor:
     """The DTensor of ``full`` (the same on every rank) under ``sh``: each
     rank keeps its own shard, no collective.  Where the shard is the whole
-    tensor (a world of one) it shares ``full``'s storage."""
+    tensor (a world of one) it shares ``full``'s storage; a part is a copy
+    of its own, so ``full`` is freed once the caller lets it go (a slice
+    that is contiguous already would otherwise keep it whole)."""
     mesh = sh.mesh
     local = full[local_slice(full.shape, sh.spec, mesh, mesh.get_coordinate())]
-    return DTensor.from_local(local.contiguous(), mesh, sh.placements, run_check=False)
+    local = local.contiguous() if local.numel() == full.numel() else \
+        local.clone(memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, mesh, sh.placements, run_check=False)
 
 
 def with_local(x: DTensor, local: torch.Tensor) -> DTensor:

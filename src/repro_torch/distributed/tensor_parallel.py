@@ -35,20 +35,29 @@ forward, all-gather backward); :func:`region_in` / :func:`region_out` pick
 these, ``gather`` / ``scatter`` (a region that computes whole on every
 rank) or plain ``enter`` / ``leave`` (no sequence split).  The norms and
 residual adds between the regions run on the rank's rows.
+
+The block outputs' sums (the reference's ``"block_out"`` names, kept by
+its ``remat_policy="block_outs"``): inside :func:`saving_sums`, each sum
+:func:`region_out` runs over a group of more than one rank is recorded on
+the context's :class:`SavedSums` the first time the block runs (its
+forward) and handed back, in order and without the collective, every later
+time (a checkpoint's recompute).
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Sequence
+import threading
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from . import axes, sharding
 
-__all__ = ["Group", "MeshGroup", "SINGLE", "batch_group", "enter", "enter_from_shards",
-           "gather", "leave", "leave_to_shards", "model_group", "region_in", "region_out",
-           "scatter", "sequence_group"]
+__all__ = ["Group", "MeshGroup", "SINGLE", "SavedSums", "batch_group", "enter",
+           "enter_from_shards", "gather", "leave", "leave_to_shards", "model_group", "region_in",
+           "region_out", "saving_sums", "scatter", "sequence_group"]
 
 
 class Group:
@@ -272,7 +281,64 @@ def region_in(x: torch.Tensor, group: Group, seq: Group = SINGLE, dim: int = 1) 
 def region_out(x: torch.Tensor, group: Group, seq: Group = SINGLE, dim: int = 1) -> torch.Tensor:
     """A region's output onto the residual stream: :func:`leave` where the
     rows are whole, else this rank's rows by :func:`leave_to_shards` or, for
-    a region that is not rank-local, :func:`scatter`."""
+    a region that is not rank-local, :func:`scatter`.  A sum (a group of more
+    than one rank) is recorded or replayed inside :func:`saving_sums`."""
     if seq.size == 1:
-        return leave(x, group)
-    return leave_to_shards(x, seq, dim) if group.size > 1 else scatter(x, seq, dim)
+        return x if group.size == 1 else _saved_sum(x, lambda: leave(x, group))
+    if group.size > 1:
+        return _saved_sum(x, lambda: leave_to_shards(x, seq, dim))
+    return scatter(x, seq, dim)
+
+
+class SavedSums:
+    """The sums of one checkpointed block, in the order its forward ran them."""
+
+    def __init__(self):
+        self.values: list = []
+        self.recorded = False  # the forward has run: later runs replay
+        self.next = 0
+
+
+_SAVING = threading.local()
+
+
+@contextlib.contextmanager
+def saving_sums(saved: Optional[SavedSums]):
+    """Run a block recording its sums on ``saved`` (its first run) or
+    replaying them (every later run); ``None`` does nothing."""
+    if saved is None:
+        yield
+        return
+    saved.next = 0
+    prev, _SAVING.current = getattr(_SAVING, "current", None), saved
+    try:
+        yield
+    finally:
+        _SAVING.current = prev
+        saved.recorded = True
+
+
+class _Replay(torch.autograd.Function):
+    """A recorded sum in place of the collective (a recompute's graph is
+    discarded; the backward is the sum's, the identity)."""
+
+    @staticmethod
+    def forward(ctx, x, value):
+        return value.detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _saved_sum(x: torch.Tensor, run) -> torch.Tensor:
+    saved = getattr(_SAVING, "current", None)
+    if saved is None:
+        return run()
+    if saved.recorded:
+        value = saved.values[saved.next]
+        saved.next += 1
+        return _Replay.apply(x, value)
+    out = run()
+    saved.values.append(out.detach())
+    return out

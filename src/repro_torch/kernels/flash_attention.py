@@ -26,8 +26,19 @@ PyTorch (per-split partials and their merge), which the tests hold to the
 reference.  The Pallas ``block_q`` / ``block_k`` / ``interpret`` have no
 counterpart: the kernels' tiles are fixed.
 
+Both entries go through one custom operator, ``torch.ops.repro_torch.attention``
+(:func:`attention_op`), so a dispatch mode sees each kernel call as one op.
+Its fake implementation gives the output's shape, dtype and strides and
+launches nothing (a dry run on ``meta`` or fake tensors traces the model
+through it); its FLOP formula (``torch.utils.flop_counter``) counts it
+dense, as torch's own ``scaled_dot_product_attention`` formula does.  Where
+nothing would see the operator (:func:`unobserved`) the wrapper launches
+the same kernel directly, without the dispatcher's host cost.
+:func:`attention_route` gives the kernel a call takes from its tensors
+alone, ``meta`` and fake ones included.
+
 Training differentiates through :class:`AttentionFunction`: its forward is
-:func:`attention` (one kernel launch on the card) and its backward
+the operator (one kernel launch on the card) and its backward
 :func:`attention_bwd`, the closed form in plain torch over the saved inputs
 and output.  The reference has no backward kernel to port: its model trains
 through the jnp ``flash_attention``, which XLA differentiates.
@@ -40,11 +51,15 @@ import math
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 
-__all__ = ["NEG_INF", "AttentionFunction", "attention", "attention_bwd", "attention_ref",
-           "attention_splitkv_ref", "flash_attention_fwd", "route", "splitkv_plan"]
+__all__ = ["H100_SM_COUNT", "NEG_INF", "AttentionFunction", "attention", "attention_bwd",
+           "attention_flops", "attention_op", "attention_ref", "attention_route",
+           "attention_splitkv_ref", "flash_attention_fwd", "route", "sm_count", "splitkv_plan"]
 
 # kernel launches since import (or since a caller last reset it to 0): all of
 # them, and by kernel
@@ -64,6 +79,11 @@ SPLITKV_MAX_ROWS = 16
 SPLITKV_MIN_KEYS = 16     # slots a split at least
 SPLITKV_MAX_SPLITS = 256  # the merge keeps one weight per split and row in shared memory
 WGMMA_MAX_KEYS = 64 * 32 * 64  # the wgmma kernel's tile-skip bits cover this many keys
+# the SMs of the card the port targets, for a call on meta or fake tensors
+# (no card to ask): 132 on the H100 SXM5 (NVIDIA H100 Tensor Core GPU
+# Architecture whitepaper); chip_smoke.py's phase 20 checks it against
+# torch.cuda.get_device_properties(0).multi_processor_count
+H100_SM_COUNT = 132
 
 
 def attention_ref(
@@ -184,12 +204,24 @@ def splitkv_plan(b: int, kh: int, sk: int, n_sms: int) -> tuple[int, int]:
     return -(-sk // chunk), chunk
 
 
+def _shape_only(t: torch.Tensor) -> bool:
+    """A tensor with no data: a ``meta`` tensor, or a fake one (``FakeTensorMode``)."""
+    return t.device.type == "meta" or is_fake(t)
+
+
+def _address(t: torch.Tensor) -> int:
+    """``t``'s data pointer; for a tensor with no data its byte offset into
+    its storage, a fresh allocation starting on the allocator's (512-byte)
+    boundary."""
+    return t.storage_offset() * t.element_size() if _shape_only(t) else t.data_ptr()
+
+
 def _rows_aligned(*tensors: torch.Tensor) -> bool:
     """Each tensor's data and every (batch, seq, head) step of more than one
     index on 16-byte boundaries, and hd * itemsize a multiple of 16."""
     for t in tensors:
         size = t.element_size()
-        if t.data_ptr() % 16 or (t.shape[-1] * size) % 16:
+        if _address(t) % 16 or (t.shape[-1] * size) % 16:
             return False
         if any(n > 1 and (st * size) % 16 for n, st in zip(t.shape[:3], t.stride()[:3])):
             return False
@@ -206,7 +238,7 @@ def _check(q, k, v, q_positions, kv_positions, window) -> None:
             raise ValueError("q, k and v must share one device and dtype")
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous along head_dim")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"q must lie on the CPU or a CUDA device, got {q.device}")
     b, sq, h, hd = q.shape
     _, sk, kh, _ = k.shape
@@ -242,10 +274,60 @@ def attention(
     cache (Sq == 1, Sk == cache length, ``kv_positions`` -1 where unwritten).
     """
     _check(q, k, v, q_positions, kv_positions, window)
+    if unobserved(q):
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        return _launch(q, k, v, q_positions, kv_positions, out, causal, window, scale)
+    return attention_op(q, k, v, q_positions, kv_positions, causal, window, scale, False)
+
+
+def unobserved(t: torch.Tensor) -> bool:
+    """Whether a call on ``t`` may launch without the dispatcher: a plain CUDA
+    tensor (no subclass: fake, DTensor) and no Python dispatch mode on
+    (``FlopCounterMode``, ``FakeTensorMode``, ``launch/step_stats.StepStats``),
+    so nothing would see the operator.  Dispatching the operator cost 11 to
+    61 µs of host time a call more than the direct launch at decode shapes
+    (``chip_smoke.py`` phase 20, NVIDIA H100 80GB HBM3 at 700.00 W), and
+    decode is host-bound."""
+    return type(t) is torch.Tensor and t.is_cuda and _get_current_dispatch_mode() is None
+
+
+@torch.library.custom_op("repro_torch::attention", mutates_args=())
+def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_positions: torch.Tensor,
+                 kv_positions: torch.Tensor, causal: bool, window: Optional[int],
+                 scale: Optional[float], head_major: bool) -> torch.Tensor:
+    """The kernel call as one operator, on the model layout's (batch, seq,
+    head) views: the output ``(B, Sq, H, hd)``, or ``(B, H, Sq, hd)`` with
+    ``head_major``, contiguous.  On the CPU the plain version; on a CUDA
+    tensor one launch (:func:`attention_route` picks the kernel)."""
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, q_positions, kv_positions, causal, window, scale)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    return _launch(q, k, v, q_positions, kv_positions, out, causal, window, scale)
+        out = attention_ref(q, k, v, q_positions, kv_positions, causal, window, scale)
+        # the strides of a fresh allocation, as on the card (a size-1 dim's too)
+        return (out.transpose(1, 2) if head_major else out).clone(
+            memory_format=torch.contiguous_format)
+    b, sq, h, hd = q.shape
+    out = torch.empty((b, h, sq, hd) if head_major else q.shape, dtype=q.dtype, device=q.device)
+    _launch(q, k, v, q_positions, kv_positions, out.transpose(1, 2) if head_major else out,
+            causal, window, scale)
+    return out
+
+
+@attention_op.register_fake
+def _attention_fake(q, k, v, q_positions, kv_positions, causal, window, scale, head_major):
+    b, sq, h, hd = q.shape
+    return q.new_empty((b, h, sq, hd) if head_major else (b, sq, h, hd))
+
+
+def attention_flops(b: int, sq: int, h: int, sk: int, hd: int) -> int:
+    """The FLOPs of one call counted dense (every query against every key,
+    masked or not): ``Q K^T`` and ``P V``, two products of ``2 b h sq sk hd``,
+    as torch's ``scaled_dot_product_attention`` formula counts them."""
+    return 4 * b * h * sq * sk * hd
+
+
+@register_flop_formula(torch.ops.repro_torch.attention)
+def _attention_flop_formula(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
+    b, sq, h, hd = q_shape
+    return attention_flops(b, sq, h, k_shape[1], hd)
 
 
 def attention_bwd(
@@ -326,11 +408,11 @@ def flash_attention_fwd(
     kpos = torch.arange(sk, dtype=torch.int32, device=dev).expand(b, sk).contiguous()
     qm, km, vm = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     _check(qm, km, vm, qpos, kpos, window)
-    if dev.type == "cpu":
-        return attention_ref(qm, km, vm, qpos, kpos, causal, window, scale).transpose(1, 2)
-    out = torch.empty(q.shape, dtype=q.dtype, device=dev)
-    _launch(qm, km, vm, qpos, kpos, out.transpose(1, 2), causal, window, scale)
-    return out
+    if unobserved(q):
+        out = torch.empty(q.shape, dtype=q.dtype, device=dev)
+        _launch(qm, km, vm, qpos, kpos, out.transpose(1, 2), causal, window, scale)
+        return out
+    return attention_op(qm, km, vm, qpos, kpos, causal, window, scale, True)
 
 
 @functools.cache
@@ -348,6 +430,22 @@ def _lib() -> ctypes.CDLL:
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """The SMs of the card ``t`` lies on; :data:`H100_SM_COUNT` for a tensor
+    with no data (``meta`` or fake: no card to ask)."""
+    return H100_SM_COUNT if _shape_only(t) else _sm_count(t.device.index)
+
+
+def attention_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel :func:`attention_op` launches for these (batch, seq, head)
+    views: :func:`route` of their shapes and alignment (the output is a fresh
+    allocation, aligned wherever ``hd * itemsize`` is a multiple of 16).
+    Needs no card: a ``meta`` or fake tensor's alignment is its offset into
+    its storage."""
+    b, sq, h, hd = q.shape
+    return route(q.dtype, sq, h, k.shape[2], hd, k.shape[1], _rows_aligned(q, k, v))
 
 
 # the split-KV kernel's tickets, one int32 per (b, kv head), by (device, stream):
@@ -377,7 +475,7 @@ def _launch(q, k, v, q_positions, kv_positions, out, causal, window, scale) -> t
     if b > _MAX_GRID_YZ or h > _MAX_GRID_YZ or max(sq, sk) > _INT_MAX:
         raise ValueError("attention kernel takes B, H <= 65535 and sequences < 2**31")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    path = route(q.dtype, sq, h, kh, hd, sk, _rows_aligned(q, k, v, out))
+    path = attention_route(q, k, v)
     dims = (ctypes.c_longlong * 6)(b, sq, sk, h, kh, hd)
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, out) for s in (t.stride(0), t.stride(1), t.stride(2))
@@ -389,7 +487,7 @@ def _launch(q, k, v, q_positions, kv_positions, out, causal, window, scale) -> t
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if path == "splitkv":
-            n_split, chunk = splitkv_plan(b, kh, sk, _sm_count(q.device.index))
+            n_split, chunk = splitkv_plan(b, kh, sk, sm_count(q))
             rows = 8 if sq * (h // kh) <= 8 else SPLITKV_MAX_ROWS
             part = torch.empty(b * kh * n_split * rows * (2 + hd), dtype=torch.float32,
                                device=q.device)

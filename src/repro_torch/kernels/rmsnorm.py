@@ -26,6 +26,15 @@ mean; their plain versions are :func:`row_sumsq_ref` and
 more sum).  On a group of one it is :class:`RMSNormFunction`, one launch.
 :data:`launches` counts every launch of the source; :data:`sumsq_launches`
 and :data:`scaled_launches` the split row's two kernels apart.
+
+Each of the three entries is one custom operator (``torch.ops.repro_torch.
+rms_norm``, ``row_sumsq``, ``rms_norm_scaled``): on the CPU its plain
+version, on a CUDA tensor one launch; its fake implementation gives the
+output's shape, dtype and strides and launches nothing, so a dry run on
+``meta`` or fake tensors traces the model through it.  Where nothing would
+see the operator (``flash_attention.unobserved``: a plain CUDA tensor, no
+dispatch mode) the wrapper launches directly, without the dispatcher's
+host cost.
 """
 from __future__ import annotations
 
@@ -35,10 +44,11 @@ import functools
 import torch
 
 from . import _build
+from .flash_attention import unobserved
 
 __all__ = ["RMSNormFunction", "RMSNormSplitFunction", "rms_norm_bwd", "rms_norm_fused",
-           "rms_norm_ref", "rms_norm_scaled", "rms_norm_split", "rms_norm_split_ref",
-           "row_sumsq", "row_sumsq_ref"]
+           "rms_norm_op", "rms_norm_ref", "rms_norm_scaled", "rms_norm_scaled_op",
+           "rms_norm_split", "rms_norm_split_ref", "row_sumsq", "row_sumsq_op", "row_sumsq_ref"]
 
 # kernel launches since import (or since a caller last reset them to 0): every
 # launch of csrc/rmsnorm.cu, and the split row's two kernels apart
@@ -87,7 +97,7 @@ def _check(x: torch.Tensor, weight: torch.Tensor | None = None) -> None:
             continue
         if t.dtype not in _DTYPE_CODES:
             raise ValueError(f"{name} must be float32 or bfloat16, got {t.dtype}")
-        if t.device.type not in ("cpu", "cuda"):
+        if t.device.type not in ("cpu", "cuda", "meta"):
             raise ValueError(f"{name} must lie on the CPU or a CUDA device, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -108,9 +118,9 @@ def rms_norm_fused(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
     contiguous, on one device.
     """
     _check(x, weight)
-    if x.device.type == "cpu":
-        return rms_norm_ref(x, weight, eps, plus_one)
-    return _launch(x, weight, float(eps), bool(plus_one))
+    if unobserved(x):
+        return _launch(x, weight, float(eps), bool(plus_one))
+    return rms_norm_op(x, weight, float(eps), bool(plus_one))
 
 
 def row_sumsq(x: torch.Tensor) -> torch.Tensor:
@@ -118,9 +128,9 @@ def row_sumsq(x: torch.Tensor) -> torch.Tensor:
     float32 or bfloat16 ``x (..., d)``: the kernel ``rmsnorm_sumsq`` on a
     CUDA tensor, :func:`row_sumsq_ref` on the CPU."""
     _check(x)
-    if x.device.type == "cpu":
-        return row_sumsq_ref(x)
-    return _launch_sumsq(x)
+    if unobserved(x):
+        return _launch_sumsq(x)
+    return row_sumsq_op(x)
 
 
 def rms_norm_scaled(x: torch.Tensor, weight: torch.Tensor, total: torch.Tensor, width: int,
@@ -134,9 +144,51 @@ def rms_norm_scaled(x: torch.Tensor, weight: torch.Tensor, total: torch.Tensor, 
                          f"{total.dtype} {tuple(total.shape)} on {total.device}")
     if width < x.shape[-1]:
         raise ValueError(f"the whole row ({width}) is narrower than its columns ({x.shape[-1]})")
+    if unobserved(x):
+        return _launch(x, weight, float(eps), bool(plus_one), total.contiguous(), int(width))
+    return rms_norm_scaled_op(x, weight, total.contiguous(), int(width), float(eps),
+                              bool(plus_one))
+
+
+@torch.library.custom_op("repro_torch::rms_norm", mutates_args=())
+def rms_norm_op(x: torch.Tensor, weight: torch.Tensor, eps: float,
+                plus_one: bool) -> torch.Tensor:
+    """:func:`rms_norm_fused` as one operator (its arguments checked)."""
+    if x.device.type == "cpu":
+        return rms_norm_ref(x, weight, eps, plus_one)
+    return _launch(x, weight, eps, plus_one)
+
+
+@rms_norm_op.register_fake
+def _rms_norm_fake(x, weight, eps, plus_one):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("repro_torch::row_sumsq", mutates_args=())
+def row_sumsq_op(x: torch.Tensor) -> torch.Tensor:
+    """:func:`row_sumsq` as one operator (its argument checked)."""
+    if x.device.type == "cpu":
+        return row_sumsq_ref(x)
+    return _launch_sumsq(x)
+
+
+@row_sumsq_op.register_fake
+def _row_sumsq_fake(x):
+    return x.new_empty(x.shape[:-1], dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::rms_norm_scaled", mutates_args=())
+def rms_norm_scaled_op(x: torch.Tensor, weight: torch.Tensor, total: torch.Tensor, width: int,
+                       eps: float, plus_one: bool) -> torch.Tensor:
+    """:func:`rms_norm_scaled` as one operator (its arguments checked)."""
     if x.device.type == "cpu":
         return rms_norm_split_ref(x, weight, total, width, eps, plus_one)
-    return _launch(x, weight, float(eps), bool(plus_one), total.contiguous(), int(width))
+    return _launch(x, weight, eps, plus_one, total, width)
+
+
+@rms_norm_scaled_op.register_fake
+def _rms_norm_scaled_fake(x, weight, total, width, eps, plus_one):
+    return torch.empty_like(x)
 
 
 def rms_norm_split(x: torch.Tensor, weight: torch.Tensor, group, eps: float = 1e-6,

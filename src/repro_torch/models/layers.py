@@ -107,6 +107,7 @@ def apply_mrope(
     sec_ids = torch.repeat_interleave(
         torch.arange(len(sections), device=x.device),
         torch.as_tensor(list(sections), device=x.device),
+        output_size=hd // 2,  # known: no device-to-host read of the repeats
     )  # (hd/2,) in {0,1,2}
     pos_sel = positions.float()[..., sec_ids]  # (B,S,hd/2): position stream per freq slot
     return _rotate(x, pos_sel * inv)

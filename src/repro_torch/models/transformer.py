@@ -58,9 +58,16 @@ Decode (one row) and a sequence the group does not divide run plain TP.
 Training: :func:`train_loss` is the reference's (CE plus the MoE router's
 aux loss).  With ``cfg.remat`` and autograd recording, each block runs
 under ``torch.utils.checkpoint`` (non-reentrant), its weights cast for
-compute inside it, so its backward recomputes it; on one card the
-reference's ``"full"`` and ``"block_outs"`` policies differ only in the
-collectives they skip re-running, so both take this per-block checkpoint.
+compute inside it, so its backward recomputes it.  ``cfg.remat_policy``
+is the reference's: ``"full"`` recomputes the whole block, the two sums
+over the model group included; ``"block_outs"`` keeps the block's two
+post-sum outputs (attention and MLP / MoE, the reference's ``"block_out"``
+names) from the forward, and the recompute uses them and runs no sum over
+the model group (``tensor_parallel.saving_sums``).  The values, and so the
+gradients, are the same bitwise.  The recompute still forms the two partial
+products those sums took (their inputs are saved tensors of the backward),
+which the reference's compiler drops.  The batch group's MoE statistics and
+sequence parallelism's all-gathers into a region run again in either case.
 """
 from __future__ import annotations
 
@@ -74,6 +81,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
+from ..distributed import axes
 from ..distributed import tensor_parallel as tp
 from .common import Params, cast_for_compute, cross_entropy_loss, dense_init
 from .layers import (
@@ -549,12 +557,23 @@ def _whole_vocab(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
     return tp.gather(logits, _vocab_group(cfg), -1)
 
 
-def remat_layer(fn, *args):
+def remat_layer(fn, *args, save_block_outs: bool = False):
     """``fn(*args)``, under a non-reentrant ``torch.utils.checkpoint`` while
-    autograd records (the forward holds no state a recompute could miss)."""
-    if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
-    return fn(*args)
+    autograd records (the forward holds no state a recompute could miss).
+    The recompute runs under the forward's ``logical_axes`` context, on
+    whichever thread autograd runs it.  With ``save_block_outs`` the block's
+    sums over the model group are kept from the forward and the recompute
+    runs none (``remat_policy="block_outs"``)."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    ctx = axes.current()
+    saved = tp.SavedSums() if save_block_outs else None
+
+    def block(*a):
+        with axes.entered(ctx), tp.saving_sums(saved):
+            return fn(*a)
+
+    return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def _block_fn(layer_p, cfg: ArchConfig, layout: HeadLayout, x, positions, mrope_positions,
@@ -582,11 +601,12 @@ def forward(
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device).repeat(b, 1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    block_outs = cfg.remat_policy == "block_outs"
     for i, layer_p in enumerate(params["layers"]):
         args = (layer_p, cfg, layout, x, positions, mrope_positions,
                 None if cache is None else cache[i], seq)
-        x, a = remat_layer(_block_fn, *args) if cfg.remat and cache is None \
-            else _block_fn(*args)
+        x, a = remat_layer(_block_fn, *args, save_block_outs=block_outs) \
+            if cfg.remat and cache is None else _block_fn(*args)
         aux = aux + a
     logits = _unembed(params, cfg, x, seq)
     return logits, cache, aux

@@ -209,11 +209,13 @@ class _BatchAxes(tp.MeshGroup):
     shards (``rank``), their count (``size``) and this rank's rows."""
 
     def rows(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's rows of a global-batch tensor (dim 0)."""
-        if x.shape[0] % self.size:
-            raise ValueError(f"a batch of {x.shape[0]} rows does not divide over "
-                             f"{self.size} batch shards")
-        return x[self.part(x.shape[0])]
+        """This rank's rows of a global-batch tensor (dim 0), or every row
+        where they do not divide over the batch shards (a microbatch of fewer
+        rows than shards): the rules' replication of a dim the axes do not
+        divide.  The step's global normalisation holds either way: the CE
+        weight is then one over the shards, and the MoE aux loss's batch
+        means divide by the rows times the shards."""
+        return x if x.shape[0] % self.size else x[self.part(x.shape[0])]
 
 
 def model_axes(model: Model, axes: sharding.MeshAxes) -> tuple:

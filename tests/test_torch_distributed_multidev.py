@@ -56,8 +56,8 @@ B, S = 8, 16
 S_PRE, S_MAX = 12, 16
 EPS = 1e-8
 CASES8 = ("rows", "step42", "rdp222", "micro", "ragged", "allreduce", "ckpt_save",
-          "seqdecode", "ringdecode", "tpdp", "tptree")
-CASES4 = ("ckpt_restore", "moe22")
+          "seqdecode", "ringdecode", "tpdp", "tptree", "fewrows")
+CASES4 = ("ckpt_restore", "moe22", "moe_fewrows")
 ROW_SPECS = {
     ("pod", "data", "model"): {"batch": (("pod", "data"),), "model": (None, "model"),
                                "both": (("pod", "data"), "model"), "data": ("data",),
@@ -301,6 +301,30 @@ def test_microbatched_step_matches_full_batch(ref, ranks):
     loss, plain = _plain_step(ref["params"], ref["np_batch"], microbatches=4)
     assert abs(float(got["loss"]) - loss) < 1e-5
     _hold_state(got["state"], plain, 1e-5)
+
+
+def test_microbatch_fewer_rows_than_batch_shards_matches_plain(ref, ranks):
+    """Microbatches of 2 rows over 8 batch shards: every rank computes each
+    chunk whole, weighted by 1 / 8 (the rules' replication of a dim the
+    axes do not divide), and the step is the plain microbatched step's."""
+    outs = ok(ranks["fewrows"])
+    _same_on_every_rank(outs, "loss")
+    got = outs[0]
+    loss, plain = _plain_step(ref["params"], ref["np_batch"], microbatches=4)
+    assert abs(float(got["loss"]) - loss) < 1e-5
+    _hold_state(got["state"], plain, 1e-5)
+
+
+def test_moe_microbatch_fewer_rows_than_batch_shards_matches_plain(ranks):
+    """The MoE step on (4, 1) in one-row microbatches: the aux loss's
+    gradient, a statistic of the whole chunk on every rank, enters once."""
+    outs = ok(ranks["moe_fewrows"])
+    got = outs[0]
+    for key in ("loss", "moe_aux", "loss_total"):
+        _same_on_every_rank(outs, key)
+        assert abs(float(got[key]) - float(got["want"][key])) < 1e-5, key
+    assert float(got["want"]["moe_aux"]) > 0
+    _hold_state(got["state"], got["plain"], 1e-5)
 
 
 def test_ragged_loss_mask_matches_single_device(ref, ranks):

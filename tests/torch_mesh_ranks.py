@@ -37,7 +37,7 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.optim import AdamW, OptState  # noqa: E402
 from repro_torch.runtime.serve import jit_prefill, jit_serve_step  # noqa: E402
 from repro_torch.runtime.train import (  # noqa: E402
-    TrainState, jit_init_state, jit_train_step, shard_state)
+    TrainState, jit_init_state, jit_train_step, make_train_step, shard_state)
 from torch.distributed.tensor import DTensor  # noqa: E402
 
 B, S = 8, 16
@@ -186,6 +186,35 @@ def case_moe22(inp):
     new, metrics, _ = _step(inp, (2, 2), ("data", "model"), model=model, params_key="moe_params")
     return {**{k: metrics[k] for k in ("loss", "moe_aux", "grad_norm", "loss_total")},
             "state": full_state(new)}
+
+
+def case_fewrows(inp):
+    """Microbatches of 2 rows over 8 batch shards: each rank computes every
+    chunk whole (the rules' replication of a dim the axes do not divide)."""
+    new, metrics, _ = _step(inp, (8, 1), ("data", "model"), microbatches=4)
+    return {"loss": metrics["loss"], "state": full_state(new)}
+
+
+def case_moe_fewrows(inp):
+    """The MoE step on (4, 1) in microbatches of one row (fewer than the
+    batch shards), and the single-process step on the same inputs."""
+    model, opt = build_model(moe_cfg()), optimizer()
+    new, metrics, _ = _step(inp, (4, 1), ("data", "model"), model=model,
+                            params_key="moe_params", microbatches=B)
+    plain, want = make_train_step(model, opt, microbatches=B)(
+        plain_state(model, opt, inp["moe_params"]), dict(inp["moe_batch"]))
+    return {**{k: metrics[k] for k in ("loss", "moe_aux", "loss_total")},
+            "want": {k: want[k] for k in ("loss", "moe_aux", "loss_total")},
+            "state": full_state(new), "plain": local_state_of(plain)}
+
+
+def local_state_of(state: TrainState) -> dict:
+    """A single-process state's leaves by ``full_state``'s keys."""
+    out = {"step": state.step, "count": state.opt_state.count}
+    out.update({f"params.{k}": p.detach() for k, p in state.params.leaves().items()})
+    for name in ("m", "v"):
+        out.update({f"{name}.{k}": t for k, t in getattr(state.opt_state, name).items()})
+    return out
 
 
 def case_micro(inp):
