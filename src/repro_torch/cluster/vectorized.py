@@ -47,6 +47,7 @@ from .._device import resolve_device, resolve_dtype
 from ..core.service_time import ServiceTime
 from ..core.simulator import gang_cover_times
 from ..kernels.cover import frontier_sample_cover
+from ..spans import span
 
 __all__ = [
     "frontier_job_times",
@@ -101,12 +102,13 @@ def frontier_job_times(
         n_tasks = n_workers
     scales = (n_tasks / bs) if size_dependent else np.ones(len(bs))
     chunk = n_reps if rep_chunk is None else int(rep_chunk)
-    parts = [
-        frontier_sample_cover(
+    parts = []
+    for lo in range(0, n_reps, max(chunk, 1)):
+        part = frontier_sample_cover(
             dist, bs, rs, scales, min(lo + chunk, n_reps) - lo, seed, rep0=lo, dtype=dt, device=dev
-        ).cpu().numpy()
-        for lo in range(0, n_reps, max(chunk, 1))
-    ]
+        )
+        with span("cover.readback"):
+            parts.append(part.cpu().numpy())
     if not parts:
         return np.empty((len(bs), 0), dtype=np.float32 if dt == torch.float32 else np.float64)
     return np.concatenate(parts, axis=1)

@@ -34,6 +34,7 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
+from ..spans import span
 from . import analysis
 from .service_time import (
     Empirical,
@@ -307,75 +308,78 @@ class RedundancyPlanner:
         """
         from ..cluster.scenario import resolve_scenario
 
-        sc = resolve_scenario(
-            scenario,
-            {
-                k: v
-                for k, v in {
-                    "cancel_redundant": cancel_redundant,
-                    "size_dependent": size_dependent,
-                    "speeds": speeds,
-                    "churn": churn,
-                    "churn_schedule": churn_schedule,
-                    "churn_pairs_per_worker": churn_pairs_per_worker,
-                    "replan": replan,
-                    "speculation": speculation,
-                    "scheduler": scheduler,
-                    "workers_per_job": workers_per_job,
-                    "job_plans": job_plans,
-                    "jobs_per_stream": jobs_per_stream,
-                    "dtype": dtype,
-                    "rep_chunk": rep_chunk,
-                    "devices": devices,
-                }.items()
-                if v is not _UNSET
-            },
-            where="plan_cluster",
-        )
-        dist = dist if dist is not None else sc.dist
-        if dist is None:
-            raise ValueError("plan_cluster needs dist (positionally or via scenario.dist)")
-        if backend not in ("torch", "python"):
-            raise ValueError(f"unknown backend {backend!r} (expected 'torch' or 'python')")
-        if backend == "python" and device is not None:
-            raise ValueError("backend='python' runs the engine on the host and takes no device")
-        sc.validate(n_workers=self.n_workers, backend=backend)
-        if backend == "python":
-            from ..cluster.master import sample_job_times
-
-            rows = [
-                sample_job_times(dist, self.n_workers, b, n_reps, seed=seed + i, scenario=sc,
-                                 backend="python")
-                for i, b in enumerate(self.candidates)
-            ]
-        elif sc.is_dynamic or sc.is_space:
-            from ..cluster.epoch_scan import frontier_job_times_dynamic
-
-            rows = frontier_job_times_dynamic(
-                dist, self.n_workers, self.candidates, n_reps, seed=seed, scenario=sc,
-                device=device,
+        with span("plan.scenario"):
+            sc = resolve_scenario(
+                scenario,
+                {
+                    k: v
+                    for k, v in {
+                        "cancel_redundant": cancel_redundant,
+                        "size_dependent": size_dependent,
+                        "speeds": speeds,
+                        "churn": churn,
+                        "churn_schedule": churn_schedule,
+                        "churn_pairs_per_worker": churn_pairs_per_worker,
+                        "replan": replan,
+                        "speculation": speculation,
+                        "scheduler": scheduler,
+                        "workers_per_job": workers_per_job,
+                        "job_plans": job_plans,
+                        "jobs_per_stream": jobs_per_stream,
+                        "dtype": dtype,
+                        "rep_chunk": rep_chunk,
+                        "devices": devices,
+                    }.items()
+                    if v is not _UNSET
+                },
+                where="plan_cluster",
             )
-        else:
-            if sc.dtype != "float32" or sc.devices != 1:
-                raise ValueError(
-                    "Scenario.dtype/devices apply to dynamic scenarios (the epoch scan); "
-                    "the static frontier path supports rep_chunk only"
+            dist = dist if dist is not None else sc.dist
+            if dist is None:
+                raise ValueError("plan_cluster needs dist (positionally or via scenario.dist)")
+            if backend not in ("torch", "python"):
+                raise ValueError(f"unknown backend {backend!r} (expected 'torch' or 'python')")
+            if backend == "python" and device is not None:
+                raise ValueError("backend='python' runs the engine on the host and takes no device")
+            sc.validate(n_workers=self.n_workers, backend=backend)
+        with span("plan.frontier"):
+            if backend == "python":
+                from ..cluster.master import sample_job_times
+
+                rows = [
+                    sample_job_times(dist, self.n_workers, b, n_reps, seed=seed + i, scenario=sc,
+                                     backend="python")
+                    for i, b in enumerate(self.candidates)
+                ]
+            elif sc.is_dynamic or sc.is_space:
+                from ..cluster.epoch_scan import frontier_job_times_dynamic
+
+                rows = frontier_job_times_dynamic(
+                    dist, self.n_workers, self.candidates, n_reps, seed=seed, scenario=sc,
+                    device=device,
                 )
-            from ..cluster.vectorized import frontier_job_times
+            else:
+                if sc.dtype != "float32" or sc.devices != 1:
+                    raise ValueError(
+                        "Scenario.dtype/devices apply to dynamic scenarios (the epoch scan); "
+                        "the static frontier path supports rep_chunk only"
+                    )
+                from ..cluster.vectorized import frontier_job_times
 
-            rows = frontier_job_times(
-                dist,
-                self.n_workers,
-                self.candidates,
-                n_reps,
-                seed=seed,
-                size_dependent=sc.size_dependent,
-                rep_chunk=sc.rep_chunk,
-                device=device,
-            )
-        means, covs = _frontier_stats(rows)
-        b = self._select(means, covs, objective, blend)
-        return self._mk_plan(b, means, covs, objective, f"cluster_engine:{backend}")
+                rows = frontier_job_times(
+                    dist,
+                    self.n_workers,
+                    self.candidates,
+                    n_reps,
+                    seed=seed,
+                    size_dependent=sc.size_dependent,
+                    rep_chunk=sc.rep_chunk,
+                    device=device,
+                )
+        with span("plan.select"):
+            means, covs = _frontier_stats(rows)
+            b = self._select(means, covs, objective, blend)
+            return self._mk_plan(b, means, covs, objective, f"cluster_engine:{backend}")
 
     # -- tail-SLO path (cheapest candidate meeting a response target) --------
 

@@ -31,6 +31,7 @@ import functools
 import torch
 
 from .._device import DTYPES, resolve_device, resolve_dtype, time_on_card
+from ..spans import span
 from . import _build, philox
 
 __all__ = [
@@ -194,21 +195,22 @@ def frontier_sample_cover(dist, bs, rs, scales, n_reps: int, seed: int, rep0: in
         raise ValueError(f"device must be the CPU or a CUDA device, got {dev}")
     code, consts, table = law
     n_cand = len(bs)
-    scale = _scales(scales, n_cand, dt, dev)
     out = torch.empty((n_cand, n_reps), dtype=dt, device=dev)
+    with span("cover.upload"):
+        scale = _scales(scales, n_cand, dt, dev)
+        geom = torch.tensor([[b, r, r] for b, r in zip(bs, rs)], dtype=torch.int32).to(dev)
+        consts_t = torch.tensor(consts, dtype=dt).to(dev)
+        tab = None if table is None else torch.as_tensor(table, dtype=dt).to(dev)
     if out.numel() == 0:
         return out
     if n_cand > _MAX_GRID_Y or n_reps > _INT_MAX:
         raise ValueError(f"the sample-and-cover kernel takes at most {_MAX_GRID_Y} candidates "
                          "of < 2**31 reps")
-    geom = torch.tensor([[b, r, r] for b, r in zip(bs, rs)], dtype=torch.int32).to(dev)
-    consts_t = torch.tensor(consts, dtype=dt).to(dev)
-    tab = None if table is None else torch.as_tensor(table, dtype=dt).to(dev)
     if tab is not None and not 0 < tab.numel() <= _INT_MAX:
         raise ValueError("an empirical table needs 1 to 2**31 - 1 entries")
     k0, k1 = philox.key_of(seed)
     fn = _sample_entry(dt)
-    with torch.cuda.device(dev):
+    with span("cover.launch"), torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             code, geom.data_ptr(), scale.data_ptr(), consts_t.data_ptr(),

@@ -55,6 +55,7 @@ from torch._subclasses.fake_tensor import is_fake
 from torch.utils._python_dispatch import _get_current_dispatch_mode
 from torch.utils.flop_counter import register_flop_formula
 
+from ..spans import span
 from . import _build
 
 __all__ = ["H100_SM_COUNT", "NEG_INF", "AttentionFunction", "attention", "attention_bwd",
@@ -384,8 +385,9 @@ class AttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, q_positions, kv_positions = ctx.saved_tensors
-        dq, dk, dv = attention_bwd(do, q, k, v, out, q_positions, kv_positions, ctx.causal,
-                                   ctx.window, ctx.scale)
+        with span("attention.backward"):
+            dq, dk, dv = attention_bwd(do, q, k, v, out, q_positions, kv_positions, ctx.causal,
+                                       ctx.window, ctx.scale)
         return dq, dk, dv, None, None, None, None, None
 
 

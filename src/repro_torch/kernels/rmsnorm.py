@@ -43,6 +43,7 @@ import functools
 
 import torch
 
+from ..spans import span
 from . import _build
 from .flash_attention import unobserved
 
@@ -236,7 +237,8 @@ class RMSNormFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, weight = ctx.saved_tensors
-        dx, dw = rms_norm_bwd(g, x, weight, ctx.eps, ctx.plus_one)
+        with span("rmsnorm.backward"):
+            dx, dw = rms_norm_bwd(g, x, weight, ctx.eps, ctx.plus_one)
         return dx, dw, None, None
 
 

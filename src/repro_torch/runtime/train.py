@@ -49,6 +49,7 @@ from ..distributed import tensor_parallel as tp
 from ..distributed.axes import logical_axes
 from ..models import Model
 from ..optim import AdamW, OptState, apply_updates, global_norm
+from ..spans import span
 
 __all__ = ["TP_FAMILIES", "TrainState", "default_microbatches", "init_state", "jit_init_state",
            "jit_train_step", "make_train_step", "model_axes", "param_shapes", "shard_state",
@@ -75,10 +76,12 @@ def _value_and_grad(model: Model, params, batch):
     """``(loss, metrics, grads)``, the grads by leaf path; a leaf the forward
     never reads gets zeros, as under ``jax.grad``."""
     leaves = params.leaves()
-    loss, metrics = model.train_loss(params, batch)
-    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-    grads = {k: torch.zeros_like(p) if g is None else g
-             for (k, p), g in zip(leaves.items(), grads)}
+    with span("train.forward"):
+        loss, metrics = model.train_loss(params, batch)
+    with span("train.backward"):
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(leaves.items(), grads)}
     return loss.detach(), {k: m.detach() for k, m in metrics.items()}, grads
 
 
@@ -119,11 +122,12 @@ def make_train_step(model: Model, optimizer: AdamW, microbatches: int = 1) -> Ca
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         loss, metrics, grads = _accumulate(
             lambda chunk: _value_and_grad(model, state.params, chunk), batch, microbatches)
-        updates, opt_state, opt_metrics = optimizer.update(
-            grads, state.opt_state, state.params
-        )
-        del grads  # freed before the next parameters are made: a copy of the model less at peak
-        params = apply_updates(state.params, updates)
+        with span("train.optimizer"):
+            updates, opt_state, opt_metrics = optimizer.update(
+                grads, state.opt_state, state.params
+            )
+            del grads  # freed before the next parameters are made: a copy of the model less at peak
+            params = apply_updates(state.params, updates)
         metrics = {**metrics, **opt_metrics, "loss_total": loss}
         return TrainState(state.step + 1, params, opt_state), metrics
 
