@@ -381,6 +381,10 @@ ZOO_F32_DEPTH = {"qwen3-moe-235b-a22b": 2, "qwen2-vl-7b": 2, "recurrentgemma-2b"
 # training shapes
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARM = "qwen2-1.5b", 8, 128, 20, 2
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_WINDOW = 2, 2, 32
+# the training cells' attention (perfbench/configs/qwen2-1.5b.json, one step's
+# batch x seq): the backward kernels held and timed at each
+BWD_CELLS = (("train.qwen2-1.5b.seq4k", 4, 4096), ("train.qwen2-1.5b.seq512", 32, 512))
+BWD_CELL_HEADS = (12, 2, 128)  # query heads, kv heads, head dim
 RESTART_STEPS, RESTART_AT = 6, 3
 # the mesh train step: timed steps after TRAIN_WARM warm-up ones, mesh and plain
 MESH_TIMED_STEPS = 5
@@ -2768,7 +2772,7 @@ def _reset_counts() -> None:
     rmsnorm.sumsq_launches = rmsnorm.scaled_launches = 0
     cover.draws_launches = cover.philox_launches = 0
     flash_attention.splitkv_launches = flash_attention.wgmma_launches = 0
-    flash_attention.simt_launches = 0
+    flash_attention.simt_launches = flash_attention.bwd_launches = 0
 
 
 def _counts() -> dict:
@@ -2777,6 +2781,7 @@ def _counts() -> dict:
     return {"rmsnorm": rmsnorm.launches, "flash_attention": flash_attention.launches,
             "masked_cover": cover.launches, "splitkv": flash_attention.splitkv_launches,
             "wgmma": flash_attention.wgmma_launches, "simt": flash_attention.simt_launches,
+            "bwd": flash_attention.bwd_launches,  # backward calls, three kernels each
             "draws": cover.draws_launches, "philox": cover.philox_launches}
 
 
@@ -2862,7 +2867,7 @@ def phase_model_zoo() -> dict:
         forwards = ZOO_REQUESTS * (1 + ZOO_GEN)
         want = {"rmsnorm": rms_f * forwards, "flash_attention": att_f * forwards,
                 "masked_cover": 2, "splitkv": att_f * ZOO_REQUESTS * ZOO_GEN,
-                "wgmma": att_f * ZOO_REQUESTS, "simt": 0, "draws": 2, "philox": 0}
+                "wgmma": att_f * ZOO_REQUESTS, "simt": 0, "bwd": 0, "draws": 2, "philox": 0}
         cut = f"{depth} of {_zoo_config(arch).n_layers} layers" if depth else \
             f"{cfg.n_layers} layers"
         print(f"-- {arch} ({cut}, d_model {cfg.d_model}): {rms_f} RMSNorm and {att_f} attention "
@@ -3083,6 +3088,8 @@ def _kernel_class(name: str) -> str:
     """A device kernel's class in the training profile, by its name."""
     if "rmsnorm_kernel" in name:
         return "RMSNorm kernel"
+    if "flash_bwd::" in name:
+        return "attention backward kernels"
     if any(k in name for k in ("wgmma_kernel", "simt_kernel", "splitkv_kernel")):
         return "attention kernel"
     if any(k in name.lower() for k in ("gemm", "nvjet", "xmma", "cutlass")):
@@ -3104,7 +3111,8 @@ def phase_train_kernels() -> dict:
     """The kernels' autograd Functions at the training path's shapes: forward
     against the plain version (TOL, ROW_RTOL), gradients against autograd
     through the plain version on the card, the kernel each call ran, and the
-    forward kernel's and the plain-torch backward's device times."""
+    forward kernel's, the backward kernels' (bf16 on wgmma) and the
+    plain-torch backward's device times."""
     import torch
     import torch.nn.functional as F
     from test_torch_train_cuda import GRAD_RTOL, relative_error
@@ -3192,7 +3200,7 @@ def phase_train_kernels() -> dict:
         g = _randn(torch, (b, s, h, hd), dtype, SEED + 6)
         what = f"attention {name} {label}"
         before = (flash.splitkv_launches, flash.wgmma_launches, flash.simt_launches)
-        n_before = flash.launches
+        n_before, bwd_before = flash.launches, flash.bwd_launches
         out = flash.AttentionFunction.apply(q, k, v, pos, pos, causal, window, None)
         path = _attention_path(flash, before)
         check(flash.launches == n_before + 1 and path == want_path,
@@ -3204,6 +3212,9 @@ def phase_train_kernels() -> dict:
         check(close_by_row(out.detach(), want.detach(), name)[0],
               f"{what}: forward beyond ROW_RTOL")
         got_g = torch.autograd.grad(out, (q, k, v), g)
+        kernels = path == "wgmma"  # its forward wrote lse: the backward kernels took it
+        check(flash.bwd_launches == bwd_before + kernels,
+              f"{what}: {flash.bwd_launches - bwd_before} backward kernel calls, not {kernels:d}")
         want_g = torch.autograd.grad(want, (q, k, v), g)
         rels = []
         for gname, a, r in zip(("dq", "dk", "dv"), got_g, want_g):
@@ -3219,6 +3230,11 @@ def phase_train_kernels() -> dict:
             lambda: flash.attention_ref(qd, kd, vd, pos, pos, causal, window), iters=20)
         bwd = device_ms_per_call(lambda: flash.attention_bwd(g, qd, kd, vd, od, pos, pos, causal,
                                                              window), iters=20)
+        bwd_kernels = None
+        if kernels:
+            _, lse = flash.attention_with_lse(qd, kd, vd, pos, pos, causal, window)
+            bwd_kernels = device_ms_per_call(lambda: flash.attention_backward(
+                g, qd, kd, vd, od, lse, pos, pos, causal, window), iters=20)
         plain_bwd = device_ms_per_call(lambda: torch.autograd.grad(
             flash.attention_ref(q, k, v, pos, pos, causal, window), (q, k, v), g), iters=20)
         f_bnd, f_by = _attention_bound(torch, qd, kd, pos, pos, causal, window)
@@ -3235,22 +3251,85 @@ def phase_train_kernels() -> dict:
         print(f"{what} on {path}: gradients within bound ({', '.join(rels)}); forward kernel "
               f"{fwd:.5f} ms ({cold:.5f} ms with L2 flushed; plain {plain:.5f}{lib_s}; bound "
               f"{f_bnd:.5f} ms, {f_by}); "
-              f"backward attention_bwd {bwd:.5f} ms (plain version's forward + autograd "
+              f"backward kernels "
+              f"{'not taken' if bwd_kernels is None else f'{bwd_kernels:.5f} ms'}, closed form "
+              f"attention_bwd {bwd:.5f} ms (plain version's forward + autograd "
               f"{plain_bwd:.5f}; bound {b_bnd:.5f} ms, {b_by})  [{CARD}]", flush=True)
         if label == "causal" and dtype == torch.bfloat16:
             rec["flash_attention"] = {
                 "shape": [b, s, h, hd], "kv_heads": kh, "ms": fwd, "cold_ms": cold,
                 "plain_ms": plain,
                 "bound_ms": f_bnd, "bound_by": f_by, "library_ms": lib,
-                "backward": {"ms": bwd, "plain_ms": plain_bwd, "bound_ms": b_bnd,
-                             "bound_by": b_by}}
+                "backward": {"ms": bwd_kernels, "closed_form_ms": bwd, "plain_ms": plain_bwd,
+                             "bound_ms": b_bnd, "bound_by": b_by}}
         del q, k, v, g, out, want, got_g, want_g
+    _free()
+    rec["flash_attention"]["backward"]["cells"] = _attention_backward_cells(GRAD_RTOL,
+                                                                            relative_error)
     for key, rel in sorted(worst.items()):
         print(f"{' '.join(key)}: largest gradient error {rel:.3e} of its max")
     for key in rec:
         rec[key]["max_abs_err"] = max_err[key]
     _free()
     return rec
+
+
+def _attention_backward_cells(grad_rtol: dict, relative_error) -> dict:
+    """The attention backward at the training cells' shapes (``BENCHMARK.json``:
+    qwen2-1.5b, 12 query heads over 2, hd 128, causal): the kernels against the
+    closed form :func:`attention_bwd` on the same bf16 inputs and the forward's
+    ``lse`` within GRAD_RTOL, bitwise on a second call, then the kernels', the
+    closed form's and the bound's times a layer."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as flash
+
+    bf16, (h, kh, hd) = torch.bfloat16, BWD_CELL_HEADS
+    out_rec: dict = {}
+    for cell, b, s in BWD_CELLS:
+        q, k, v, g = (_randn(torch, (b, s, n, hd), bf16, SEED + 20 + i)
+                      for i, n in enumerate((h, kh, kh, h)))
+        pos = torch.arange(s, dtype=torch.int32, device="cuda").expand(b, s).contiguous()
+        args = (q, k, v)
+        out, lse = flash.attention_with_lse(*args, pos, pos, True, None)
+        what = f"attention backward at {cell}'s shape ({b}, {s}, {h} over {kh}, {hd}), causal"
+        check(flash.backward_route(*args, lse) == "kernels", f"{what}: the kernels do not take it")
+        n0 = flash.bwd_launches
+        got = flash.attention_backward(g, *args, out, lse, pos, pos, True, None)
+        again = flash.attention_backward(g, *args, out, lse, pos, pos, True, None)
+        torch.cuda.synchronize()
+        check(flash.bwd_launches == n0 + 2, f"{what}: {flash.bwd_launches - n0} calls, not 2")
+        bitwise = all(torch.equal(a, c) for a, c in zip(got, again))
+        del again
+        want = flash.attention_bwd(g, *args, out, pos, pos, True, None)
+        rels = {n: relative_error(a, r) for n, a, r in zip(("dq", "dk", "dv"), got, want)}
+        del got, want
+        _free()
+        check(bitwise, f"{what}: a second call is not bitwise the first")
+        check(all(r <= grad_rtol[bf16] for r in rels.values()),
+              f"{what}: {rels} of each tensor's max from the closed form's, beyond "
+              f"{grad_rtol[bf16]:.3e}")
+        # the operations bound: S again, dV, dP, dQ, dK per visible pair and
+        # query head (10 hd flops), at the bf16 tensor-core rate
+        pairs = _visible_pairs(torch, pos, pos, True, None)
+        n_bytes = 4 * q.numel() * q.element_size() + 4 * k.numel() * k.element_size() \
+            + 8 * pos.numel()
+        bnd, by = bound_ms(n_bytes, 10.0 * hd * h * pairs, CARD_BF16_FLOP_PER_S)
+        ms = device_ms_per_call(lambda: flash.attention_backward(
+            g, *args, out, lse, pos, pos, True, None), iters=20, floor_ms=bnd)
+        closed = device_ms_per_call(lambda: flash.attention_bwd(
+            g, *args, out, pos, pos, True, None), iters=5, floor_ms=bnd)
+        print(f"{what}: dq, dk, dv within {grad_rtol[bf16]:.3e} of the closed form's max "
+              f"({', '.join(f'{n} {r:.3e}' for n, r in rels.items())}), bitwise on a second "
+              f"call; backward kernels {ms:.5f} ms, closed form attention_bwd {closed:.5f} ms "
+              f"({closed / ms:.2f}x), bound {bnd:.5f} ms ({by}; kernels at {bnd / ms:.1%} of "
+              f"it)  [{CARD}]", flush=True)
+        out_rec[cell] = {"shape": [b, s, h, hd], "kv_heads": kh, "causal": True, "ms": ms,
+                         "closed_form_ms": closed, "bound_ms": bnd, "bound_by": by,
+                         "grad_rel": rels, "bitwise": bitwise}
+        del q, k, v, g, out, lse, args
+        _free()
+    return out_rec
 
 
 def phase_train_full() -> dict:
@@ -3290,17 +3369,22 @@ def phase_train_full() -> dict:
     for line in ("[plan]", "[model]", "[done]", "[report]"):
         check(line in out, f"no {line} line from launch.train")
     # per step: 2 per layer + the final norm in the forward, 2 per layer again
-    # in the backward's recompute of each checkpointed block; attention 1 + 1
-    per_step = {"rmsnorm": 2 * layers + 1 + 2 * layers, "flash_attention": 2 * layers}
+    # in the backward's recompute of each checkpointed block; attention 1 + 1;
+    # the attention backward kernels once a layer
+    per_step = {"rmsnorm": 2 * layers + 1 + 2 * layers, "flash_attention": 2 * layers,
+                "bwd": layers}
     want = {k: TRAIN_STEPS * n for k, n in per_step.items()}
     got = {k: counts[k] for k in want}
     print(f"launch.train.train in {wall:.3f} s (weights made included); launches {got}, "
           f"expected {want} ({per_step} a step: {layers} layers x (forward + remat "
-          f"recompute), the final norm once); attention by kernel wgmma {counts['wgmma']}, "
-          f"CUDA-core {counts['simt']}, split-KV {counts['splitkv']}")
+          f"recompute), the final norm once, the backward kernels once a layer); attention by "
+          f"kernel wgmma {counts['wgmma']}, CUDA-core {counts['simt']}, split-KV "
+          f"{counts['splitkv']}; backward kernel calls {counts['bwd']}")
     check(got == want, f"training launches {got}, expected {want}")
     check(counts["wgmma"] == want["flash_attention"] and counts["simt"] == 0
           and counts["splitkv"] == 0, "training attention did not run on wgmma alone")
+    check(counts["bwd"] == TRAIN_STEPS * layers,
+          f"{counts['bwd']} backward kernel calls in {TRAIN_STEPS} steps, not one a layer")
     check(counts["masked_cover"] == 0, "the training path launched a cover kernel")
     losses, norms = report["losses"], report["grad_norms"]
     check(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses + norms),
@@ -3361,7 +3445,7 @@ def phase_train_full() -> dict:
     del state, holder
     _free()
     return {"rmsnorm": got["rmsnorm"], "flash_attention": got["flash_attention"],
-            "wgmma": counts["wgmma"], "step_ms_median": med, "idle": idle}
+            "wgmma": counts["wgmma"], "bwd": counts["bwd"], "step_ms_median": med, "idle": idle}
 
 
 def phase_train_card_vs_cpu() -> None:
@@ -3595,7 +3679,7 @@ def phase_mesh_train() -> dict:
     plain_step = make_train_step(model, opt)
     meshes = [("(1, 1) data/model", make_mesh((1, 1), ("data", "model"))),
               ("RDP (1, 1, 1)", rdp.make_rdp_mesh(one, 1))]
-    rec: dict = {"launches": {"rmsnorm": 0, "flash_attention": 0, "wgmma": 0}}
+    rec: dict = {"launches": {"rmsnorm": 0, "flash_attention": 0, "wgmma": 0, "bwd": 0}}
     for name, mesh in meshes:
         _free()
         init, st_sh = jit_init_state(mesh, model, opt)
@@ -3623,10 +3707,10 @@ def phase_mesh_train() -> dict:
               f"{len(want)} leaves and 4 metrics {'bitwise equal' if not differ else differ[:6]}")
         check(not differ, f"{name}: the mesh step differs from the plain step at {differ[:6]}")
         want_launch = {"rmsnorm": 2 * layers + 1 + 2 * layers, "flash_attention": 2 * layers,
-                       "wgmma": 2 * layers}
+                       "wgmma": 2 * layers, "bwd": layers}
         got_launch = {k: counts[k] for k in want_launch}
         print(f"  launches in one mesh step {got_launch}, expected {want_launch} (the plain "
-              "step's: forward + remat recompute)")
+              "step's: forward + remat recompute, the backward kernels once a layer)")
         check(got_launch == want_launch, f"{name}: launches {got_launch}, expected {want_launch}")
         for k in rec["launches"]:
             rec["launches"][k] += got_launch[k]
@@ -3894,9 +3978,10 @@ def _tp_attention_shapes(cfg, size: int) -> tuple:
     return hl, (hl - 1) // lay.g_pad + 1, cfg.head_dim
 
 
-# the kernels a TP phase counts by path: RMSNorm (the split row's two apart)
-# and attention (by kernel)
-_TP_KERNELS = ("rmsnorm", "sumsq", "scaled", "flash_attention", "splitkv", "wgmma", "simt")
+# the kernels a TP phase counts by path: RMSNorm (the split row's two apart),
+# attention (by kernel) and the attention backward kernels' calls
+_TP_KERNELS = ("rmsnorm", "sumsq", "scaled", "flash_attention", "splitkv", "wgmma", "simt",
+               "bwd")
 
 
 def _launch_counter(total: dict):
@@ -4148,9 +4233,10 @@ def phase_tensor_parallel() -> dict:
     cfg = dataclasses.replace(get_config(TRAIN_ARCH, param_dtype="float32",
                                          compute_dtype="float32"), n_layers=TRAIN_CHECK_LAYERS)
     counts = _tp_train_check(cfg, TP_TRAIN_SIZE, counted)
+    # float32: the backward takes the plain closed form, no backward kernel
     check(counts["flash_attention"] == TP_TRAIN_SIZE * 2 * cfg.n_layers
-          and counts["rmsnorm"] == TP_TRAIN_SIZE * (4 * cfg.n_layers + 1),
-          f"TP train step launches {counts}")
+          and counts["rmsnorm"] == TP_TRAIN_SIZE * (4 * cfg.n_layers + 1)
+          and counts["bwd"] == 0, f"TP train step launches {counts}")
     _free()
 
     # the rank-local attention shapes, against their plain versions
@@ -4355,7 +4441,7 @@ def phase_tp_recurrent() -> dict:
                       remat * cfg.n_layers + 1),
                   f"{arch} TP train step launches {counts}")
         else:
-            check(counts["flash_attention"] > 0 and counts["sumsq"] == 0,
+            check(counts["flash_attention"] > 0 and counts["sumsq"] == 0 and counts["bwd"] == 0,
                   f"{arch} TP train step launches {counts}")
         _free()
     rec["max_abs_err"] = max(_tp_attention_vs_plain(seen_shapes, rec["shapes"], n),
@@ -4416,7 +4502,7 @@ def phase_sequence_parallel() -> dict:
                                          compute_dtype="float32", sequence_parallel=True),
                               n_layers=TRAIN_CHECK_LAYERS)
     counts = _tp_train_check(cfg, SP_SIZE, counted, seq=True)
-    check(counts["flash_attention"] == SP_SIZE * 2 * cfg.n_layers,
+    check(counts["flash_attention"] == SP_SIZE * 2 * cfg.n_layers and counts["bwd"] == 0,
           f"SP train step launches {counts}")
     _free()
     print(f"sequence parallelism: {time.perf_counter() - t_phase:.1f} s; the path's launches "
@@ -4567,6 +4653,8 @@ def phase_dryrun_vs_card() -> dict:
         del out
         wrappers = dict(_counts(), sumsq=rmsnorm.sumsq_launches, scaled=rmsnorm.scaled_launches)
         wrappers["rmsnorm"] -= wrappers["sumsq"] + wrappers["scaled"]
+        # a backward call launches each of its three kernels once
+        wrappers.update(dict.fromkeys(("bwd_delta", "bwd_dkdv", "bwd_dq"), wrappers["bwd"]))
         cuda = torch.autograd.DeviceType.CUDA
         traced = kernel_counts(e.name() for e in prof.profiler.kineto_results.events()
                                if e.device_type() == cuda)
@@ -4590,9 +4678,11 @@ def phase_dryrun_vs_card() -> dict:
     check(measured == want["launches_by_kernel"],
           f"launches by kernel: predicted {want['launches_by_kernel']}, the card {measured}")
     check(flops == want["flops"], f"FLOPs: predicted {want['flops']}, FlopCounterMode {flops}")
+    check(measured["bwd_dq"] == cfg.n_layers,
+          f"{measured['bwd_dq']} backward kernel calls in the dry run's step, not one a layer")
     rec = {"launches": {"rmsnorm": measured["rmsnorm"] + measured["sumsq"] + measured["scaled"],
                         "flash_attention": sum(measured[k] for k in ("splitkv", "wgmma", "simt")),
-                        **measured},
+                        "bwd": measured["bwd_dq"], **measured},
            "flops": flops, "peak_bytes": peak, "predicted_peak_bytes": want["peak_bytes"],
            "peak_gap_pct": gap}
     del step, args, pred
@@ -4773,6 +4863,11 @@ def main() -> int:
                                       "tp_recurrent": rec_rec["launches"]["flash_attention"],
                                       "sp": sp_rec["launches"]["flash_attention"],
                                       "dryrun": dry_launches["flash_attention"]}
+    # the backward kernels' calls (three launches each) by path; the TP and SP
+    # train steps are float32 and take the plain backward
+    kernels[2]["launches_by_path"]["backward"] = {
+        "train": train_launches["bwd"], "mesh": mesh_train["launches"]["bwd"],
+        "tp": tp_launches["bwd"], "dryrun": dry_launches["bwd"]}
     # the rank-local attention shapes of tensor parallelism (the hybrid's too)
     kernels[2]["tp"] = dict(tp_rec["shapes"], **rec_rec["shapes"])
     # the custom operators' host cost a call against the direct launch (phase 20)

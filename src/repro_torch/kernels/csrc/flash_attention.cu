@@ -1,4 +1,4 @@
-// Flash-attention forward on Hopper (sm_90a): three kernels behind one
+// Flash attention on Hopper (sm_90a): three forward kernels behind one
 // contract (attention_common.cuh), chosen by the wrapper
 // (repro_torch/kernels/flash_attention.py::route) for each call:
 //
@@ -12,7 +12,8 @@
 // repro/kernels/flash_attention.py::_kernel (entry flash_attention_fwd),
 // whose grid runs (batch, head, q tile) in parallel and walks KV tiles along a
 // sequential 4th dimension with m, l and acc in VMEM scratch.  Each wrapper
-// call launches exactly one of them.
+// call launches exactly one of them.  The backward of a bf16 call that took
+// the wgmma kernel is flash_bwd.cuh's (three launches, flash_attention_bwd).
 //
 // simt_kernel: float32 prefill stays on the CUDA cores.  wgmma takes no
 // float32 inputs, and TF32 (10-bit mantissa) would break the float32
@@ -29,8 +30,10 @@
 // the causal / window tile skip, decided from the positions themselves.
 // head_dim up to 256 needs 81 KB of shared memory, so it is dynamic.
 #include <math.h>
+#include <string.h>
 
 #include "attention_common.cuh"
+#include "flash_bwd.cuh"
 #include "flash_splitkv.cuh"
 #include "flash_wgmma.cuh"
 
@@ -292,13 +295,33 @@ extern "C" int flash_attention_splitkv(const void* q, const void* k, const void*
 }
 
 // The wgmma prefill kernel: bfloat16 only, hd % 8 == 0, rows 16-byte
-// aligned, Sk <= 131072.
+// aligned, Sk <= 131072; lse = null, or float32 (B, H, Sq) contiguous for
+// the rows' log-sum-exp.
 extern "C" int flash_attention_wgmma(const void* q, const void* k, const void* v,
-                                     const void* qpos, const void* kvpos, void* o,
+                                     const void* qpos, const void* kvpos, void* o, void* lse,
                                      const long long* dims, const long long* strides,
                                      float scale, int causal, int window, void* stream) {
   Strides st;
   if (!read_dims(dims, strides, &st)) return static_cast<int>(cudaErrorInvalidValue);
-  return wgmma_fa::dispatch(q, k, v, qpos, kvpos, o, dims, st, scale, causal, window,
-                            static_cast<cudaStream_t>(stream));
+  return wgmma_fa::dispatch(q, k, v, qpos, kvpos, o, static_cast<float*>(lse), dims, st, scale,
+                            causal, window, static_cast<cudaStream_t>(stream));
+}
+
+// The backward of a wgmma call: bfloat16 only, hd % 8 == 0 and <= 128, rows
+// 16-byte aligned, Sq and Sk <= 131072.  strides = 24 element strides
+// (batch, seq, head) of q, k, v, o, dO, dq, dk, dv in that order; lse the
+// forward's (B, H, Sq) float32; delta float32 scratch of B * H * Sq values.
+// Three launches on the stream: delta, then dK and dV, then dQ.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                                   const void* dout, const void* lse, const void* qpos,
+                                   const void* kvpos, void* dq, void* dk, void* dv, void* delta,
+                                   const long long* dims, const long long* strides, float scale,
+                                   int causal, int window, void* stream) {
+  Strides fwd;
+  if (!read_dims(dims, strides, &fwd)) return static_cast<int>(cudaErrorInvalidValue);
+  flash_bwd::Strides st;
+  static_assert(sizeof(st) == 24 * sizeof(long long), "24 strides");
+  memcpy(&st, strides, sizeof(st));
+  return flash_bwd::dispatch(q, k, v, o, dout, lse, qpos, kvpos, dq, dk, dv, delta, dims, st,
+                             scale, causal, window, static_cast<cudaStream_t>(stream));
 }

@@ -34,7 +34,9 @@
 // head_dim pads to a multiple of 16 (k-steps of S) and to 64 in shared memory
 // (the P V column blocks; columns past hd are computed and never stored).
 // Shared memory is 5 tiles: 80 KB at hd 128 (two blocks an SM), 160 KB at
-// hd 256.
+// hd 256.  Given an lse pointer (training: the backward, flash_bwd.cuh, reads
+// it), the kernel also writes each row's log-sum-exp m + log(l) of the scaled
+// scores in float32, (B, H, Sq); given null (serving) it writes nothing more.
 #pragma once
 
 #include <stdint.h>
@@ -173,8 +175,9 @@ template <int NB>
 __global__ void __launch_bounds__(kThreads)
 wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v, const int* __restrict__ qpos,
-             const int* __restrict__ kvpos, __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
-             int KH, int hd, float scale, int causal, int window, Strides st) {
+             const int* __restrict__ kvpos, __nv_bfloat16* __restrict__ o,
+             float* __restrict__ lse, int Sq, int Sk, int H, int KH, int hd, float scale,
+             int causal, int window, Strides st) {
   constexpr uint32_t TILE = static_cast<uint32_t>(tile_bytes(NB));
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -365,6 +368,11 @@ wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
     l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
   const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
+  if (lse != nullptr && quad == 0) {  // m is in log2 units of the scaled score
+    float* lb = lse + (static_cast<size_t>(b) * H + h) * Sq + q0;
+    if (ra < n_rows) lb[ra] = (m_a + log2f(den_a)) * 0.6931471805599453f;
+    if (rb < n_rows) lb[rb] = (m_b + log2f(den_b)) * 0.6931471805599453f;
+  }
   __nv_bfloat16* ob = o + b * st.ob + h * st.oh;
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb) {
@@ -387,8 +395,8 @@ wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
 
 template <int NB>
 int launch(const void* q, const void* k, const void* v, const void* qpos, const void* kvpos,
-           void* o, const long long* dims, const Strides& st, float scale, int causal, int window,
-           cudaStream_t stream) {
+           void* o, float* lse, const long long* dims, const Strides& st, float scale, int causal,
+           int window, cudaStream_t stream) {
   const int B = static_cast<int>(dims[0]), Sq = static_cast<int>(dims[1]);
   const int Sk = static_cast<int>(dims[2]), H = static_cast<int>(dims[3]);
   const int KH = static_cast<int>(dims[4]), hd = static_cast<int>(dims[5]);
@@ -400,20 +408,24 @@ int launch(const void* q, const void* k, const void* v, const void* qpos, const 
   wgmma_kernel<NB><<<grid, kThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(qpos),
-      static_cast<const int*>(kvpos), static_cast<__nv_bfloat16*>(o), Sq, Sk, H, KH, hd, scale,
-      causal, window, st);
+      static_cast<const int*>(kvpos), static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, H, KH, hd,
+      scale, causal, window, st);
   return static_cast<int>(cudaGetLastError());
 }
 
 inline int dispatch(const void* q, const void* k, const void* v, const void* qpos,
-                    const void* kvpos, void* o, const long long* dims, const Strides& st,
-                    float scale, int causal, int window, cudaStream_t s) {
+                    const void* kvpos, void* o, float* lse, const long long* dims,
+                    const Strides& st, float scale, int causal, int window, cudaStream_t s) {
   const long long hd = dims[5];
   if (dims[2] > kMaxKeys || hd % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (hd <= 64) return launch<1>(q, k, v, qpos, kvpos, o, dims, st, scale, causal, window, s);
-  if (hd <= 128) return launch<2>(q, k, v, qpos, kvpos, o, dims, st, scale, causal, window, s);
-  if (hd <= 192) return launch<3>(q, k, v, qpos, kvpos, o, dims, st, scale, causal, window, s);
-  if (hd <= 256) return launch<4>(q, k, v, qpos, kvpos, o, dims, st, scale, causal, window, s);
+  if (hd <= 64)
+    return launch<1>(q, k, v, qpos, kvpos, o, lse, dims, st, scale, causal, window, s);
+  if (hd <= 128)
+    return launch<2>(q, k, v, qpos, kvpos, o, lse, dims, st, scale, causal, window, s);
+  if (hd <= 192)
+    return launch<3>(q, k, v, qpos, kvpos, o, lse, dims, st, scale, causal, window, s);
+  if (hd <= 256)
+    return launch<4>(q, k, v, qpos, kvpos, o, lse, dims, st, scale, causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -38,10 +38,32 @@ the same kernel directly, without the dispatcher's host cost.
 alone, ``meta`` and fake ones included.
 
 Training differentiates through :class:`AttentionFunction`: its forward is
-the operator (one kernel launch on the card) and its backward
-:func:`attention_bwd`, the closed form in plain torch over the saved inputs
-and output.  The reference has no backward kernel to port: its model trains
-through the jnp ``flash_attention``, which XLA differentiates.
+the operator (one kernel launch on the card).  Where autograd will need it
+and the backward kernels take the call, the wgmma kernel also writes each
+row's log-sum-exp ``lse (B, H, Sq)`` in float32 (:func:`attention_with_lse`,
+operator ``torch.ops.repro_torch.attention_lse``); serving, prefill and
+decode ask for none and launch exactly as without it.  The backward's route
+(:func:`backward_route`) sends a call with that ``lse``, bf16, aligned rows
+and ``hd`` a multiple of 8 up to :data:`BWD_MAX_HEAD_DIM` to the hand-written
+backward (``csrc/flash_bwd.cuh``: ``delta = rowsum(dO o O)``, then a dK / dV
+kernel over key tiles and a dQ kernel over query tiles, FlashAttention-2 on
+wgmma with ``P`` recomputed tile by tile from ``lse``, bf16 operands and
+float32 sums, no float atomics: bitwise one output for one input), counted
+in :data:`bwd_launches`, one a call.  It goes through its own operator,
+``torch.ops.repro_torch.attention_backward`` (:func:`attention_backward`,
+fake implementation and FLOP formula beside the forward's), or launches
+directly where nothing observes it.  Every other call -- the CPU, float32,
+unaligned rows, a wider head -- takes :func:`attention_bwd`, the closed form
+in plain torch over the saved inputs and output.  The two differ for a query
+row that sees no key (every key invalid or masked; none in training, where
+each query sees at least its own key): the forward averages such a row over
+the masked keys (``NEG_INF``), the closed form spreads its gradient over
+them, and the kernels give it none -- their gradients are the closed form's
+with that row's ``dO`` set to zero.
+:func:`attention_bwd_tiled_ref` is the kernels' arithmetic tile by tile in
+plain torch, which the tests hold to :func:`attention_bwd`.  The reference
+has no backward kernel to port: its model trains through the jnp
+``flash_attention``, which XLA differentiates.
 """
 from __future__ import annotations
 
@@ -58,16 +80,21 @@ from torch.utils.flop_counter import register_flop_formula
 from ..spans import span
 from . import _build
 
-__all__ = ["H100_SM_COUNT", "NEG_INF", "AttentionFunction", "attention", "attention_bwd",
-           "attention_flops", "attention_op", "attention_ref", "attention_route",
-           "attention_splitkv_ref", "flash_attention_fwd", "route", "sm_count", "splitkv_plan"]
+__all__ = ["BWD_MAX_HEAD_DIM", "H100_SM_COUNT", "NEG_INF", "AttentionFunction", "attention",
+           "attention_backward", "attention_backward_op", "attention_bwd",
+           "attention_bwd_flops", "attention_bwd_tiled_ref", "attention_flops",
+           "attention_lse_op", "attention_lse_ref", "attention_op", "attention_ref",
+           "attention_route", "attention_with_lse",
+           "attention_splitkv_ref", "backward_route", "flash_attention_fwd", "route",
+           "sm_count", "splitkv_plan"]
 
-# kernel launches since import (or since a caller last reset it to 0): all of
-# them, and by kernel
+# forward kernel launches since import (or since a caller last reset it to 0):
+# all of them, and by kernel; and the backward kernels' calls (three launches each)
 launches = 0
 splitkv_launches = 0
 wgmma_launches = 0
 simt_launches = 0
+bwd_launches = 0
 
 NEG_INF = float(torch.finfo(torch.float32).min / 2)
 MAX_HEAD_DIM = 256
@@ -80,6 +107,8 @@ SPLITKV_MAX_ROWS = 16
 SPLITKV_MIN_KEYS = 16     # slots a split at least
 SPLITKV_MAX_SPLITS = 256  # the merge keeps one weight per split and row in shared memory
 WGMMA_MAX_KEYS = 64 * 32 * 64  # the wgmma kernel's tile-skip bits cover this many keys
+# the backward kernels keep dK and dV of 64 keys x hd in float32 registers
+BWD_MAX_HEAD_DIM = 128
 # the SMs of the card the port targets, for a call on meta or fake tensors
 # (no card to ask): 132 on the H100 SXM5 (NVIDIA H100 Tensor Core GPU
 # Architecture whitepaper); chip_smoke.py's phase 20 checks it against
@@ -182,6 +211,94 @@ def attention_splitkv_ref(
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
 
 
+def attention_lse_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    q_positions: torch.Tensor,
+    kv_positions: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Each row's log-sum-exp of its scaled scores over the visible keys,
+    ``(B, H, Sq)`` float32: what the wgmma forward writes for the backward."""
+    b, sq, h, hd = q.shape
+    kh = k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, sq, kh, h // kh, hd).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+    mask = _visible(q_positions, kv_positions, causal, window)[:, None, None]
+    return torch.logsumexp(torch.where(mask, s, NEG_INF), dim=-1).reshape(b, h, sq)
+
+
+def attention_bwd_tiled_ref(
+    do: torch.Tensor,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    q_positions: torch.Tensor,
+    kv_positions: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    tile: int = 64,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' arithmetic in float32, tile by tile, for the tests.
+
+    ``lse (B, H, Sq)`` is the forward's (:func:`attention_lse_ref`);
+    ``delta = rowsum(dO o O)``.  dK and dV by key tile: for each of the kv
+    group's query heads in order and each query tile, ``P^T = exp(scale S^T
+    - lse)`` where visible (else 0), ``dP^T = V dO^T``, ``dS^T = P^T (dP^T -
+    delta)``, ``dV += P^T dO``, ``dK += dS^T Q``.  dQ by query tile over the
+    key tiles: ``dQ += dS K``.  ``P`` and ``dS`` are rounded to q's dtype as
+    operands of the products that take them (bf16 on the kernels' path,
+    nothing in float32); ``dK`` and ``dQ`` are scaled at the end.  A row that
+    sees no key (none in training, where each query sees itself) gets no
+    gradient here, where :func:`attention_bwd` spreads it over every key
+    (:func:`backward_route`'s precondition).
+    """
+    b, sq, h, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    delta = (dof * out.float()).sum(dim=-1).transpose(1, 2)  # (B, H, Sq)
+    lse = lse.float()
+    vis = _visible(q_positions, kv_positions, causal, window).expand(b, sq, sk)
+
+    def operand(x):
+        return x.to(q.dtype).float()
+
+    def tile_grads(qs, ks, hq):
+        """(P, dS) of one (query tile, key tile, head), (B, tq, tk)."""
+        s = torch.einsum("bqd,bkd->bqk", qf[:, qs, hq], kf[:, ks, hq // g]) * scale
+        p = torch.where(vis[:, qs, ks], torch.exp(s - lse[:, hq, qs, None]), 0.0)
+        dp = torch.einsum("bqd,bkd->bqk", dof[:, qs, hq], vf[:, ks, hq // g])
+        return p, p * (dp - delta[:, hq, qs, None])
+
+    def tiles(n):
+        return [slice(i, min(n, i + tile)) for i in range(0, n, tile)]
+
+    dq = torch.zeros(b, sq, h, hd)
+    dk = torch.zeros(b, sk, kh, hd)
+    dv = torch.zeros(b, sk, kh, hd)
+    for ks in tiles(sk):
+        for kvh in range(kh):
+            for qs in tiles(sq):
+                for hq in range(kvh * g, (kvh + 1) * g):
+                    p, ds = tile_grads(qs, ks, hq)
+                    dv[:, ks, kvh] += torch.einsum("bqk,bqd->bkd", operand(p), dof[:, qs, hq])
+                    dk[:, ks, kvh] += torch.einsum("bqk,bqd->bkd", operand(ds), qf[:, qs, hq])
+    for qs in tiles(sq):
+        for hq in range(h):
+            for ks in tiles(sk):
+                _, ds = tile_grads(qs, ks, hq)
+                dq[:, qs, hq] += torch.einsum("bqk,bkd->bqd", operand(ds), kf[:, ks, hq // g])
+    return (dq.mul_(scale).to(q.dtype), dk.mul_(scale).to(k.dtype), dv.to(v.dtype))
+
+
 def route(dtype: torch.dtype, sq: int, h: int, kh: int, hd: int, sk: int,
           aligned: bool) -> str:
     """The kernel a call on the card launches: ``"splitkv"``, ``"wgmma"`` or ``"simt"``.
@@ -281,6 +398,26 @@ def attention(
     return attention_op(q, k, v, q_positions, kv_positions, causal, window, scale, False)
 
 
+def attention_with_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_positions: torch.Tensor,
+    kv_positions: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`attention` and each row's log-sum-exp ``lse (B, H, Sq)`` in
+    float32 (:func:`attention_lse_ref`), for a call that takes the wgmma
+    kernel (on the CPU: the plain versions), through
+    ``torch.ops.repro_torch.attention_lse`` or a direct launch."""
+    _check(q, k, v, q_positions, kv_positions, window)
+    if unobserved(q):
+        return _launch_with_lse(q, k, v, q_positions, kv_positions, causal, window, scale)
+    return attention_lse_op(q, k, v, q_positions, kv_positions, causal, window, scale)
+
+
 def unobserved(t: torch.Tensor) -> bool:
     """Whether a call on ``t`` may launch without the dispatcher: a plain CUDA
     tensor (no subclass: fake, DTensor) and no Python dispatch mode on
@@ -318,6 +455,37 @@ def _attention_fake(q, k, v, q_positions, kv_positions, causal, window, scale, h
     return q.new_empty((b, h, sq, hd) if head_major else (b, sq, h, hd))
 
 
+@torch.library.custom_op("repro_torch::attention_lse", mutates_args=())
+def attention_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     q_positions: torch.Tensor, kv_positions: torch.Tensor, causal: bool,
+                     window: Optional[int], scale: Optional[float]
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training forward as one operator: the output ``(B, Sq, H, hd)``
+    and ``lse (B, H, Sq)`` float32, contiguous.  On the CPU the plain
+    versions; on a CUDA tensor one launch of the wgmma kernel."""
+    # the program never sends a CPU call here (AttentionFunction asks for lse
+    # only off the CPU); this branch exists for opcheck and the CPU tests
+    if q.device.type == "cpu":
+        out = attention_ref(q, k, v, q_positions, kv_positions, causal, window, scale)
+        return (out.contiguous(),
+                attention_lse_ref(q, k, q_positions, kv_positions, causal, window, scale))
+    return _launch_with_lse(q, k, v, q_positions, kv_positions, causal, window, scale)
+
+
+@attention_lse_op.register_fake
+def _attention_lse_fake(q, k, v, q_positions, kv_positions, causal, window, scale):
+    b, sq, h, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b, h, sq), dtype=torch.float32)
+
+
+def _launch_with_lse(q, k, v, q_positions, kv_positions, causal, window, scale):
+    b, sq, h, _ = q.shape
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _launch(q, k, v, q_positions, kv_positions, out, causal, window, scale, lse)
+    return out, lse
+
+
 def attention_flops(b: int, sq: int, h: int, sk: int, hd: int) -> int:
     """The FLOPs of one call counted dense (every query against every key,
     masked or not): ``Q K^T`` and ``P V``, two products of ``2 b h sq sk hd``,
@@ -325,10 +493,102 @@ def attention_flops(b: int, sq: int, h: int, sk: int, hd: int) -> int:
     return 4 * b * h * sq * sk * hd
 
 
-@register_flop_formula(torch.ops.repro_torch.attention)
+@register_flop_formula([torch.ops.repro_torch.attention, torch.ops.repro_torch.attention_lse])
 def _attention_flop_formula(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
     b, sq, h, hd = q_shape
     return attention_flops(b, sq, h, k_shape[1], hd)
+
+
+def backward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   lse: Optional[torch.Tensor]) -> str:
+    """The backward a call takes: ``"kernels"`` (``csrc/flash_bwd.cuh``) or
+    ``"plain"`` (:func:`attention_bwd`).
+
+    The kernels take a call whose forward wrote ``lse`` (it took the wgmma
+    kernel), in bf16, with 16-byte aligned rows and ``hd`` a multiple of 8 up
+    to :data:`BWD_MAX_HEAD_DIM`, on a tensor that is not on the CPU (``meta``
+    and fake ones included, for the dry run).  The output is a fresh
+    allocation; :func:`attention_backward` copies a ``dO`` whose rows are
+    not aligned.
+
+    Precondition for the kernels to match :func:`attention_bwd`: every query
+    row sees at least one key.  A row that sees none (its keys all invalid,
+    ``kv_positions < 0``, or masked) gets no gradient from the kernels, where
+    the closed form spreads it over the masked keys; the route reads no
+    positions (that would cost a device sync), so a padded or packed batch
+    with such rows gets the kernels' gradients.
+    """
+    return "kernels" if lse is not None and _bwd_kernels_take(q, k, v) else "plain"
+
+
+def _bwd_kernels_take(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether the backward kernels take these tensors, given the forward's ``lse``."""
+    hd = q.shape[-1]
+    return (q.device.type != "cpu" and q.dtype == torch.bfloat16 and hd % 8 == 0
+            and hd <= BWD_MAX_HEAD_DIM and _rows_aligned(q, k, v))
+
+
+def attention_backward(
+    do: torch.Tensor,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    q_positions: torch.Tensor,
+    kv_positions: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` by the backward kernels, for a call
+    :func:`backward_route` sends to them: a direct launch where nothing
+    observes it (:func:`unobserved`), else the operator."""
+    if do.stride(-1) != 1 or not _rows_aligned(do):
+        do = do.contiguous()
+    if unobserved(q):
+        return _launch_bwd(do, q, k, v, out, lse, q_positions, kv_positions, causal, window,
+                           scale)
+    return attention_backward_op(do, q, k, v, out, lse, q_positions, kv_positions, causal,
+                                 window, scale)
+
+
+@torch.library.custom_op("repro_torch::attention_backward", mutates_args=())
+def attention_backward_op(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          out: torch.Tensor, lse: torch.Tensor, q_positions: torch.Tensor,
+                          kv_positions: torch.Tensor, causal: bool, window: Optional[int],
+                          scale: Optional[float]) -> tuple[torch.Tensor, torch.Tensor,
+                                                           torch.Tensor]:
+    """The backward kernels' call as one operator: ``(dq, dk, dv)``,
+    contiguous, in the inputs' dtypes.  On the CPU the plain version
+    (:func:`attention_bwd`; ``lse`` unread); on a CUDA tensor the kernels."""
+    # the program never sends a CPU call here (backward_route sends only a
+    # tensor off the CPU); this branch exists for opcheck and the CPU tests
+    if q.device.type == "cpu":
+        return tuple(t.contiguous() for t in attention_bwd(
+            do, q, k, v, out, q_positions, kv_positions, causal, window, scale))
+    return _launch_bwd(do, q, k, v, out, lse, q_positions, kv_positions, causal, window, scale)
+
+
+@attention_backward_op.register_fake
+def _attention_backward_fake(do, q, k, v, out, lse, q_positions, kv_positions, causal, window,
+                             scale):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def attention_bwd_flops(b: int, sq: int, h: int, sk: int, hd: int) -> int:
+    """The backward's FLOPs counted dense, as :func:`attention_bwd`'s
+    products count on a dispatch mode: five of ``2 b h sq sk hd`` (``P``
+    again, ``dV``, ``dP``, ``dQ``, ``dK``).  The kernels form ``S`` and ``dP``
+    once more in the dQ pass; that work is not counted."""
+    return 10 * b * h * sq * sk * hd
+
+
+@register_flop_formula(torch.ops.repro_torch.attention_backward)
+def _attention_backward_flop_formula(do_shape, q_shape, k_shape, *args, out_shape=None,
+                                     **kwargs) -> int:
+    b, sq, h, hd = q_shape
+    return attention_bwd_flops(b, sq, h, k_shape[1], hd)
 
 
 def attention_bwd(
@@ -371,24 +631,44 @@ def attention_bwd(
 
 
 class AttentionFunction(torch.autograd.Function):
-    """Attention that autograd sees: forward :func:`attention`, backward
-    :func:`attention_bwd` (``apply(q, k, v, q_positions, kv_positions,
-    causal, window, scale)``)."""
+    """Attention that autograd sees: forward :func:`attention`, backward the
+    kernels or :func:`attention_bwd` by :func:`backward_route`
+    (``apply(q, k, v, q_positions, kv_positions, causal, window, scale)``).
+
+    The forward asks the wgmma kernel for ``lse`` only where autograd will
+    run the backward: grad mode on and q, k or v requiring grad, read in
+    :meth:`apply` (``forward`` runs with grad mode off).
+    """
+
+    @classmethod
+    def apply(cls, q, k, v, q_positions, kv_positions, causal, window, scale):
+        grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                            or v.requires_grad)
+        return super().apply(q, k, v, q_positions, kv_positions, causal, window, scale, grad)
 
     @staticmethod
-    def forward(ctx, q, k, v, q_positions, kv_positions, causal, window, scale):
-        out = attention(q, k, v, q_positions, kv_positions, causal, window, scale)
-        ctx.save_for_backward(q, k, v, out, q_positions, kv_positions)
+    def forward(ctx, q, k, v, q_positions, kv_positions, causal, window, scale, grad):
+        lse = None
+        if grad and _bwd_kernels_take(q, k, v) and attention_route(q, k, v) == "wgmma":
+            out, lse = attention_with_lse(q, k, v, q_positions, kv_positions, causal, window,
+                                          scale)
+        else:
+            out = attention(q, k, v, q_positions, kv_positions, causal, window, scale)
+        ctx.save_for_backward(q, k, v, out, q_positions, kv_positions, lse)
         ctx.causal, ctx.window, ctx.scale = causal, window, scale
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, q_positions, kv_positions = ctx.saved_tensors
+        q, k, v, out, q_positions, kv_positions, lse = ctx.saved_tensors
         with span("attention.backward"):
-            dq, dk, dv = attention_bwd(do, q, k, v, out, q_positions, kv_positions, ctx.causal,
-                                       ctx.window, ctx.scale)
-        return dq, dk, dv, None, None, None, None, None
+            if backward_route(q, k, v, lse) == "kernels":
+                dq, dk, dv = attention_backward(do, q, k, v, out, lse, q_positions,
+                                                kv_positions, ctx.causal, ctx.window, ctx.scale)
+            else:
+                dq, dk, dv = attention_bwd(do, q, k, v, out, q_positions, kv_positions,
+                                           ctx.causal, ctx.window, ctx.scale)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention_fwd(
@@ -423,8 +703,10 @@ def _lib() -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_simt.argtypes = [ptr] * 8 + [f32, i32, i32, i32, ptr]
     lib.flash_attention_splitkv.argtypes = [ptr] * 10 + [f32, i32, i32, i32, i32, i32, ptr]
-    lib.flash_attention_wgmma.argtypes = [ptr] * 8 + [f32, i32, i32, ptr]
-    for fn in (lib.flash_attention_simt, lib.flash_attention_splitkv, lib.flash_attention_wgmma):
+    lib.flash_attention_wgmma.argtypes = [ptr] * 9 + [f32, i32, i32, ptr]
+    lib.flash_attention_bwd.argtypes = [ptr] * 14 + [f32, i32, i32, ptr]
+    for fn in (lib.flash_attention_simt, lib.flash_attention_splitkv, lib.flash_attention_wgmma,
+               lib.flash_attention_bwd):
         fn.restype = ctypes.c_int
     return lib
 
@@ -463,8 +745,10 @@ def _tickets_for(device: torch.device, stream: int, n: int) -> torch.Tensor:
     return t
 
 
-def _launch(q, k, v, q_positions, kv_positions, out, causal, window, scale) -> torch.Tensor:
-    """Launch on ``(B, S, H, hd)``-indexed views (any strides, hd contiguous)."""
+def _launch(q, k, v, q_positions, kv_positions, out, causal, window, scale,
+            lse=None) -> torch.Tensor:
+    """Launch on ``(B, S, H, hd)``-indexed views (any strides, hd contiguous);
+    the wgmma kernel fills ``lse`` where given."""
     global launches, splitkv_launches, wgmma_launches, simt_launches
     b, sq, h, hd = q.shape
     sk, kh = k.shape[1], k.shape[2]
@@ -478,6 +762,8 @@ def _launch(q, k, v, q_positions, kv_positions, out, causal, window, scale) -> t
         raise ValueError("attention kernel takes B, H <= 65535 and sequences < 2**31")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     path = attention_route(q, k, v)
+    if lse is not None and path != "wgmma":
+        raise ValueError(f"only the wgmma kernel writes lse: the call takes {path}")
     dims = (ctypes.c_longlong * 6)(b, sq, sk, h, kh, hd)
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, out) for s in (t.stride(0), t.stride(1), t.stride(2))
@@ -498,8 +784,9 @@ def _launch(q, k, v, q_positions, kv_positions, out, causal, window, scale) -> t
                 *ptrs, part.data_ptr(), tickets.data_ptr(), ctypes.addressof(dims),
                 ctypes.addressof(strides), *common, n_split, chunk, _DTYPE_CODES[q.dtype], stream)
         elif path == "wgmma":
-            err = lib.flash_attention_wgmma(*ptrs, ctypes.addressof(dims),
-                                            ctypes.addressof(strides), *common, stream)
+            err = lib.flash_attention_wgmma(*ptrs, None if lse is None else lse.data_ptr(),
+                                            ctypes.addressof(dims), ctypes.addressof(strides),
+                                            *common, stream)
         else:
             err = lib.flash_attention_simt(*ptrs, ctypes.addressof(dims),
                                            ctypes.addressof(strides), *common,
@@ -514,3 +801,38 @@ def _launch(q, k, v, q_positions, kv_positions, out, causal, window, scale) -> t
     else:
         simt_launches += 1
     return out
+
+
+def _launch_bwd(do, q, k, v, out, lse, q_positions, kv_positions, causal, window, scale):
+    """The backward kernels on ``(B, S, H, hd)``-indexed views (any strides,
+    hd contiguous, rows 16-byte aligned): ``(dq, dk, dv)``, fresh."""
+    global bwd_launches
+    b, sq, h, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    if max(sq, sk) > WGMMA_MAX_KEYS:
+        raise ValueError(f"the backward kernels take Sq, Sk <= {WGMMA_MAX_KEYS}")
+    if not _rows_aligned(do, out):
+        raise ValueError("the backward kernels need dO and the output's rows 16-byte aligned")
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    dims = (ctypes.c_longlong * 6)(b, sq, sk, h, kh, hd)
+    strides = (ctypes.c_longlong * 24)(*(
+        s for t in (q, k, v, out, do, dq, dk, dv) for s in (t.stride(0), t.stride(1), t.stride(2))
+    ))
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _lib().flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), q_positions.data_ptr(), kv_positions.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), ctypes.addressof(dims),
+            ctypes.addressof(strides), float(scale), int(bool(causal)),
+            0 if window is None else int(window), stream)
+    if err:
+        raise RuntimeError(f"flash-attention backward kernel launch failed with CUDA error {err}")
+    bwd_launches += 1
+    return dq, dk, dv

@@ -23,7 +23,8 @@ fake ones (``FakeTensorMode``, where nothing runs and no card is needed):
   * ``launches_by_kernel`` -- each hand kernel's calls by the kernel it
                             launches (``flash_attention.attention_route``:
                             split-KV, wgmma, CUDA cores; the fused RMSNorm;
-                            the split row's two kernels)
+                            the split row's two kernels; the attention
+                            backward's three, one launch each a call)
   * ``peak_bytes``       -- the peak of live device bytes, each storage
                             counted once, from the tensors given to
                             :meth:`StepStats.track` and every op's outputs
@@ -49,7 +50,9 @@ from ..kernels import flash_attention as _flash
 __all__ = ["KERNELS", "StepStats", "stats_to_dict", "wire_bytes"]
 
 # the hand kernels by the name chip_smoke.py's launch counts use
-KERNELS = ("rmsnorm", "sumsq", "scaled", "splitkv", "wgmma", "simt")
+# the attention backward's kernels (``csrc/flash_bwd.cuh``): delta, dK / dV, dQ
+_BWD_KERNELS = ("bwd_delta", "bwd_dkdv", "bwd_dq")
+KERNELS = ("rmsnorm", "sumsq", "scaled", "splitkv", "wgmma", "simt") + _BWD_KERNELS
 
 _c10d = torch.ops.c10d
 _funcol = torch.ops._c10d_functional
@@ -200,14 +203,17 @@ class StepStats(TorchDispatchMode):
         if packet in flop_registry:
             n = flop_registry[packet](*args, **kwargs, out_val=out)
             t.flops += n
-            if packet is torch.ops.repro_torch.attention:
+            if packet in (torch.ops.repro_torch.attention, torch.ops.repro_torch.attention_lse):
                 t.attention_flops += n
         if func.namespace == "repro_torch":
             name = func._opname
-            if name == "attention":
+            if name in ("attention", "attention_lse"):  # the forward, and training's with lse
                 t.launches_by_kernel[_flash.attention_route(*args[:3])] += 1
             elif name in _NORMS:
                 t.launches_by_kernel[_NORMS[name]] += 1
+            elif name == "attention_backward":
+                for k in _BWD_KERNELS:
+                    t.launches_by_kernel[k] += 1
         kind = _COLLECTIVES.get(func)
         if kind is not None:
             self._collective(func, kind, args, out)

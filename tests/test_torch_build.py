@@ -26,7 +26,8 @@ def test_each_source_has_its_own_flags():
 
 def test_includes_finds_the_attention_headers():
     found = {p.name for p in _build.includes(_build.CSRC / "flash_attention.cu")}
-    assert found == {"attention_common.cuh", "flash_splitkv.cuh", "flash_wgmma.cuh"}
+    assert found == {"attention_common.cuh", "flash_bwd.cuh", "flash_splitkv.cuh",
+                     "flash_wgmma.cuh"}
     assert [p.name for p in _build.includes(_build.CSRC / "cover.cu")] == ["philox.cuh"]
     assert _build.includes(_build.CSRC / "rmsnorm.cu") == []
 

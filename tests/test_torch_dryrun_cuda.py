@@ -41,7 +41,14 @@ def kernel_class(name: str):
     ``csrc/rmsnorm.cu``: ``rmsnorm_kernel<..., false>`` is the fused norm,
     ``rmsnorm_kernel<..., true>`` the split row's ``rmsnorm_scaled``,
     ``rmsnorm_sumsq_kernel`` its sum of squares; ``csrc/flash_attention.cu``:
-    ``splitkv_kernel``, ``wgmma_kernel``, ``simt_kernel``."""
+    ``splitkv_kernel``, ``wgmma_kernel``, ``simt_kernel``, and the backward's
+    ``flash_bwd::delta_kernel``, ``flash_bwd::dkdv_kernel``,
+    ``flash_bwd::dq_kernel``."""
+    if "flash_bwd::" in name:
+        for k in ("delta", "dkdv", "dq"):
+            if f"flash_bwd::{k}_kernel" in name:
+                return f"bwd_{k}"
+        return None
     if "rmsnorm_sumsq_kernel" in name:
         return "sumsq"
     if "rmsnorm_kernel" in name:
@@ -137,9 +144,14 @@ def test_kernel_class_reads_the_kernel_names():
              "void (anonymous namespace)::rmsnorm_kernel<float, float, 4, true>(x)",
              "void (anonymous namespace)::rmsnorm_sumsq_kernel<float>(x)",
              "void splitkv_kernel<__nv_bfloat16, 8>(x)", "wgmma_kernel(x)",
-             "void simt_kernel<float>(x)", "ampere_bf16_s16816gemm", "Memcpy HtoD"]
+             "void simt_kernel<float>(x)", "ampere_bf16_s16816gemm", "Memcpy HtoD",
+             "void flash_bwd::delta_kernel(x, flash_bwd::Strides)",
+             "void flash_bwd::dkdv_kernel<2>(x, flash_bwd::Strides)",
+             "void flash_bwd::dq_kernel<2>(x, flash_bwd::Strides)",
+             "void flash_bwd::dq_kernel<1>(x, flash_bwd::Strides)"]
     assert kernel_counts(names) == {"rmsnorm": 1, "scaled": 1, "sumsq": 1, "splitkv": 1,
-                                    "wgmma": 1, "simt": 1}
+                                    "wgmma": 1, "simt": 1, "bwd_delta": 1, "bwd_dkdv": 1,
+                                    "bwd_dq": 2}
 
 
 @pytest.mark.cuda
@@ -189,7 +201,7 @@ def test_prediction_matches_the_real_step(card, world_of_one):
     mesh = make_mesh((1, 1), ("data", "model"))
     pred = dryrun.predict_step(model, shape, mesh)["step_stats"]
     step, args, _, _ = dryrun.build_step(model, shape, mesh, device="cuda")
-    names = ("launches", "splitkv_launches", "wgmma_launches", "simt_launches")
+    names = ("launches", "splitkv_launches", "wgmma_launches", "simt_launches", "bwd_launches")
     before = {n: getattr(flash, n) for n in names}
     norm0 = rmsnorm.launches
     with FlopCounterMode(display=False) as fc:
@@ -198,6 +210,9 @@ def test_prediction_matches_the_real_step(card, world_of_one):
     got = {k: getattr(flash, f"{k}_launches") - before[f"{k}_launches"]
            for k in ("splitkv", "wgmma", "simt")}
     got["rmsnorm"] = rmsnorm.launches - norm0
+    # each backward call launches its three kernels once
+    got.update(dict.fromkeys(("bwd_delta", "bwd_dkdv", "bwd_dq"),
+                             flash.bwd_launches - before["bwd_launches"]))
     want = pred["launches_by_kernel"]
     assert got == {k: want[k] for k in got}
     assert fc.get_total_flops() == pred["flops"]

@@ -12,7 +12,8 @@
   between within a pod (``ici_bytes``) and across pods (``dcn_bytes``) right
   on a (2, 2, 2) ("pod", "data", "model") mesh.
 * ``launches_by_kernel`` follows ``flash_attention.attention_route`` for
-  each attention kernel and counts the three RMSNorm operators apart.
+  each attention kernel, counts the three RMSNorm operators apart, and
+  counts a backward operator's call once for each of its three kernels.
 * The peak of live device bytes counts each storage once.
 
 No jax.
@@ -94,7 +95,8 @@ def test_launches_by_kernel_follow_route(dtype):
     cases = [((2, 1, 8, 64), (2, 40, 2, 64)),      # one query row a kv group: split-KV
              ((1, 32, 8, 64), (1, 32, 2, 64)),     # a prefill: wgmma in bf16, else CUDA cores
              ((1, 24, 4, 68), (1, 24, 4, 68))]     # bf16 rows off 16 bytes: CUDA cores
-    want = dict.fromkeys(("rmsnorm", "sumsq", "scaled", "splitkv", "wgmma", "simt"), 0)
+    want = dict.fromkeys(("rmsnorm", "sumsq", "scaled", "splitkv", "wgmma", "simt",
+                          "bwd_delta", "bwd_dkdv", "bwd_dq"), 0)
     with StepStats("meta") as st:
         for qs, ks in cases:
             q = torch.empty(qs, dtype=dtype, device="meta")
@@ -103,6 +105,12 @@ def test_launches_by_kernel_follow_route(dtype):
             pk = torch.empty(ks[:2], dtype=torch.int32, device="meta")
             flash.attention(q, k, k, pq, pk)
             want[flash.attention_route(q, k, k)] += 1
+            lse = torch.empty(qs[0], qs[2], qs[1], device="meta")
+            if flash.attention_route(q, k, k) == "wgmma":  # training's forward: its backward
+                assert flash.backward_route(q, k, k, lse) == "kernels"
+                flash.attention_backward(q, q, k, k, q, lse, pq, pk)
+                for name in ("bwd_delta", "bwd_dkdv", "bwd_dq"):
+                    want[name] += 1
         x = torch.empty((4, 64), dtype=dtype, device="meta")
         w = torch.empty((64,), dtype=dtype, device="meta")
         rmsnorm.rms_norm_fused(x, w)

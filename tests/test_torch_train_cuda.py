@@ -10,8 +10,14 @@ with the same step on the CPU from the same weights (float32, TF32 off)
 under :func:`train_step_mismatches`, the contract ``chip_smoke.py`` also
 holds the full-width step to: every gradient and moment, and every
 parameter element within its own first-step allowance (a CPU test holds
-that contract to built records).  The kernels have no CPU mode, so the
-card tests skip where no card is present; they import no jax:
+that contract to built records).  The attention backward's kernels
+(``csrc/flash_bwd.cuh``) agree with the closed form ``attention_bwd`` within
+the bf16 bound at the training cells' shapes (4 x 4096 and 32 x 512, 12
+heads over 2, hd 128, causal) and at each zoo family's shape the route sends
+to them, give bitwise the same gradients on a second call, and run once a
+layer in a full-width qwen2-1.5b step; hd 256 keeps the plain backward.  The
+kernels have no CPU mode, so the card tests skip where no card is present;
+they import no jax:
 
     PYTHONPATH=src python -m pytest tests/test_torch_train_cuda.py -m cuda -q
 """
@@ -184,6 +190,7 @@ def test_attention_function_on_card(dtype, kh, causal, window, card):
     g = _randn(q.shape, dt, 5, card, requires_grad=False)
     pos = torch.arange(s, dtype=torch.int32, device=card).expand(b, s).contiguous()
     before = (flash.launches, flash.wgmma_launches, flash.simt_launches)
+    bwd0 = flash.bwd_launches
     out = flash.AttentionFunction.apply(q, k, v, pos, pos, causal, window, None)
     want_path = 1 if dt == torch.bfloat16 else 2  # wgmma for bf16, CUDA cores for f32
     after = (flash.launches, flash.wgmma_launches, flash.simt_launches)
@@ -194,7 +201,120 @@ def test_attention_function_on_card(dtype, kh, causal, window, card):
     assert relative_error(out, ref) <= GRAD_RTOL[dt]
     for name, a, r in zip("qkv", grads, plain):
         assert relative_error(a, r) <= GRAD_RTOL[dt], name
-    assert flash.launches == before[0] + 1
+    assert flash.launches == before[0] + 1  # the backward launches no forward kernel
+    # bf16 took the wgmma forward, so its backward is the kernels' (one call);
+    # float32 keeps the closed form in plain torch
+    assert flash.bwd_launches == bwd0 + (dt == torch.bfloat16)
+
+
+# (name, B, Sq, Sk, H, KH, hd, causal, window): the training cells' shapes, each
+# zoo family's attention that the backward kernels take, a window over a ragged
+# last tile, and queries at the end of a longer run of keys (a sequence-parallel
+# rank's chunk)
+BWD_SHAPES = [
+    ("qwen2-1.5b-seq4k", 4, 4096, 4096, 12, 2, 128, True, None),
+    ("qwen2-1.5b-seq512", 32, 512, 512, 12, 2, 128, True, None),
+    ("hubert-xlarge", 2, 1024, 1024, 16, 16, 80, False, None),
+    ("qwen2-vl-7b", 1, 1024, 1024, 28, 4, 128, True, None),
+    ("qwen3-moe-235b-a22b", 1, 1024, 1024, 64, 4, 128, True, None),
+    ("window-ragged", 2, 1000, 1000, 12, 2, 128, True, 300),
+    ("continuation", 2, 300, 1000, 12, 2, 128, True, None),
+]
+
+
+def _bwd_inputs(shape, dev, seed=0):
+    _, b, sq, sk, h, kh, hd, causal, window = shape
+    q = _randn((b, sq, h, hd), torch.bfloat16, seed, dev)
+    k, v = (_randn((b, sk, kh, hd), torch.bfloat16, seed + i, dev) for i in (1, 2))
+    g = _randn(q.shape, torch.bfloat16, seed + 5, dev, requires_grad=False)
+    kpos = torch.arange(sk, dtype=torch.int32, device=dev).expand(b, sk).contiguous()
+    return q, k, v, g, kpos[:, sk - sq:].contiguous(), kpos, causal, window
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=[s[0] for s in BWD_SHAPES])
+def test_attention_backward_kernels_on_card(shape, card):
+    """Through ``AttentionFunction``: the wgmma forward writes ``lse`` (the
+    rows' log-sum-exp, against the plain version's), the backward takes the
+    kernels (one call), its gradients are the closed form's within
+    ``GRAD_RTOL`` on the same bf16 inputs and output, and a second call of
+    the kernels gives them bitwise."""
+    q, k, v, g, qpos, kpos, causal, window = _bwd_inputs(shape, card)
+    before = (flash.wgmma_launches, flash.bwd_launches)
+    out = flash.AttentionFunction.apply(q, k, v, qpos, kpos, causal, window, None)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    assert (flash.wgmma_launches, flash.bwd_launches) == (before[0] + 1, before[1] + 1)
+    qd, kd, vd, od = q.detach(), k.detach(), v.detach(), out.detach()
+    again_out, lse = flash.attention_with_lse(qd, kd, vd, qpos, kpos, causal, window)
+    assert torch.equal(again_out, od)
+    want_lse = flash.attention_lse_ref(qd, kd, qpos, kpos, causal, window)
+    assert float((lse - want_lse).abs().max()) <= 1e-3  # float32 sums in another order
+    plain = flash.attention_bwd(g, qd, kd, vd, od, qpos, kpos, causal, window)
+    for name, a, r in zip(("dq", "dk", "dv"), grads, plain):
+        assert a.dtype == r.dtype and a.shape == r.shape
+        assert relative_error(a, r) <= GRAD_RTOL[torch.bfloat16], name
+    again = flash.attention_backward(g, qd, kd, vd, od, lse, qpos, kpos, causal, window)
+    for name, a, r in zip(("dq", "dk", "dv"), again, grads):
+        assert torch.equal(a, r), name
+
+
+@pytest.mark.cuda
+def test_attention_backward_kernels_give_rows_that_see_no_key_no_gradient(card):
+    """``backward_route``'s precondition pinned: in a sequence whose first
+    keys are invalid (``kv_positions`` -1) the first causal queries see no
+    key; the kernels give those rows no gradient (dq rows zero), and all
+    three gradients are the closed form's with those rows' ``dO`` set to
+    zero, within ``GRAD_RTOL``."""
+    shape = ("blind-rows", 2, 200, 200, 12, 2, 128, True, None)
+    q, k, v, g, qpos, kpos, causal, window = _bwd_inputs(shape, card)
+    kpos = kpos.clone()
+    kpos[0, :70] = -1  # past the first 64-row tile
+    blind = ~flash._visible(qpos, kpos, causal, window).any(dim=-1)
+    assert int(blind.sum()) == 70
+    out, lse = flash.attention_with_lse(q, k, v, qpos, kpos, causal, window)
+    assert flash.backward_route(q, k, v, lse) == "kernels"
+    got = flash.attention_backward(g, q, k, v, out, lse, qpos, kpos, causal, window)
+    quiet = torch.where(blind[..., None, None], 0.0, g.float()).to(g.dtype)
+    want = flash.attention_bwd(quiet, q, k, v, out, qpos, kpos, causal, window)
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        assert relative_error(a, r) <= GRAD_RTOL[torch.bfloat16], name
+    assert not bool(got[0][blind].any())
+
+
+@pytest.mark.cuda
+def test_attention_backward_keeps_plain_for_hd256(card):
+    """recurrentgemma-2b's hd 256 (window 2048) takes the wgmma forward but not
+    the backward kernels: no ``lse`` is asked for and the closed form runs."""
+    shape = ("recurrentgemma-2b", 1, 1024, 1024, 10, 1, 256, True, 2048)
+    q, k, v, g, pos, _, causal, window = _bwd_inputs(shape, card)
+    before = (flash.wgmma_launches, flash.bwd_launches)
+    out = flash.AttentionFunction.apply(q, k, v, pos, pos, causal, window, None)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    assert (flash.wgmma_launches, flash.bwd_launches) == (before[0] + 1, before[1])
+    plain = flash.attention_bwd(g, q.detach(), k.detach(), v.detach(), out.detach(), pos, pos,
+                                causal, window)
+    for name, a, r in zip(("dq", "dk", "dv"), grads, plain):
+        assert relative_error(a, r) <= GRAD_RTOL[torch.bfloat16], name
+
+
+@pytest.mark.cuda
+def test_qwen2_step_runs_the_backward_kernels_once_a_layer(card):
+    """One full-width qwen2-1.5b forward and backward (bf16 compute, ``full``
+    remat): 28 calls of the backward kernels, one a layer, beside the 56
+    wgmma forwards (the forward and the remat recompute)."""
+    cfg = get_config("qwen2-1.5b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=card).manual_seed(0)).trainable()
+    batch = SyntheticLM(PipelineConfig(cfg.vocab_size, 512, 2, seed=0)).global_batch(0)
+    before = (flash.wgmma_launches, flash.bwd_launches)
+    loss, _, grads = _value_and_grad(
+        model, params, {k: torch.from_numpy(v).to(card) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert flash.bwd_launches - before[1] == cfg.n_layers == 28
+    assert flash.wgmma_launches - before[0] == 2 * cfg.n_layers
+    assert np.isfinite(float(loss))
+    assert all(bool(torch.isfinite(t).all()) for t in grads.values())
 
 
 @pytest.mark.cuda
