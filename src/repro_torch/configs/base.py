@@ -3,8 +3,8 @@
 One frozen dataclass covers all 10 assigned families; per-arch modules under
 ``repro_torch.configs`` provide ``full_config()`` (the exact published numbers)
 and ``smoke_config()`` (same family, tiny dims, CPU-runnable).  The fields are
-the reference's, unchanged; only :meth:`ArchConfig.dtype` differs: it returns
-a torch dtype.
+the reference's, and two more, ``norm_eps`` and ``residual_in_fp32``;
+:meth:`ArchConfig.dtype` differs: it returns a torch dtype.
 """
 from __future__ import annotations
 
@@ -40,6 +40,15 @@ class ArchConfig:
     mlp_bias: bool = False
     tie_embeddings: bool = False
     embed_scale: bool = False  # gemma-style sqrt(d_model) embedding scaling
+    # epsilon of every RMSNorm: the blocks', the final one and mamba2's gated
+    # norm (layer norm keeps its own 1e-5); the reference has no such field
+    # and runs every RMSNorm at 1e-6
+    norm_eps: float = 1e-6
+    # mamba2: the residual stream (the embedding and every block's sum) in
+    # float32 whatever the compute dtype, each norm reading it in float32 and
+    # giving the compute dtype; the reference has no such field and keeps the
+    # residual in the compute dtype
+    residual_in_fp32: bool = False
 
     # MoE
     n_experts: int = 0

@@ -49,7 +49,8 @@ from .flash_attention import unobserved
 
 __all__ = ["RMSNormFunction", "RMSNormSplitFunction", "rms_norm_bwd", "rms_norm_fused",
            "rms_norm_op", "rms_norm_ref", "rms_norm_scaled", "rms_norm_scaled_op",
-           "rms_norm_split", "rms_norm_split_ref", "row_sumsq", "row_sumsq_op", "row_sumsq_ref"]
+           "rms_norm_split", "rms_norm_split_bwd", "rms_norm_split_ref", "row_sumsq", "row_sumsq_op",
+           "row_sumsq_ref"]
 
 # kernel launches since import (or since a caller last reset them to 0): every
 # launch of csrc/rmsnorm.cu, and the split row's two kernels apart
@@ -224,6 +225,26 @@ def rms_norm_bwd(g: torch.Tensor, x: torch.Tensor, weight: torch.Tensor, eps: fl
     return dx.to(x.dtype), dw.to(weight.dtype)
 
 
+def rms_norm_split_bwd(g: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
+                       total: torch.Tensor, group, eps: float = 1e-6,
+                       plus_one: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rms_norm_bwd` for a row split over ``group`` (:func:`rms_norm_split`):
+    ``total`` is each whole row's sum of squares, and ``mean(g w' x)`` is taken
+    over the whole row by one more sum over the group.  ``dw`` is this rank's
+    chunk."""
+    xf, gf = x.float(), g.float()
+    width = x.shape[-1] * group.size
+    r = torch.rsqrt(total[..., None] / width + eps)
+    w = weight.float()
+    if plus_one:
+        w = 1.0 + w
+    gw = gf * w
+    mean = group.all_reduce_sum((gw * xf).sum(dim=-1, keepdim=True)) / width
+    dx = r * (gw - xf * (r * r) * mean)
+    dw = (gf * xf * r).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dw.to(weight.dtype)
+
+
 class RMSNormFunction(torch.autograd.Function):
     """RMSNorm that autograd sees: forward :func:`rms_norm_fused`, backward
     :func:`rms_norm_bwd` (``apply(x, weight, eps, plus_one)``)."""
@@ -245,30 +266,20 @@ class RMSNormFunction(torch.autograd.Function):
 class RMSNormSplitFunction(torch.autograd.Function):
     """RMSNorm of a row split over a group (``apply(x, weight, eps, plus_one,
     group)``): forward :func:`row_sumsq`, the group's sum, :func:`rms_norm_scaled`;
-    backward :func:`rms_norm_bwd`'s closed form, ``mean(g w' x)`` over the
-    whole row by one more sum over the group.  ``dw`` is this rank's chunk."""
+    backward :func:`rms_norm_split_bwd`.  ``dw`` is this rank's chunk."""
 
     @staticmethod
     def forward(ctx, x, weight, eps, plus_one, group):
         total = group.all_reduce_sum(row_sumsq(x))
-        width = x.shape[-1] * group.size
         ctx.save_for_backward(x, weight, total)
-        ctx.eps, ctx.plus_one, ctx.group, ctx.width = eps, plus_one, group, width
-        return rms_norm_scaled(x, weight, total, width, eps, plus_one)
+        ctx.eps, ctx.plus_one, ctx.group = eps, plus_one, group
+        return rms_norm_scaled(x, weight, total, x.shape[-1] * group.size, eps, plus_one)
 
     @staticmethod
     def backward(ctx, g):
         x, weight, total = ctx.saved_tensors
-        xf, gf = x.float(), g.float()
-        r = torch.rsqrt(total[..., None] / ctx.width + ctx.eps)
-        w = weight.float()
-        if ctx.plus_one:
-            w = 1.0 + w
-        gw = gf * w
-        mean = ctx.group.all_reduce_sum((gw * xf).sum(dim=-1, keepdim=True)) / ctx.width
-        dx = r * (gw - xf * (r * r) * mean)
-        dw = (gf * xf * r).reshape(-1, x.shape[-1]).sum(dim=0)
-        return dx.to(x.dtype), dw.to(weight.dtype), None, None, None
+        dx, dw = rms_norm_split_bwd(g, x, weight, total, ctx.group, ctx.eps, ctx.plus_one)
+        return dx, dw, None, None, None
 
 
 @functools.cache

@@ -15,6 +15,9 @@ its shards (``ssm.py``): its cache holds its ``d_inner / TP`` channels of
 vocab-parallel cross-entropy and ``prefill`` / ``decode_step`` gather the
 logits whole.  Under sequence parallelism the residual stream is the rank's
 rows (``transformer.py``); the mixer gathers the whole rows (``ssm.py``).
+With ``cfg.residual_in_fp32`` the residual stream is float32 (the embedding
+and every block's sum, as ``mamba_ssm`` keeps it); each norm reads it in
+float32 and gives the compute dtype.
 """
 from __future__ import annotations
 
@@ -86,7 +89,8 @@ def forward(
     """Returns (logits fp32, cache written in place)."""
     dims = SSMDims.from_config(cfg)
     seq = tp.sequence_group(tokens.shape[1])
-    x = _embed(params, cfg, tokens, seq=seq)
+    x = _embed(params, cfg, tokens, seq=seq,
+               dtype=torch.float32 if cfg.residual_in_fp32 else None)
     for i, p in enumerate(params["layers"]):
         if cache is None and cfg.remat:
             x = remat_layer(_layer_fn, x, p, cfg, dims, None, False, seq)
@@ -99,24 +103,26 @@ def _layer_fn(x, p, cfg: ArchConfig, dims: SSMDims, lc=None, decode: bool = Fals
               seq: tp.Group = tp.SINGLE):
     """One pre-norm SSD layer; writes a cache ``lc`` in place.  Over a ``seq``
     group ``x`` is this rank's rows."""
-    p = cast_for_compute(p, cfg.dtype("compute"))
-    h_in = _norm(p, cfg, x, "norm1", seq)
+    cdt = cfg.dtype("compute")
+    p = cast_for_compute(p, cdt)
+    h_in = _norm(p, cfg, x, "norm1", seq).to(cdt)
+    eps = cfg.norm_eps
     if decode:
         y, cx, cbc, h = ssm_decode_step(
-            p["mixer"], dims, h_in, lc["conv_x"], lc["conv_bc"], lc["h"]
+            p["mixer"], dims, h_in, lc["conv_x"], lc["conv_bc"], lc["h"], norm_eps=eps
         )
     elif lc is None:
-        y = ssm_layer_apply(p["mixer"], dims, h_in, seq=seq)
+        y = ssm_layer_apply(p["mixer"], dims, h_in, seq=seq, norm_eps=eps)
     else:
         y, (cx, cbc, h) = ssm_layer_apply(
             p["mixer"], dims, h_in, lc["conv_x"], lc["conv_bc"], lc["h"],
-            return_state=True, seq=seq,
+            return_state=True, seq=seq, norm_eps=eps,
         )
     if lc is not None:
         lc["conv_x"].copy_(cx)
         lc["conv_bc"].copy_(cbc)
         lc["h"].copy_(h)
-    return x + y
+    return x + y  # in x's dtype: float32 with residual_in_fp32
 
 
 def train_loss(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):

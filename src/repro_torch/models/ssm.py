@@ -13,7 +13,27 @@ shared across heads (n_groups = 1), causal conv (k = 4), gated RMSNorm
 before ``out_proj``; the projections are stored separately (``w_z``,
 ``w_x``, ``w_bc``, ``w_dt``), as the reference stores them.  The gated
 RMSNorm goes to the RMSNorm kernel at width d_inner; everything else is
-plain torch, as the reference leaves it to XLA.
+plain torch, as the reference leaves it to XLA.  The causal convs and the
+gate ``y * silu(z)`` with its norm compute in float32 on inputs of the
+compute dtype and give the compute dtype, as ``mamba_ssm``'s conv and
+gated-norm kernels do (the reference computes them in the compute dtype).
+Neither keeps its float32 values for the backward, which forms them again
+(the conv under a checkpoint, the gate in :class:`_GatedNorm`): at training
+sizes they are (B, S, d_inner) float32 tensors, and the caching allocator,
+under the benchmark's 256 MB split limit, could not reuse their blocks.
+
+Each scan runs inside the span ``ssd.forward`` (the forward and, under
+remat, its recompute) and, while autograd records, between two identity
+Functions (:func:`ssd_scan`): the one on its outputs opens ``ssd.backward``
+when the backward reaches them, the one on its inputs closes it once the
+scan's gradients have passed.  So the span holds the scan's own backward
+nodes (autograd runs them in a row: they are the only nodes of a sequence
+number between the two Functions'), on whichever thread autograd runs them,
+and the gradients are autograd's own, unchanged.  (A ``Function`` around the
+whole scan whose backward called ``torch.autograd.grad`` would start a
+second graph task, for which the layer's non-reentrant checkpoint would
+recompute the layer again.)  :data:`chunk_steps` counts the chunks the
+scans walk.
 
 The chunk's decay masks its upper triangle before the exp, where the
 reference masks after it: once a chunk's log-decay spans more than
@@ -42,9 +62,12 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..distributed import tensor_parallel as tp
-from ..kernels.rmsnorm import rms_norm_split
+from ..kernels.rmsnorm import (rms_norm_bwd, rms_norm_fused, rms_norm_scaled,
+                               rms_norm_split_bwd, row_sumsq)
+from ..spans import span
 from .common import dense_init
 
 __all__ = [
@@ -52,6 +75,7 @@ __all__ = [
     "init_ssm_layer",
     "ssd_chunked",
     "ssd_reference",
+    "ssd_scan",
     "ssm_decode_step",
     "ssm_layer_apply",
 ]
@@ -78,6 +102,11 @@ class SSMDims(NamedTuple):
             d_conv=cfg.ssm_conv,
             chunk=cfg.ssm_chunk,
         )
+
+
+# chunks walked by every ssd_chunked call so far (the forward's, the
+# recompute's; the backward walks none of its own)
+chunk_steps = 0
 
 
 def _uniform(generator: torch.Generator, shape, lo: float, hi: float) -> torch.Tensor:
@@ -108,14 +137,24 @@ def init_ssm_layer(generator: torch.Generator, dims: SSMDims, dtype) -> dict:
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  tail: Optional[torch.Tensor] = None):
-    """Depthwise causal conv, then SiLU.  x: (B,S,C); w: (K,C); tail: (B,K-1,C) history."""
+    """Depthwise causal conv, then SiLU, in float32; out in x's dtype.
+    x: (B,S,C); w: (K,C); tail: (B,K-1,C) history.  While autograd records,
+    under a checkpoint that keeps only its inputs."""
+    if torch.is_grad_enabled():
+        return checkpoint(_conv_f32, x, w, b, tail, use_reentrant=False,
+                          preserve_rng_state=False)
+    return _conv_f32(x, w, b, tail)
+
+
+def _conv_f32(x, w, b, tail):
     k = w.shape[0]
     if tail is None:
         tail = torch.zeros((x.shape[0], k - 1, x.shape[-1]), dtype=x.dtype, device=x.device)
     xp = torch.cat([tail, x], dim=1)  # (B, S+K-1, C)
-    out = sum(xp[:, i : i + x.shape[1]] * w[i] for i in range(k)) + b
+    xf, wf = xp.float(), w.float()
+    out = sum(xf[:, i : i + x.shape[1]] * wf[i] for i in range(k)) + b.float()
     new_tail = xp[:, -(k - 1) :] if k > 1 else tail
-    return F.silu(out), new_tail
+    return F.silu(out).to(x.dtype), new_tail
 
 
 def ssd_chunked(
@@ -129,6 +168,7 @@ def ssd_chunked(
     h0: Optional[torch.Tensor] = None,  # (B,nh,N,hp) initial state
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan.  Returns (y (B,S,nh,hp) float32, final state (B,nh,N,hp) float32)."""
+    global chunk_steps
     b, s, nh, hp = x.shape
     n = bmat.shape[-1]
     q = min(chunk, s)
@@ -148,6 +188,7 @@ def ssd_chunked(
         else h0.float()
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))  # i >= j
     ys = []
+    chunk_steps += nc
     for c in range(nc):
         xq, dtq, bq, cq = xc[:, c], dtc[:, c], bc[:, c], cc[:, c]
         a = dtq * a_neg  # (B,Q,nh) log-decay per step (negative)
@@ -171,6 +212,47 @@ def ssd_chunked(
         ys.append(y + d_skip[None, None, :, None] * xq)
     y = torch.stack(ys, dim=1).reshape(b, nc * q, nh, hp)[:, :s]
     return y, h
+
+
+class _BackwardSpanEdge(torch.autograd.Function):
+    """Identity on its tensors (``apply(token, opens, *tensors)``); its
+    backward opens ``ssd.backward`` where ``opens`` (on the scan's outputs)
+    and closes it otherwise (on the scan's inputs).  ``token`` is the list
+    the two edges of one scan share, holding the open span."""
+
+    @staticmethod
+    def forward(ctx, token, opens, *tensors):
+        ctx.token, ctx.opens = token, opens
+        ctx.set_materialize_grads(False)
+        return tuple(t.view_as(t) for t in tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if ctx.opens and not ctx.token:
+            rec = span("ssd.backward")
+            rec.__enter__()
+            ctx.token.append(rec)
+        elif not ctx.opens and ctx.token:
+            ctx.token.pop().__exit__(None, None, None)
+        return (None, None, *grads)
+
+
+def ssd_scan(x, dt, a_neg, bmat, cmat, d_skip, chunk: int, h0=None,
+             want_state: bool = False):
+    """:func:`ssd_chunked` inside the span ``ssd.forward``; while autograd
+    records, its backward inside ``ssd.backward``.  Returns ``y``, or
+    ``(y, h)`` with ``want_state`` (only the returned outputs open the span)."""
+    ins = (x, dt, a_neg, bmat, cmat, d_skip) + (() if h0 is None else (h0,))
+    marked = torch.is_grad_enabled() and any(t.requires_grad for t in ins)
+    if marked:
+        token: list = []
+        ins = _BackwardSpanEdge.apply(token, False, *ins)
+    with span("ssd.forward"):
+        y, h = ssd_chunked(*ins[:6], chunk, ins[6] if h0 is not None else None)
+    outs = (y, h) if want_state else (y,)
+    if marked:
+        outs = _BackwardSpanEdge.apply(token, True, *outs)
+    return outs if want_state else outs[0]
 
 
 def ssd_reference(x, dt, a_neg, bmat, cmat, d_skip, h0=None):
@@ -226,12 +308,52 @@ def _front(params, dims: SSMDims, x_in: torch.Tensor, tail_x, tail_bc,
     return z, xr, bmat, cmat, dt, a_neg, norm_w, (new_tail_x, new_tail_bc), heads, inner
 
 
+class _GatedNorm(torch.autograd.Function):
+    """``rmsnorm(y * silu(z)) * w`` in float32 on ``y`` and ``z`` of the compute
+    dtype, out in ``z``'s (``apply(y, z, w, eps, group)``; over ``group`` a row
+    split, as :func:`kernels.rmsnorm.rms_norm_split`).  The forward is the
+    RMSNorm kernel on the float32 gate; it keeps ``y`` and ``z``, and the
+    backward forms the gate again: ``rms_norm_bwd``'s closed form (or
+    ``rms_norm_split_bwd``'s), then the product and SiLU by hand."""
+
+    @staticmethod
+    def forward(ctx, y, z, w, eps, group):
+        g = y.float() * F.silu(z.float())
+        w = w.contiguous()
+        total = None
+        if group.size == 1:
+            out = rms_norm_fused(g, w, eps)
+        else:
+            total = group.all_reduce_sum(row_sumsq(g))
+            out = rms_norm_scaled(g, w, total, g.shape[-1] * group.size, eps)
+        ctx.save_for_backward(y, z, w, total)
+        ctx.eps, ctx.group = eps, group
+        return out.to(z.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        y, z, w, total = ctx.saved_tensors
+        with span("rmsnorm.backward"):
+            yf, zf = y.float(), z.float()
+            sig = torch.sigmoid(zf)
+            silu = zf * sig
+            g = yf * silu
+            if total is None:
+                dg, dw = rms_norm_bwd(grad, g, w, ctx.eps)
+            else:
+                dg, dw = rms_norm_split_bwd(grad, g, w, total, ctx.group, ctx.eps)
+            dy = dg * silu
+            dz = dg * yf * sig * (1 + zf * (1 - sig))
+        return dy.to(y.dtype), dz.to(z.dtype), dw, None, None
+
+
 def _back(params, y: torch.Tensor, z: torch.Tensor, norm_w: torch.Tensor, heads: tp.Group,
-          inner: tp.Group) -> torch.Tensor:
-    """The gated norm (a row split over ``heads``) and the row-parallel
-    ``out_proj`` (the rank's channels of a whole ``y`` where only ``d_inner``
-    splits): the rank's partial product, which the caller sums over ``inner``."""
-    y = rms_norm_split(y * F.silu(z), norm_w, heads)
+          inner: tp.Group, norm_eps: float) -> torch.Tensor:
+    """The gated norm (in float32, a row split over ``heads``, at
+    ``norm_eps``) and the row-parallel ``out_proj`` (the rank's channels of a
+    whole ``y`` where only ``d_inner`` splits): the rank's partial product,
+    which the caller sums over ``inner``."""
+    y = _GatedNorm.apply(y, z, norm_w, norm_eps, heads)
     if heads is not inner:
         y = tp.scatter(y, inner, -1)
     return y @ params["out_proj"]
@@ -246,17 +368,22 @@ def ssm_layer_apply(
     h0: Optional[torch.Tensor] = None,
     return_state: bool = False,
     seq: tp.Group = tp.SINGLE,
+    *,
+    norm_eps: float,
 ):
     """Full mamba2 mixer.  Returns y (B,S,d) [+ (tails, h) if requested];
     over a model group, the rank's tails and state (its channels and heads).
     Over a ``seq`` group (sequence parallelism) ``x_in`` and ``y`` are this
-    rank's rows: the whole rows are gathered, the sum reduce-scattered back."""
+    rank's rows: the whole rows are gathered, the sum reduce-scattered back.
+    ``norm_eps`` is the gated norm's epsilon."""
     z, xr, bmat, cmat, dt, a_neg, norm_w, tails, heads, inner = _front(
         params, dims, x_in, conv_tail_x, conv_tail_bc, seq)
     xh = xr.reshape(*xr.shape[:-1], -1, dims.headdim)
-    y, h = ssd_chunked(xh, dt, a_neg, bmat, cmat, params["D"], dims.chunk, h0)
+    scan = ssd_scan(xh, dt, a_neg, bmat, cmat, params["D"], dims.chunk, h0,
+                    want_state=return_state)
+    y, h = scan if return_state else (scan, None)
     y = y.reshape(*y.shape[:-2], -1).to(x_in.dtype)
-    out = tp.region_out(_back(params, y, z, norm_w, heads, inner), inner, seq)
+    out = tp.region_out(_back(params, y, z, norm_w, heads, inner, norm_eps), inner, seq)
     if return_state:
         return out, (*tails, h)
     return out
@@ -269,9 +396,12 @@ def ssm_decode_step(
     conv_tail_x: torch.Tensor,
     conv_tail_bc: torch.Tensor,
     h: torch.Tensor,
+    *,
+    norm_eps: float,
 ):
     """Single-token update.  Returns (y (B,1,d), new tails, new h); over a
-    model group, the rank's tails and state."""
+    model group, the rank's tails and state.  ``norm_eps`` is the gated
+    norm's epsilon."""
     z, xr, bmat, cmat, dt, a_neg, norm_w, (new_tail_x, new_tail_bc), heads, inner = _front(
         params, dims, x_in, conv_tail_x, conv_tail_bc)
     dt = dt[:, 0]  # (B,nh)
@@ -283,4 +413,5 @@ def ssm_decode_step(
     y = torch.einsum("bn,bhnp->bhp", cmat[:, 0].float(), h)
     y = y + params["D"][None, :, None] * xh
     y = y.reshape(b, 1, -1).to(x_in.dtype)
-    return tp.leave(_back(params, y, z, norm_w, heads, inner), inner), new_tail_x, new_tail_bc, h
+    return (tp.leave(_back(params, y, z, norm_w, heads, inner, norm_eps), inner), new_tail_x,
+            new_tail_bc, h)

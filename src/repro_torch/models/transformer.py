@@ -411,7 +411,7 @@ def _norm(p, cfg: ArchConfig, x, name: str, seq: tp.Group = tp.SINGLE):
     """The block's norm ``name`` of ``x``; over a ``seq`` group ``x`` is this
     rank's rows, so the weights' gradient is partial (entered: summed)."""
     if cfg.norm_type == "rms":
-        return rms_norm(x, tp.enter(p[name], seq), plus_one=cfg.norm_plus_one)
+        return rms_norm(x, tp.enter(p[name], seq), cfg.norm_eps, cfg.norm_plus_one)
     return layer_norm(x, tp.enter(p[name + "_w"], seq), tp.enter(p[name + "_b"], seq))
 
 
@@ -522,8 +522,9 @@ def _vocab_group(cfg: ArchConfig) -> tp.Group:
 
 
 def _embed(params, cfg: ArchConfig, tokens=None, embeds=None,
-           seq: tp.Group = tp.SINGLE) -> torch.Tensor:
-    """The residual stream's input (over a ``seq`` group, this rank's rows)."""
+           seq: tp.Group = tp.SINGLE, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The residual stream's input (over a ``seq`` group, this rank's rows),
+    in ``dtype`` (the compute dtype where None)."""
     if embeds is None:
         vg = _vocab_group(cfg)
         if vg.size == 1:
@@ -537,7 +538,7 @@ def _embed(params, cfg: ArchConfig, tokens=None, embeds=None,
                                    seq)
     else:
         embeds = tp.scatter(embeds, seq, 1)
-    x = embeds.to(cfg.dtype("compute"))
+    x = embeds.to(dtype or cfg.dtype("compute"))
     if cfg.embed_scale:
         # sqrt(d) rounded to the compute dtype first, as the reference does
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype).item()
@@ -546,8 +547,10 @@ def _embed(params, cfg: ArchConfig, tokens=None, embeds=None,
 
 def _unembed(params, cfg: ArchConfig, x: torch.Tensor, seq: tp.Group = tp.SINGLE) -> torch.Tensor:
     """Float32 logits of every row: over a vocabulary group, this rank's
-    columns (over a ``seq`` group ``x`` is this rank's rows, gathered)."""
-    x = tp.region_in(_norm(params, cfg, x, "final_norm", seq), _vocab_group(cfg), seq)
+    columns (over a ``seq`` group ``x`` is this rank's rows, gathered); the
+    final norm gives the compute dtype, whatever the residual's."""
+    x = _norm(params, cfg, x, "final_norm", seq).to(cfg.dtype("compute"))
+    x = tp.region_in(x, _vocab_group(cfg), seq)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return (x @ w.to(x.dtype)).float()
 

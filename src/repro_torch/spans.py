@@ -28,7 +28,9 @@ timeline only; the kernels it launched are found through their launch calls.
   gradients, and AdamW with the new parameters (``runtime.train``'s step on
   one device);
 * ``attention.backward``, ``rmsnorm.backward``: the backward of each call
-  of the attention and RMSNorm kernels' autograd functions.
+  of the attention and RMSNorm kernels' autograd functions;
+* ``ssd.forward``, ``ssd.backward``: Mamba-2's chunked SSD scan
+  (``models.ssm.ssd_scan``), each forward and recompute, and its backward.
 """
 from __future__ import annotations
 
@@ -50,6 +52,8 @@ NAMES = (
     "train.optimizer",
     "attention.backward",
     "rmsnorm.backward",
+    "ssd.forward",
+    "ssd.backward",
 )
 
 _OFF = contextlib.nullcontext()

@@ -90,13 +90,14 @@ def test_mixer_and_decode_step_match_reference():
     dims, jdims, jparams, params = _layer()
     jx = jax.random.normal(jax.random.key(3), (2, 13, dims.d_model))
     want, (wtx, wtbc, wh) = jax_ssm.ssm_layer_apply(jparams, jdims, jx, return_state=True)
-    got, (tx, tbc, h) = ssm.ssm_layer_apply(params, dims, _t(jx), return_state=True)
+    got, (tx, tbc, h) = ssm.ssm_layer_apply(params, dims, _t(jx), return_state=True,
+                                             norm_eps=1e-6)
     for name, a, b in (("y", got, want), ("tail_x", tx, wtx), ("tail_bc", tbc, wtbc),
                        ("h", h, wh)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **TOL)
     jx1 = jax.random.normal(jax.random.key(4), (2, 1, dims.d_model))
     want = jax_ssm.ssm_decode_step(jparams, jdims, jx1, wtx, wtbc, wh)
-    got = ssm.ssm_decode_step(params, dims, _t(jx1), tx, tbc, h)
+    got = ssm.ssm_decode_step(params, dims, _t(jx1), tx, tbc, h, norm_eps=1e-6)
     for name, a, b in zip(("y", "tail_x", "tail_bc", "h"), got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **TOL)
 
